@@ -1,0 +1,151 @@
+#!/usr/bin/env python3
+"""Where a render's time goes on one NVIDIA GPU, and how far card and CPU
+renders of the PyTorch port (mathmap_tpu_torch) drift apart.
+
+    python3 chip_profile.py      # from the root of a checkout, on a GPU host
+
+Two parts, each printing one line per case:
+
+1. profile: fisheye, twirl and pond at their default params, u8 input of
+   1920x1080 and 3840x2160 already on the device. The median of 20 fenced
+   renders (as chip_smoke.py times them), then torch.profiler over 5
+   renders: device kernels per render, device busy ms per render and its
+   share of the median, split into the channel stack (the cat kernel of
+   render_frame's torch.stack), the sampler kernel B1 and all other torch
+   kernels, plus the host-device copies and cudaStreamSynchronize calls per
+   render.
+2. coords: each filter at 1920x1080 rendered on the card and on the CPU
+   (the plain sampler). The largest difference of the world coordinates the
+   two hand to the sampler (in pixels), and of the outputs on three seeded
+   images: noise, a smooth image, and the same smooth image faded to the
+   edge color at its border (chip_smoke.py's comparison image).
+
+Every line carries the card's name and power limit. It imports no JAX.
+"""
+
+from __future__ import annotations
+
+import sys
+
+import torch
+
+from chip_smoke import (FILTERS, ROOT, card_line, render_median_ms,
+                        seeded_image, smooth_image)
+
+PROFILED_RENDERS = 5
+SIZES = ((1920, 1080), (3840, 2160))
+
+
+def profile_render(f, img, dev):
+    """Per-render device time by kernel class, from torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    f.render(img, device=dev)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILED_RENDERS):
+            f.render(img, device=dev)
+        torch.cuda.synchronize()
+    us = {"stack": 0.0, "B1": 0.0, "other": 0.0, "copy": 0.0}
+    kernels = copies = syncs = 0
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            dur = e.time_range.elapsed_us()
+            by_name[e.name] = by_name.get(e.name, 0.0) + dur
+            if e.name.startswith(("Memcpy", "Memset")):
+                copies += 1
+                us["copy"] += dur
+                continue
+            kernels += 1
+            if "sample_image_kernel" in e.name:
+                us["B1"] += dur
+            elif "CatArrayBatchedCopy" in e.name:
+                us["stack"] += dur
+            else:
+                us["other"] += dur
+        elif e.name == "cudaStreamSynchronize":
+            syncs += 1
+    n = PROFILED_RENDERS
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:3]
+    return ({k: v / n / 1e3 for k, v in us.items()}, kernels / n, copies / n,
+            syncs / n, [(k[:70], v / n / 1e3) for k, v in top])
+
+
+def part_profile(filters, dev, card):
+    for (w, h) in SIZES:
+        _, u8 = seeded_image(w, h, seed=4)
+        img = torch.from_numpy(u8).to(dev)
+        for name in FILTERS:
+            f = filters[name]
+            median = render_median_ms(f, img, dev)
+            ms, kernels, copies, syncs, top = profile_render(f, img, dev)
+            busy = sum(ms.values())
+            print(f"profile {name:7s} {w}x{h}: median {median:.3f} ms/frame, "
+                  f"{kernels:g} kernels, device busy {busy:.4f} ms "
+                  f"({100 * busy / median:.1f}% of the median): stack "
+                  f"{ms['stack']:.4f}, other torch {ms['other']:.4f}, B1 "
+                  f"{ms['B1']:.4f}, copies {ms['copy']:.4f} ms ({copies:g}); "
+                  f"{syncs:g} cudaStreamSynchronize per render [{card}]")
+            for kname, kms in top:
+                print(f"  top kernel {kms:.4f} ms/render: {kname}")
+
+
+def sampler_coordinates(f, img, device):
+    """Render once; the output and the (x, y) grids handed to the sampler."""
+    from mathmap_tpu_torch.runtime import sampling
+
+    seen = []
+    kernel = sampling.sample_kernel
+
+    def recording(pixels, x, y, *args):
+        seen.append((x.cpu(), y.cpu()))
+        return kernel(pixels, x, y, *args)
+
+    sampling.sample_kernel = recording
+    try:
+        out = f.render(img, device=device)
+    finally:
+        sampling.sample_kernel = kernel
+    if len(seen) != 1:
+        raise AssertionError(f"{len(seen)} sampler calls in one render")
+    return out.cpu(), seen[0]
+
+
+def part_coords(filters, dev, card):
+    w, h = SIZES[0]
+    images = {"noise": seeded_image(w, h, seed=5)[0],
+              "smooth": smooth_image(w, h, seed=3, fade=False)[0],
+              "smooth faded": smooth_image(w, h, seed=3)[0]}
+    for name in FILTERS:
+        f = filters[name]
+        for iname, a in images.items():
+            img = torch.from_numpy(a)
+            got, (xg, yg) = sampler_coordinates(f, img.to(dev), dev)
+            want, (xc, yc) = sampler_coordinates(f, img, "cpu")
+            dxy = max(float((xg - xc).abs().max()), float((yg - yc).abs().max()))
+            err = float((got - want).abs().max())
+            print(f"coords {name:7s} {w}x{h} {iname:12s}: sampler coordinates "
+                  f"card vs CPU max {dxy:.3e} px, output max abs diff "
+                  f"{err:.3e} [{card}]")
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_profile: no CUDA GPU available", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT))
+    import mathmap_tpu_torch as mt
+
+    dev = torch.device("cuda", 0)
+    card = card_line()
+    filters = {n: mt.compile_file(str(ROOT / "filters" / "Distorts" / f"{n}.mm"))
+               for n in FILTERS}
+    part_profile(filters, dev, card)
+    part_coords(filters, dev, card)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,44 @@
+"""mathmap_tpu_torch — the PyTorch and CUDA port of mathmap_tpu, for an
+NVIDIA H100.
+
+The JAX package `mathmap_tpu` stays the reference; this package imports
+`torch` and never `jax` or `mathmap_tpu`. It renders the distortion suite
+(filters/Distorts/fisheye, twirl, pond) end to end: the front end is a copy
+of the reference's, the evaluator runs eager torch ops on the device the
+caller names, and origVal goes through a hand-written CUDA sampler
+(csrc/sample_image.cu, built by nvcc at first use). ROADMAP.md lists what is
+still to port.
+
+    import mathmap_tpu_torch as mt
+    f = mt.compile_file("filters/Distorts/twirl.mm")
+    out = f.render(image, device="cuda")     # (H, W, 4) float32 tensor
+"""
+
+import sys as _sys
+
+# Deep machine-generated expressions recurse through the parser and the
+# evaluator, as in the reference.
+_sys.setrecursionlimit(max(_sys.getrecursionlimit(), 20000))
+
+from . import ops as _ops  # noqa: E402,F401  — populate the builtin registry
+from .api import Filter, compile_file, compile_source  # noqa: E402
+from .runtime.options import RenderOptions  # noqa: E402
+from .utils.errors import (  # noqa: E402
+    MMError,
+    MMNameError,
+    MMRuntimeError,
+    MMSyntaxError,
+    MMTypeError,
+)
+
+__all__ = [
+    "Filter",
+    "compile_source",
+    "compile_file",
+    "RenderOptions",
+    "MMError",
+    "MMSyntaxError",
+    "MMTypeError",
+    "MMNameError",
+    "MMRuntimeError",
+]
