@@ -7,13 +7,15 @@ renders of the PyTorch port (mathmap_tpu_torch) drift apart.
 Two parts, each printing one line per case:
 
 1. profile: fisheye, twirl and pond at their default params, u8 input of
-   1920x1080 and 3840x2160 already on the device. The median of 20 fenced
-   renders (as chip_smoke.py times them), then torch.profiler over 5
-   renders: device kernels per render, device busy ms per render and its
-   share of the median, split into the channel stack (the cat kernel of
-   render_frame's torch.stack), the sampler kernel B1 and all other torch
-   kernels, plus the host-device copies and cudaStreamSynchronize calls per
-   render.
+   1920x1080 and 3840x2160 already on the device, and mandelbrot at its
+   default params at both sizes, through the generated loop kernel and
+   (pallas_while="off") through the masked eager loop. The median of 20 fenced renders (as
+   chip_smoke.py times them), then torch.profiler over 5 renders: device
+   kernels per render, device busy ms per render and its share of the
+   median, split into the channel stack (the cat kernel of render_frame's
+   torch.stack), the kernels B1 (sampler), B2 (LUT) and B3 (generated
+   while loop) and all other torch kernels, plus the host-device copies and
+   cudaStreamSynchronize calls per render.
 2. coords: each filter at 1920x1080 rendered on the card and on the CPU
    (the plain sampler). The largest difference of the world coordinates the
    two hand to the sampler (in pixels), and of the outputs on three seeded
@@ -36,18 +38,23 @@ PROFILED_RENDERS = 5
 SIZES = ((1920, 1080), (3840, 2160))
 
 
-def profile_render(f, img, dev):
+#: kernel-name fragment -> class
+KERNEL_CLASSES = (("sample_image_kernel", "B1"), ("apply_lut_kernel", "B2"),
+                  ("while_loop_kernel", "B3"), ("CatArrayBatchedCopy", "stack"))
+
+
+def profile_render(f, inputs, dev, **kw):
     """Per-render device time by kernel class, from torch.profiler."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    f.render(img, device=dev)
+    f.render(*inputs, device=dev, **kw)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(PROFILED_RENDERS):
-            f.render(img, device=dev)
+            f.render(*inputs, device=dev, **kw)
         torch.cuda.synchronize()
-    us = {"stack": 0.0, "B1": 0.0, "other": 0.0, "copy": 0.0}
+    us = {"stack": 0.0, "B1": 0.0, "B2": 0.0, "B3": 0.0, "other": 0.0, "copy": 0.0}
     kernels = copies = syncs = 0
     by_name = {}
     for e in prof.events():
@@ -59,12 +66,8 @@ def profile_render(f, img, dev):
                 us["copy"] += dur
                 continue
             kernels += 1
-            if "sample_image_kernel" in e.name:
-                us["B1"] += dur
-            elif "CatArrayBatchedCopy" in e.name:
-                us["stack"] += dur
-            else:
-                us["other"] += dur
+            cls = next((c for frag, c in KERNEL_CLASSES if frag in e.name), "other")
+            us[cls] += dur
         elif e.name == "cudaStreamSynchronize":
             syncs += 1
     n = PROFILED_RENDERS
@@ -73,20 +76,26 @@ def profile_render(f, img, dev):
             syncs / n, [(k[:70], v / n / 1e3) for k, v in top])
 
 
-def part_profile(filters, dev, card):
+def part_profile(filters, mandelbrot, eager_loop, dev, card):
+    """`eager_loop`: RenderOptions that run mandelbrot's loop as the masked
+    eager loop (pallas_while="off"), for the syncs the kernel removes."""
     for (w, h) in SIZES:
         _, u8 = seeded_image(w, h, seed=4)
         img = torch.from_numpy(u8).to(dev)
-        for name in FILTERS:
-            f = filters[name]
-            median = render_median_ms(f, img, dev)
-            ms, kernels, copies, syncs, top = profile_render(f, img, dev)
+        cases = [(name, filters[name], (img,), {}) for name in FILTERS]
+        cases.append(("mandelbrot", mandelbrot, (), {"width": w, "height": h}))
+        cases.append(("mandelbrot, eager loop", mandelbrot, (),
+                      {"width": w, "height": h, "options": eager_loop}))
+        for name, f, inputs, kw in cases:
+            median = render_median_ms(f, inputs[0] if inputs else None, dev, **kw)
+            ms, kernels, copies, syncs, top = profile_render(f, inputs, dev, **kw)
             busy = sum(ms.values())
-            print(f"profile {name:7s} {w}x{h}: median {median:.3f} ms/frame, "
+            print(f"profile {name} {w}x{h}: median {median:.3f} ms/frame, "
                   f"{kernels:g} kernels, device busy {busy:.4f} ms "
                   f"({100 * busy / median:.1f}% of the median): stack "
                   f"{ms['stack']:.4f}, other torch {ms['other']:.4f}, B1 "
-                  f"{ms['B1']:.4f}, copies {ms['copy']:.4f} ms ({copies:g}); "
+                  f"{ms['B1']:.4f}, B2 {ms['B2']:.4f}, B3 {ms['B3']:.4f}, copies "
+                  f"{ms['copy']:.4f} ms ({copies:g}); "
                   f"{syncs:g} cudaStreamSynchronize per render [{card}]")
             for kname, kms in top:
                 print(f"  top kernel {kms:.4f} ms/render: {kname}")
@@ -142,7 +151,8 @@ def main() -> int:
     card = card_line()
     filters = {n: mt.compile_file(str(ROOT / "filters" / "Distorts" / f"{n}.mm"))
                for n in FILTERS}
-    part_profile(filters, dev, card)
+    mandelbrot = mt.compile_file(str(ROOT / "filters" / "Render" / "mandelbrot.mm"))
+    part_profile(filters, mandelbrot, mt.RenderOptions(pallas_while="off"), dev, card)
     part_coords(filters, dev, card)
     return 0
 

@@ -5,20 +5,38 @@
 
 Phases, each printing its own lines:
 
-1. card: the GPU's name and power limit (nvidia-smi), CUDA and torch
-   versions, and the build of the kernel library from
-   mathmap_tpu_torch/csrc/ by nvcc (its time and ptxas register report);
-2. kernel vs plain: the CUDA origVal sampler against its plain PyTorch
-   version on the same CUDA tensors, at 1920x1080 and 3840x2160, for every
+1. card and build: the GPU's name and power limit (nvidia-smi), CUDA and
+   torch versions; every kernel built by nvcc at once, one process per
+   source, all started together: the library of mathmap_tpu_torch/csrc/*.cu
+   (B1, B2) and one generated while-loop kernel (B3) per distinct loop body
+   of the phases below, traced from tiny CPU renders (nvcc seconds and
+   ptxas register reports);
+2. B1 vs plain: the CUDA origVal sampler against its plain PyTorch version
+   on the same CUDA tensors, at 1920x1080 and 3840x2160, for every
    interpolation x edge pair x source dtype, at rtol=1e-4, atol=1e-5;
-3. main path: fisheye, twirl and pond through compile_file ->
+3. B2 vs plain: the LUT kernel against its plain version on the same CUDA
+   tensors, (K,) and (K, 4) LUTs at K = 2, 256 and 5000 (shared- and
+   global-memory routes), on 3840x2160 positions below 0, above 1, exactly
+   0 and 1, and inside, at rtol=1e-5, atol=1e-6;
+4. B3 vs plain: each loop's generated kernel against the eager masked loop
+   on the same CUDA tensors: mandelbrot, julia, burning_ship, tricorn and
+   biomorph at 3840x2160 (identical grids), a body with sin() and
+   condition assignments at the default cap and at max_loop_iters=9
+   (rtol=1e-4, atol=1e-5), and mandelbrot at 13x100 and 2161x3839
+   (identical);
+5. distortion path: fisheye, twirl and pond through compile_file ->
    Filter.render(device="cuda") at 1920x1080 and 3840x2160; every render
    must launch the sampler kernel once, and the 1080p renders of a smooth
    seeded image must match the port's CPU renders (rtol=1e-4, atol=1e-5;
    uint8 output within 1 LSB);
-4. timings on the card: median fenced render time per filter and size, and
-   the kernel alone against the plain version (whose outputs are held
-   against each other too).
+6. generative path: mandelbrot (default and zoomed params, float32 and
+   uint8 output) at 1920x1080 and 3840x2160, julia and burning_ship at
+   3840x2160; every render must launch the loop kernel once and the LUT
+   kernel once, and the 1080p renders must match the port's CPU renders
+   (rtol=1e-4, atol=1e-5, differing pixels counted; uint8 within 1 LSB);
+7. timings on the card: median fenced render times, each kernel alone
+   against its plain version and, where one PyTorch call computes the same
+   function, against that call (grid_sample), and each kernel's bound.
 
 The line before the last is the JSON record of the kernels; the last line
 is {"ok": true, "device": {...}}. Any failure raises and exits non-zero;
@@ -33,6 +51,7 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -53,6 +72,23 @@ EDGE_PAIRS = (("color", "color"), ("wrap", "wrap"), ("reflect", "reflect"),
 EDGE_COLOR = (0.25, 0.5, 0.75, 1.0)
 RTOL, ATOL = 1e-4, 1e-5
 TIMED_RENDERS = 20
+GENERATIVE = ("mandelbrot", "julia", "burning_ship", "tricorn", "biomorph")
+#: mandelbrot zoomed onto the set's boundary
+ZOOMED = {"maxiter": 256, "zoom": 3.0, "cx": -0.7435, "cy": 0.1314}
+#: tests/test_language.py's engine body: sin(), a condition assignment
+#: (n = n + 1 persists), values computed before the loop
+SIN_BODY = ("filter sin_body ()"
+            "  c = x / W + y / H;"
+            "  z = 0; i = 0; n = 0;"
+            "  while n = n + 1; z < 4 + c && i < 37 do"
+            "    z = z + 0.2 + 0.1 * sin(c * 9 + i); i = i + 1 "
+            "  end;"
+            "  grayColor(clamp(z / 8 + i / 100 + n / 1000, 0, 1)) end")
+LUT_SIZES = (2, 256, 5000)
+LUT_RTOL, LUT_ATOL = 1e-5, 1e-6
+#: H100 SXM peaks (NVIDIA's data sheet): HBM3 bytes/s, fp32 (non-tensor) op/s
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
 
 
 def card_line() -> str:
@@ -141,16 +177,18 @@ def event_ms(fn, iters: int) -> float:
     return start.elapsed_time(stop) / iters
 
 
-def render_median_ms(f, img, dev, n: int = TIMED_RENDERS) -> float:
+def render_median_ms(f, img, dev, n: int = TIMED_RENDERS, **kw) -> float:
     """Median host ms of `n` renders, each fenced by synchronize, after two
-    warm-up renders."""
+    warm-up renders. `img` is None for a filter without an image input;
+    `kw` goes to Filter.render (width, height, params)."""
+    inputs = () if img is None else (img,)
     for _ in range(2):
-        f.render(img, device=dev)
+        f.render(*inputs, device=dev, **kw)
     times = []
     for _ in range(n):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        f.render(img, device=dev)
+        f.render(*inputs, device=dev, **kw)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     return statistics.median(times)
@@ -165,17 +203,74 @@ def check_close(name, got, want, rtol=RTOL, atol=ATOL) -> float:
     return float(err.max())
 
 
-def phase_card(build):
+def bound_ms(n_bytes: float, n_ops: float = 0.0):
+    """The least time the card could take: the larger of the bytes over
+    the HBM rate and the operations over the fp32 rate -> (ms, bound_by)."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / FP32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+class LoopCapture:
+    """Records every call of the evaluator's loop-kernel entry
+    (runtime.tracer.loop_kernel) while active: (loop, flat0, mask0,
+    max_iters, result)."""
+
+    def __init__(self, tracer):
+        self.tracer = tracer
+        self.calls = []
+
+    def __enter__(self):
+        self.orig = orig = self.tracer.loop_kernel
+
+        def spy(loop, flat0, mask0, max_iters):
+            out = orig(loop, flat0, mask0, max_iters)
+            self.calls.append((loop, flat0, mask0, max_iters, out))
+            return out
+
+        self.tracer.loop_kernel = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.tracer.loop_kernel = self.orig
+
+    def one(self, what: str):
+        if len(self.calls) != 1:
+            raise AssertionError(f"{what}: {len(self.calls)} loop-kernel calls, expected 1")
+        return self.calls[0]
+
+
+def phase_card(mt, build, WL, tracer, loop_filters):
+    """The card, then every kernel built at once: the csrc/ library and one
+    generated kernel per distinct loop body (traced on tiny CPU renders)."""
     card = card_line()
     print(f"card: {card}")
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}")
-    lib = build.library()
+    sources = {}
+    with LoopCapture(tracer) as cap:
+        for f, params in loop_filters:
+            f.render(width=16, height=8, params=params, device="cpu")
+    for loop, flat0, *_ in cap.calls:
+        sources.setdefault(WL.emit_cuda(WL.trace(loop, len(flat0)), loop.origin), loop)
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(sources) + 1) as pool:
+        lib = pool.submit(build.library)
+        gens = [pool.submit(build.generated_library, src) for src in sources]
+        lib = lib.result()
+        gens = [g.result() for g in gens]
+    print(f"nvcc: {len(sources) + 1} builds in parallel, {time.perf_counter() - t0:.2f} s wall")
     print(f"kernel library: {lib.path.relative_to(ROOT)} built by nvcc from "
           f"{build.CSRC.relative_to(ROOT)}/ in {lib.build_seconds:.2f} s")
     for line in lib.log.splitlines():
         if "registers" in line or "spill" in line:
             print(f"  ptxas: {line.strip()}")
+    for g, loop in zip(gens, sources.values()):
+        print(f"generated loop kernel {g.path.name} (loop at {loop.origin}): nvcc "
+              f"{g.build_seconds:.2f} s")
+        for line in g.log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  ptxas: {line.strip()}")
     return card
 
 
@@ -206,8 +301,94 @@ def phase_kernel_vs_plain(K, dev) -> float:
     return worst
 
 
-def phase_main_path(mt, K, dev, filters):
-    """Every render goes through the kernel; 1080p matches the CPU port."""
+def lut_positions(w: int, h: int, seed: int):
+    """(h, w) LUT positions in four row bands: below 0, above 1, exactly 0
+    or 1, and inside [0, 1]."""
+    rs = np.random.RandomState(seed)
+    pos = np.empty((h, w), np.float32)
+    bands = np.array_split(np.arange(h), 4)
+    pos[bands[0]] = rs.uniform(-2.0, 0.0, (len(bands[0]), w))
+    pos[bands[1]] = rs.uniform(1.0, 3.0, (len(bands[1]), w))
+    pos[bands[2]] = rs.choice([0.0, 1.0], (len(bands[2]), w))
+    pos[bands[3]] = rs.uniform(0.0, 1.0, (len(bands[3]), w))
+    return pos
+
+
+def seeded_lut(k: int, channels: int, seed: int):
+    shape = (k,) if channels == 1 else (k, channels)
+    return np.random.RandomState(seed).rand(*shape).astype(np.float32)
+
+
+def phase_lut_vs_plain(L, dev) -> float:
+    """B2 against its plain version at the generative path's 4K shape."""
+    w, h = SIZES[1]
+    pos = torch.from_numpy(lut_positions(w, h, seed=6)).to(dev)
+    worst = 0.0
+    for k in LUT_SIZES:
+        for channels in (1, 4):
+            lut = torch.from_numpy(seeded_lut(k, channels, seed=k + channels)).to(dev)
+            got = L.apply_lut(lut, pos)
+            want = L.apply_lut_reference(lut, pos)
+            torch.cuda.synchronize()
+            err = check_close(f"apply_lut K={k} C={channels}", got, want,
+                              rtol=LUT_RTOL, atol=LUT_ATOL)
+            worst = max(worst, err)
+            route = "shared" if k * channels * 4 <= 48 * 1024 else "global"
+            print(f"B2 vs plain {w}x{h} K={k:5d} C={channels} ({route} LUT): "
+                  f"max abs err {err:.3e}")
+    print(f"B2 vs plain: all {2 * len(LUT_SIZES)} cases agree "
+          f"(rtol={LUT_RTOL}, atol={LUT_ATOL}), worst max abs err {worst:.3e}")
+    return worst
+
+
+def loop_reference(WL, loop, flat0, mask0, max_iters):
+    """The plain version on a captured loop's inputs -> (carry, steps,
+    iterations): iterations counts every pixel's body evaluations."""
+    active = []
+
+    def counted(flat, mask):
+        active.append(mask.sum())
+        return loop.step(flat, mask)
+
+    flat, steps = WL.while_loop_reference(counted, flat0, mask0, max_iters, loop.unroll)
+    return flat, steps, int(torch.stack(active).sum()) if active else 0
+
+
+def phase_loop_vs_plain(mt, WL, tracer, dev, filters, sin_filter) -> float:
+    """B3 against the eager masked loop on the same CUDA tensors."""
+    cases = [(n, filters[n], *SIZES[1], None, True) for n in GENERATIVE]
+    cases += [("sin body", sin_filter, *SIZES[1], None, False),
+              ("sin body, max_loop_iters=9", sin_filter, *SIZES[1],
+               mt.RenderOptions(max_loop_iters=9), False),
+              ("mandelbrot", filters["mandelbrot"], 100, 13, None, True),
+              ("mandelbrot", filters["mandelbrot"], 3839, 2161, None, True)]
+    worst = 0.0
+    for name, f, w, h, opts, exact in cases:
+        with LoopCapture(tracer) as cap:
+            f.render(width=w, height=h, options=opts, device=dev)
+        loop, flat0, mask0, max_iters, got = cap.one(name)
+        want, steps, iters = loop_reference(WL, loop, flat0, mask0, max_iters)
+        torch.cuda.synchronize()
+        differ = sum(int(((a != b) & ~(a.isnan() & b.isnan())).sum())
+                     for a, b in zip(got, want))
+        err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+        tag = f"B3 vs plain {name} {w}x{h}"
+        if exact and differ:
+            raise AssertionError(f"{tag}: {differ} carried values differ from the eager loop")
+        if not exact:
+            for a, b in zip(got, want):
+                err = max(err, check_close(tag, a, b))
+        worst = max(worst, err)
+        print(f"{tag}: {len(flat0)} carried grids, {steps} eager steps, "
+              f"{iters} pixel iterations; {differ} values differ, max abs err "
+              f"{err:.3e} ({'identical required' if exact else f'rtol={RTOL}, atol={ATOL}'})")
+    print(f"B3 vs plain: all {len(cases)} cases agree, worst max abs err {worst:.3e}")
+    return worst
+
+
+def phase_distortion_path(mt, K, dev, filters):
+    """Every render goes through the sampler kernel; 1080p matches the CPU
+    port."""
     K.sample_image.launches = 0
     renders = 0
     for (w, h) in SIZES:
@@ -237,7 +418,7 @@ def phase_main_path(mt, K, dev, filters):
                 tag = (f"{name:7s} {w}x{h} {dname:3s} in, {out_dtype:7s} out, "
                        f"{'default' if not params else 'other'} params")
                 if w != SIZES[0][0]:
-                    print(f"main path {tag}: ok")
+                    print(f"distortion path {tag}: ok")
                     continue
                 cpu_img = img.cpu()
                 ref = f.render(cpu_img, params=params, options=opts, device="cpu")
@@ -245,20 +426,65 @@ def phase_main_path(mt, K, dev, filters):
                     lsb = int((out.cpu().int() - ref.int()).abs().max())
                     if lsb > 1:
                         raise AssertionError(f"{tag}: {lsb} LSB from the CPU render")
-                    print(f"main path {tag}: max {lsb} LSB from the CPU render")
+                    print(f"distortion path {tag}: max {lsb} LSB from the CPU render")
                 else:
                     err = check_close(tag, out.cpu(), ref)
-                    print(f"main path {tag}: max abs err {err:.3e} vs the CPU render")
+                    print(f"distortion path {tag}: max abs err {err:.3e} vs the CPU render")
     launches = K.sample_image.launches
     if launches != renders:
         raise AssertionError(f"{launches} sampler launches for {renders} renders")
-    print(f"main path: {renders} GPU renders, {launches} sampler kernel launches")
+    print(f"distortion path: {renders} GPU renders, {launches} sampler kernel launches")
     return launches
 
 
+def grid_sample_image(pix, x, y):
+    """B1's function as one PyTorch call: bilinear grid_sample with zero
+    padding (the transparent edge color) on the float32 NCHW copy of
+    `pix`; returns (call, its (4, H, W) output). The layout copy and the
+    normalised grid are made here, outside the timed call."""
+    import torch.nn.functional as F
+
+    hi, wi = pix.shape[:2]
+    src = pix.float() / 255.0 if pix.dtype == torch.uint8 else pix
+    img = src.permute(2, 0, 1)[None].contiguous()
+    grid = torch.stack([x * (2.0 / wi), y * (-2.0 / hi)], dim=-1)[None]
+
+    def call():
+        return F.grid_sample(img, grid, mode="bilinear", padding_mode="zeros",
+                             align_corners=False)
+
+    return call, call()[0]
+
+
+def grid_sample_lut(lut, pos):
+    """B2's function as one PyTorch call: the LUT as a (1, C, 1, K) image,
+    bilinear grid_sample with align_corners=True and border padding (the
+    clamp to [0, 1]); returns (call, its (C, H, W) output)."""
+    import torch.nn.functional as F
+
+    k = lut.shape[0]
+    img = lut.reshape(k, -1).t().reshape(1, -1, 1, k).contiguous()
+    grid = torch.stack([pos * 2.0 - 1.0, torch.zeros_like(pos)], dim=-1)[None]
+
+    def call():
+        return F.grid_sample(img, grid, mode="bilinear", padding_mode="border",
+                             align_corners=True)
+
+    return call, call()[0]
+
+
+def turns(plain, kernel, n_plain: int, n_kernel: int):
+    """(kernel ms, plain ms): timed plain, kernel, kernel, plain."""
+    runs = [event_ms(plain, n_plain), event_ms(kernel, n_kernel),
+            event_ms(kernel, n_kernel), event_ms(plain, n_plain)]
+    return (runs[1] + runs[2]) / 2, (runs[0] + runs[3]) / 2
+
+
 def phase_timings(mt, K, dev, filters, card):
-    """Fenced render medians, and the kernel alone vs its plain version."""
-    kernel_4k = None
+    """Fenced render medians, and B1 alone vs its plain version and vs
+    grid_sample; returns B1's record at 4K u8 bilinear (the main path's
+    case)."""
+    record = None
     for (w, h) in SIZES:
         _, u8 = seeded_image(w, h, seed=4)
         img = torch.from_numpy(u8).to(dev)
@@ -271,23 +497,158 @@ def phase_timings(mt, K, dev, filters, card):
         for dname, pix in (("u8", img),
                            ("f32", (img.float() / 255.0).contiguous())):
             for interp in INTERPOLATIONS:
-                args = (pix, x, y, interp, "color", "color", EDGE_COLOR)
-                runs = [event_ms(lambda: K.sample_image_reference(*args), 5),
-                        event_ms(lambda: K.sample_image(*args), 50),
-                        event_ms(lambda: K.sample_image(*args), 50),
-                        event_ms(lambda: K.sample_image_reference(*args), 5)]
-                plain_ms = (runs[0] + runs[3]) / 2
-                kernel_ms = (runs[1] + runs[2]) / 2
-                err = check_close(f"timed {w}x{h} {dname} {interp}",
-                                  K.sample_image(*args),
+                # the renders' default edge color, transparent, which is
+                # grid_sample's zero padding
+                args = (pix, x, y, interp, "color", "color", (0.0, 0.0, 0.0, 0.0))
+                kernel_ms, plain_ms = turns(lambda: K.sample_image_reference(*args),
+                                            lambda: K.sample_image(*args), 5, 50)
+                got = K.sample_image(*args)
+                err = check_close(f"timed {w}x{h} {dname} {interp}", got,
                                   K.sample_image_reference(*args))
-                print(f"timing kernel {w}x{h} {dname:3s} {interp:8s}: "
-                      f"kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms "
-                      f"({plain_ms / kernel_ms:.1f}x), max abs err "
-                      f"{err:.3e} [{card}]")
-                if (w, h, dname, interp) == (*SIZES[1], "u8", "bilinear"):
-                    kernel_4k = (kernel_ms, plain_ms)
-    return kernel_4k
+                line = (f"timing B1 {w}x{h} {dname:3s} {interp:8s}: kernel "
+                        f"{kernel_ms:.4f} ms, plain {plain_ms:.4f} ms "
+                        f"({plain_ms / kernel_ms:.1f}x), max abs err {err:.3e}")
+                if interp == "bilinear":
+                    lib, lib_out = grid_sample_image(pix, x, y)
+                    lib_ms = event_ms(lib, 50)
+                    n_bytes = (x.numel() + y.numel()) * 4 + got.numel() * 4 \
+                        + pix.numel() * pix.element_size()
+                    bound, by = bound_ms(n_bytes)
+                    line += (f"; grid_sample {lib_ms:.4f} ms (max abs diff "
+                             f"{float((lib_out - got).abs().max()):.2e}); bound "
+                             f"{bound:.4f} ms ({n_bytes / 1e6:.0f} MB)")
+                    if (w, h, dname) == (*SIZES[1], "u8"):
+                        record = dict(ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound,
+                                      bound_by=by, library_ms=lib_ms)
+                print(f"{line} [{card}]")
+    return record
+
+
+def phase_generative_path(mt, L, WL, dev, filters):
+    """Every render launches the loop kernel once and the LUT kernel once;
+    1080p matches the CPU port."""
+    from mathmap_tpu_torch.runtime.render import pack_uint8
+
+    L.apply_lut.launches = 0
+    WL.while_loop.launches = 0
+    renders = 0
+    cpu = {}
+    for (w, h) in SIZES:
+        cases = [(n, p, o) for n, p in (("mandelbrot", {}), ("mandelbrot", ZOOMED))
+                 for o in ("float32", "uint8")]
+        if (w, h) == SIZES[1]:
+            cases += [("julia", {}, "float32"), ("burning_ship", {}, "float32")]
+        for name, params, out_dtype in cases:
+            opts = mt.RenderOptions(output_dtype=out_dtype)
+            before = (L.apply_lut.launches, WL.while_loop.launches)
+            out = filters[name].render(width=w, height=h, params=params,
+                                       options=opts, device=dev)
+            torch.cuda.synchronize()
+            renders += 1
+            counts = (L.apply_lut.launches - before[0], WL.while_loop.launches - before[1])
+            tag = (f"{name:12s} {w}x{h} {out_dtype:7s} out, "
+                   f"{'default' if not params else 'zoomed'} params")
+            if counts != (1, 1):
+                raise AssertionError(f"{tag}: {counts} LUT and loop kernel launches, "
+                                     f"expected 1 each")
+            if tuple(out.shape) != (h, w, 4) or out.device != dev:
+                raise AssertionError(f"{tag}: bad output {tuple(out.shape)} on {out.device}")
+            if out_dtype == "float32" and not bool(torch.isfinite(out).all()):
+                raise AssertionError(f"{tag}: non-finite output")
+            if (w, h) != SIZES[0]:
+                print(f"generative path {tag}: ok")
+                continue
+            key = (name, tuple(sorted(params.items())))
+            if key not in cpu:
+                cpu[key] = filters[name].render(width=w, height=h, params=params,
+                                                device="cpu")
+            ref = cpu[key]
+            got = out.cpu()
+            if out_dtype == "uint8":
+                diff = (got.int() - pack_uint8(ref).int()).abs()
+                lsb = int(diff.max())
+                n_px = int((diff > 0).any(-1).sum())
+                if lsb > 1:
+                    raise AssertionError(f"{tag}: {lsb} LSB from the CPU render")
+                print(f"generative path {tag}: max {lsb} LSB from the CPU render, "
+                      f"{n_px} pixels differ")
+            else:
+                err = check_close(tag, got, ref)
+                n_px = int(((got - ref).abs() > 0).any(-1).sum())
+                print(f"generative path {tag}: max abs err {err:.3e} vs the CPU "
+                      f"render, {n_px} pixels differ")
+    counts = (L.apply_lut.launches, WL.while_loop.launches)
+    if counts != (renders, renders):
+        raise AssertionError(f"{counts} LUT and loop kernel launches for {renders} renders")
+    print(f"generative path: {renders} GPU renders, {counts[0]} LUT kernel launches, "
+          f"{counts[1]} loop kernel launches")
+    return counts
+
+
+def phase_generative_timings(mt, L, WL, tracer, dev, filters, card):
+    """Mandelbrot render medians; B3 and B2 alone at 4K against their plain
+    versions (and B2 against grid_sample), with their bounds."""
+    f = filters["mandelbrot"]
+    for (w, h) in SIZES:
+        for label, params in (("default", {}), ("zoomed", ZOOMED)):
+            ms = render_median_ms(f, None, dev, width=w, height=h, params=params)
+            print(f"timing render mandelbrot {w}x{h} {label} params: median "
+                  f"{ms:.3f} ms/frame of {TIMED_RENDERS}, {w * h / ms / 1e3:.1f} "
+                  f"Mpix/s [{card}]")
+    w, h = SIZES[1]
+    records = {}
+    for label, params in (("default", {}), ("zoomed", ZOOMED)):
+        with LoopCapture(tracer) as cap:
+            f.render(width=w, height=h, params=params, device=dev)
+        loop, flat0, mask0, max_iters, got = cap.one("mandelbrot")
+        prog = WL.trace(loop, len(flat0))
+        want, steps, iters = loop_reference(WL, loop, flat0, mask0, max_iters)
+        kernel_ms, plain_ms = turns(
+            lambda: WL.while_loop_reference(loop.step, flat0, mask0, max_iters, loop.unroll),
+            lambda: WL.while_loop(loop, flat0, mask0, max_iters), 2, 20)
+        values = {("carry", k): a for k, a in enumerate(flat0)}
+        values.update({("x",): loop.x, ("y",): loop.y})
+        values.update({("dep", n, j): a for n, tv in loop.deps for j, a in enumerate(tv.arrays)})
+        n_bytes = mask0.numel() + 4 * sum(a.numel() for a in got)
+        for key in prog.grid_inputs:
+            a = values[key]
+            if a.dim() == 2:
+                n_bytes += 4 * (a.shape[0] if a.stride(0) else 1) * (a.shape[1] if a.stride(1) else 1)
+            else:
+                n_bytes += 4
+        n_ops = iters * prog.n_compute_ops()
+        bound, by = bound_ms(n_bytes, n_ops)
+        same = all(torch.equal(a, b) for a, b in zip(WL.while_loop(loop, flat0, mask0, max_iters), want))
+        print(f"timing B3 mandelbrot {w}x{h} {label}: kernel {kernel_ms:.4f} ms, eager "
+              f"loop {plain_ms:.4f} ms ({plain_ms / kernel_ms:.1f}x), identical {same}; "
+              f"{iters} pixel iterations in the kernel ({iters / (w * h):.2f} per "
+              f"pixel, {steps} steps) + {(10000 - max_iters) * w * h} unrolled "
+              f"before it; {prog.n_compute_ops()} ops each = {n_ops / 1e9:.3f} Gop; "
+              f"{n_bytes / 1e6:.0f} MB; bound {bound:.4f} ms ({by}) [{card}]")
+        if not same:
+            raise AssertionError("timed B3 output differs from the eager loop")
+        records[label] = dict(ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound,
+                              bound_by=by, library_ms=None)
+    # B2 at the render's shape and LUT size: (256, 4) gradient, 4K positions
+    pos = torch.from_numpy(np.random.RandomState(8).rand(h, w).astype(np.float32)).to(dev)
+    lut = torch.from_numpy(seeded_lut(256, 4, seed=9)).to(dev)
+    kernel_ms, plain_ms = turns(lambda: L.apply_lut_reference(lut, pos),
+                                lambda: L.apply_lut(lut, pos), 5, 50)
+    got = L.apply_lut(lut, pos)
+    err = check_close("timed B2", got, L.apply_lut_reference(lut, pos),
+                      rtol=LUT_RTOL, atol=LUT_ATOL)
+    lib, lib_out = grid_sample_lut(lut, pos)
+    lib_ms = event_ms(lib, 50)
+    n_bytes = pos.numel() * 4 + got.numel() * 4 + lut.numel() * 4
+    bound, by = bound_ms(n_bytes)
+    print(f"timing B2 {w}x{h} K=256 C=4: kernel {kernel_ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms ({plain_ms / kernel_ms:.1f}x), max abs err {err:.3e}; "
+          f"grid_sample {lib_ms:.4f} ms (max abs diff "
+          f"{float((lib_out - got).abs().max()):.2e}); bound {bound:.4f} ms "
+          f"({n_bytes / 1e6:.0f} MB) [{card}]")
+    records["lut"] = dict(ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound,
+                          bound_by=by, library_ms=lib_ms)
+    return records
 
 
 def main() -> int:
@@ -300,30 +661,49 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(ROOT))
     import mathmap_tpu_torch as mt
+    from mathmap_tpu_torch.kernels import apply_lut as L
     from mathmap_tpu_torch.kernels import build
     from mathmap_tpu_torch.kernels import sample_image as K
+    from mathmap_tpu_torch.kernels import while_loop as WL
+    from mathmap_tpu_torch.runtime import tracer
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     t0 = time.perf_counter()
-    card = phase_card(build)
-    worst = phase_kernel_vs_plain(K, dev)
     filters = {n: mt.compile_file(str(ROOT / "filters" / "Distorts" / f"{n}.mm"))
                for n in FILTERS}
-    launches = phase_main_path(mt, K, dev, filters)
-    kernel_ms, plain_ms = phase_timings(mt, K, dev, filters, card)
+    filters.update({n: mt.compile_file(str(ROOT / "filters" / "Render" / f"{n}.mm"))
+                    for n in GENERATIVE})
+    sin_filter = mt.compile_source(SIN_BODY)
+    loop_filters = [(filters[n], {}) for n in GENERATIVE]
+    loop_filters += [(filters["mandelbrot"], ZOOMED), (sin_filter, {})]
+    card = phase_card(mt, build, WL, tracer, loop_filters)
+    worst_b1 = phase_kernel_vs_plain(K, dev)
+    worst_b2 = phase_lut_vs_plain(L, dev)
+    worst_b3 = phase_loop_vs_plain(mt, WL, tracer, dev, filters, sin_filter)
+    b1_launches = phase_distortion_path(mt, K, dev, filters)
+    b2_launches, b3_launches = phase_generative_path(mt, L, WL, dev, filters)
+    b1 = phase_timings(mt, K, dev, filters, card)
+    gen = phase_generative_timings(mt, L, WL, tracer, dev, filters, card)
+    print(f"nvcc builds in this run: {len(build.BUILDS)}, "
+          f"{sum(s for _, s in build.BUILDS):.2f} s in all")
     print(f"chip_smoke: {time.perf_counter() - t0:.1f} s")
-    print(json.dumps({"kernels": [{
-        "name": "sample_image",
-        "route": "cuda",
-        "source": "mathmap_tpu_torch/csrc/sample_image.cu",
-        "replaces": "mathmap_tpu/pallas_kernels/sample_kernel.py:741",
-        "launches": launches,
-        "max_abs_err": worst,
-        "ms": kernel_ms,
-        "plain_ms": plain_ms,
-    }]}))
+    print(card)
+    print(json.dumps({"kernels": [
+        {"name": "sample_image", "route": "cuda",
+         "source": "mathmap_tpu_torch/csrc/sample_image.cu",
+         "replaces": "mathmap_tpu/pallas_kernels/sample_kernel.py:741",
+         "launches": b1_launches, "max_abs_err": worst_b1, **b1},
+        {"name": "apply_lut", "route": "cuda",
+         "source": "mathmap_tpu_torch/csrc/apply_lut.cu",
+         "replaces": "mathmap_tpu/pallas_kernels/sample_kernel.py:1279",
+         "launches": b2_launches, "max_abs_err": worst_b2, **gen["lut"]},
+        {"name": "while_loop", "route": "cuda",
+         "source": "mathmap_tpu_torch/csrc/while_loop.cu.tmpl",
+         "replaces": "mathmap_tpu/pallas_kernels/while_kernel.py:143",
+         "launches": b3_launches, "max_abs_err": worst_b3, **gen["default"]},
+    ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -3,11 +3,14 @@ NVIDIA H100.
 
 The JAX package `mathmap_tpu` stays the reference; this package imports
 `torch` and never `jax` or `mathmap_tpu`. It renders the distortion suite
-(filters/Distorts/fisheye, twirl, pond) end to end: the front end is a copy
-of the reference's, the evaluator runs eager torch ops on the device the
-caller names, and origVal goes through a hand-written CUDA sampler
-(csrc/sample_image.cu, built by nvcc at first use). ROADMAP.md lists what is
-still to port.
+(filters/Distorts/fisheye, twirl, pond) and the generative filters
+(filters/Render/mandelbrot and the escape-time fractals) end to end: the
+front end is a copy of the reference's, the evaluator runs eager torch ops
+on the device the caller names, origVal goes through a hand-written CUDA
+sampler (csrc/sample_image.cu), curves and gradients through a CUDA LUT
+kernel (csrc/apply_lut.cu), and each eligible `while` loop through a CUDA
+kernel generated from its body (kernels/while_loop.py), all built by nvcc
+at first use. ROADMAP.md lists what is still to port.
 
     import mathmap_tpu_torch as mt
     f = mt.compile_file("filters/Distorts/twirl.mm")

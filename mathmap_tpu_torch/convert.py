@@ -64,8 +64,11 @@ def inputs_from_numpy(arrays, device) -> list:
 
 def params_from_reference(params: dict) -> dict:
     """Validate a params dict for this package: floats, ints, bools, and
-    color tuples of 3 or 4 numbers pass through as Python values; anything
-    else (arrays, curves, gradients, callables) raises TypeError."""
+    color tuples of 3 or 4 numbers pass through as Python values; a
+    reference Curve or Gradient (read by its `.lut` attribute) and (N,),
+    (N, 3) or (N, 4) numpy arrays become float32 numpy LUTs, which the
+    render converts like the reference's convert_userval. Anything else
+    (other arrays, callables, strings) raises TypeError."""
     out = {}
     for name, value in params.items():
         if isinstance(value, (bool, np.bool_)):
@@ -75,8 +78,20 @@ def params_from_reference(params: dict) -> dict:
         elif (isinstance(value, (tuple, list)) and len(value) in (3, 4)
               and all(isinstance(c, numbers.Real) for c in value)):
             out[name] = tuple(float(c) for c in value)
+        elif _is_lut(getattr(value, "lut", None)) or _is_lut(value):
+            lut = getattr(value, "lut", value)
+            out[name] = np.array(lut, dtype=np.float32)
         else:
             raise TypeError(
                 f"param {name!r}: {type(value).__name__} values are not "
-                f"ported (floats, ints, bools and color tuples are)")
+                f"ported (floats, ints, bools, color tuples, curves, "
+                f"gradients and LUT arrays are)")
     return out
+
+
+def _is_lut(value) -> bool:
+    """An (N,) curve or (N, 3|4) gradient table held as an array."""
+    if not hasattr(value, "__array__") or isinstance(value, (tuple, list)):
+        return False
+    shape = np.shape(value)
+    return (len(shape) == 1 and shape[0] >= 2) or (len(shape) == 2 and shape[1] in (3, 4))

@@ -2,10 +2,14 @@
 
 Every `*.cu` file under `mathmap_tpu_torch/csrc/` is compiled by nvcc for
 Hopper (`sm_90a`) into ONE shared library with a plain C interface, loaded
-with ctypes. The library lands in `mathmap_tpu_torch/kernels/build/`, named
-by a hash of the sources and flags, so an edited source rebuilds and an
-unchanged one loads from disk. Nothing here runs at import time: the first
-CUDA launch calls `library()`, and a machine without a GPU never does.
+with ctypes (`library()`). Each generated source (a while loop's kernel,
+kernels/while_loop.py) is compiled into a library of its own
+(`generated_library()`), with `--fmad=false` so nvcc keeps every multiply
+and add separately rounded, as the eager torch ops are. Libraries land in
+`mathmap_tpu_torch/kernels/build/`, named by a hash of the sources and
+flags, so an edited source rebuilds and an unchanged one loads from disk;
+each is loaded once per process. Nothing here runs at import time: the
+first CUDA launch builds, and a machine without a GPU never does.
 """
 
 from __future__ import annotations
@@ -25,6 +29,12 @@ BUILD_DIR = Path(__file__).resolve().parent / "build"
 #: `-Xptxas=-v` only reports each kernel's registers and spills (Library.log)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+#: generated kernels: no FMA contraction (escape-time counts are chaotic, so
+#: a loop body must round like the eager torch ops, one op at a time), and
+#: the precise libm and IEEE division/sqrt (nvcc's defaults, no fast math)
+GENERATED_FLAGS = NVCC_FLAGS + ("--fmad=false",)
+#: (library file name, nvcc seconds) of every build run in this process
+BUILDS: list = []
 
 
 @dataclass(frozen=True)
@@ -59,21 +69,16 @@ def _digest(sources) -> str:
     return h.hexdigest()[:16]
 
 
-@functools.cache
-def library() -> Library:
-    """Build (if needed) and load the kernel library; raises with nvcc's
-    stderr when the build fails."""
-    sources = sorted(CSRC.glob("*.cu"))
-    if not sources:
-        raise RuntimeError(f"no CUDA sources under {CSRC}")
-    path = BUILD_DIR / f"libmm_kernels_{_digest(sources)}.so"
+def _build(path: Path, flags, sources) -> Library:
+    """Load `path`, running nvcc on `sources` first when it is not on disk;
+    raises with nvcc's stderr when the build fails."""
     seconds, log = 0.0, ""
     if not path.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         # build under a private name, then rename: a concurrent process
         # never loads a half-written library
         tmp = path.with_name(f"{path.stem}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+        cmd = [_nvcc(), *flags, "-o", str(tmp), *map(str, sources)]
         t0 = time.perf_counter()
         proc = subprocess.run(cmd, capture_output=True, text=True)
         seconds = time.perf_counter() - t0
@@ -84,4 +89,39 @@ def library() -> Library:
                 f"{' '.join(cmd)}\n{proc.stderr}")
         os.replace(tmp, path)
         log = proc.stderr
+        BUILDS.append((path.name, seconds))
     return Library(ctypes.CDLL(str(path)), path, seconds, log)
+
+
+@functools.cache
+def library() -> Library:
+    """Build (if needed) and load the library of csrc/*.cu."""
+    sources = sorted(CSRC.glob("*.cu"))
+    if not sources:
+        raise RuntimeError(f"no CUDA sources under {CSRC}")
+    return _build(BUILD_DIR / f"libmm_kernels_{_digest(sources)}.so", NVCC_FLAGS, sources)
+
+
+@functools.cache
+def generated_library(source: str) -> Library:
+    """Build (if needed) and load the library of one generated CUDA source,
+    named by a hash of the source and GENERATED_FLAGS."""
+    h = hashlib.sha256(source.encode())
+    for flag in GENERATED_FLAGS:
+        h.update(b"\0" + flag.encode())
+    digest = h.hexdigest()[:16]
+    src = BUILD_DIR / f"mm_gen_{digest}.cu"
+    if not src.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = src.with_name(f"{src.stem}.{os.getpid()}.tmp")
+        tmp.write_text(source)
+        os.replace(tmp, src)
+    return _build(BUILD_DIR / f"libmm_gen_{digest}.so", GENERATED_FLAGS, [src])
+
+
+def error_string(err: int) -> str:
+    """cudaGetErrorString of a launcher's return code."""
+    fn = library().cdll.mm_error_string
+    fn.argtypes = [ctypes.c_int]
+    fn.restype = ctypes.c_char_p
+    return fn(err).decode()

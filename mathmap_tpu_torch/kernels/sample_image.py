@@ -214,13 +214,6 @@ def _kernel():
     return fn
 
 
-def _error_string(err: int) -> str:
-    fn = build.library().cdll.mm_error_string
-    fn.argtypes = [ctypes.c_int]
-    fn.restype = ctypes.c_char_p
-    return fn(err).decode()
-
-
 def sample_image(pixels, x, y, interpolation: str, edge_x: str, edge_y: str,
                  edge_color) -> torch.Tensor:
     """Sample `pixels` ((Hi, Wi, 4) float32 or uint8) at world coordinate
@@ -252,7 +245,7 @@ def sample_image(pixels, x, y, interpolation: str, edge_x: str, edge_y: str,
     if err != 0:
         raise RuntimeError(
             f"sample_image kernel launch failed: cudaError {err} "
-            f"({_error_string(err)})")
+            f"({build.error_string(err)})")
     sample_image.launches += 1
     return out
 

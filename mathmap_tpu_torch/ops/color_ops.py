@@ -1,8 +1,8 @@
 """Color constructors/extractors, HSVA conversion and the polar coordinate
-converts on torch tensors (the port of the first part of
-`mathmap_tpu/ops/color_ops.py`). Curve and gradient application, kernel B2,
-is not ported yet (ROADMAP A6): the evaluator raises when a filter applies
-one.
+converts, and curve and gradient application on torch tensors (the port of
+`mathmap_tpu/ops/color_ops.py`). Curves and gradients go through the LUT
+kernel B2's wrapper (kernels/apply_lut.py): the kernel on a CUDA tensor, its
+plain version (the reference's `_lut_take`) on a CPU tensor.
 """
 
 from __future__ import annotations
@@ -11,6 +11,7 @@ import math
 
 import torch
 
+from ..kernels.apply_lut import apply_lut
 from ..runtime.value import TupleValue
 from ..typesys.tags import NIL
 from .registry import builtin, need_args, need_length
@@ -139,3 +140,25 @@ def _to_xy(ev, args, span):
     need_length(p, 2, "toXY", span)
     r, a = p.arrays
     return TupleValue("xy", (r * torch.cos(a), r * torch.sin(a)))
+
+
+# ---------------------------------------------------------------------------
+# curve / gradient application (kernel B2)
+# ---------------------------------------------------------------------------
+
+def _lut_channels(ev, lut, x):
+    """LUT application -> one tensor per LUT channel. On the card the
+    position is always a contiguous full grid (a 0-d position broadcasts),
+    so every application launches the kernel; on the CPU the plain version
+    takes the position as it is, like the reference's oracle."""
+    if x.device.type != "cpu":
+        x = ev.grid(x).contiguous()
+    return list(apply_lut(lut, x))
+
+
+def apply_curve(ev, curve, pos: TupleValue, span) -> TupleValue:
+    return TupleValue(NIL, (_lut_channels(ev, curve.lut, pos.scalar(span))[0],))
+
+
+def apply_gradient(ev, grad, pos: TupleValue, span) -> TupleValue:
+    return TupleValue("rgba", tuple(_lut_channels(ev, grad.lut, pos.scalar(span))))

@@ -5,12 +5,18 @@ one set of options drives both packages (convert.options_from_reference).
 Fields fall in three groups on this card:
 
 - implemented: interpolation, edge_x, edge_y, edge_color, supersample
-  (grid scheme), output_dtype, static_params;
+  (grid scheme), output_dtype, static_params, and the loop options
+  max_loop_iters, while_unroll, while_static_unroll and pallas_while,
+  which maps onto this package's while-loop kernel switch (kernel B3):
+  'off' runs every loop as the masked eager loop, 'auto' runs every
+  eligible loop on a CUDA device through its generated kernel after the
+  static-trip-count unroll has had its chance (at any size: there is no
+  TPU-style pixel threshold), and 'on' takes the kernel even over the
+  static unroll;
 - accepted and validated, but steering only TPU machinery, so they have
   no effect here: sampler, pallas_tiers, pallas_per_tile,
-  pallas_precision, pallas_while, sweep_unroll;
-- steering parts of the system that are not ported yet: max_loop_iters,
-  while_unroll, while_static_unroll and seed (the `while` loop and rand(),
+  pallas_precision, sweep_unroll;
+- steering parts of the system that are not ported yet: seed (rand(),
   ROADMAP A3), periodic (animation, ROADMAP A4). These parts raise when a
   filter reaches them, so the fields cannot change a render today.
   `region` and `supersample_scheme="corners"` raise NotImplementedError
@@ -41,13 +47,14 @@ class RenderOptions:
     output_dtype: str = "float32"
     #: (x, y, w, h) sub-rectangle render; not ported (ROADMAP A4).
     region: tuple | None = None
-    #: per-pixel `while` trip-count cap (ROADMAP A3).
+    #: per-pixel `while` trip-count cap.
     max_loop_iters: int = 10000
-    #: TPU in-VMEM while engine switch: no effect on this card.
+    #: while-loop kernel switch: 'auto', 'on' (over the static unroll) or
+    #: 'off' (the masked eager loop); see the module docstring.
     pallas_while: str = "auto"
-    #: masked while steps per convergence check (ROADMAP A3).
+    #: masked eager-loop steps per convergence check.
     while_unroll: int = 4
-    #: static-trip-count while unroll budget (ROADMAP A3).
+    #: static-trip-count while unroll budget (steps).
     while_static_unroll: int = 64
     #: animation time convention (ROADMAP A4).
     periodic: bool = True

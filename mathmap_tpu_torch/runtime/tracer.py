@@ -9,8 +9,11 @@ phi on the condition mask (the language is pure apart from local
 assignment). Image application goes to runtime.sampling, whose CUDA path is
 the hand-written sampler kernel.
 
-Not ported yet: `while` loops and rand() (ROADMAP A3, with kernel B3 in
-A6), curve and gradient application (kernel B2, ROADMAP A6).
+`while` loops run in `_eval_While`: unrolled when the trip count folds to
+a constant, else through the generated kernel B3 (kernels/while_loop.py)
+when the loop is eligible, else as the masked eager loop. Curves and
+gradients apply through kernel B2 (ops/color_ops.py). rand() is not ported
+yet (ROADMAP A3), nor the loop's rand counter and salt plumbing.
 """
 
 from __future__ import annotations
@@ -23,12 +26,19 @@ import torch
 
 from ..lang import astnodes as A
 from ..ops import registry as R
+from ..kernels import while_loop as WL
+from ..kernels.while_loop import while_loop as loop_kernel
+from ..ops.color_ops import apply_curve, apply_gradient
 from ..runtime.value import ClosureImage, TupleValue, image_value
 from ..typesys import tags as tagmod
 from ..typesys.tags import NIL
 from ..utils.errors import MMNameError, MMRuntimeError, MMTypeError
 
 _2PI = 2.0 * math.pi
+
+#: route of every while loop evaluated in this process, in order:
+#: ("unroll", steps), ("kernel", max_iters) or ("masked", steps)
+TRACE_LOOP_PATHS: list = []
 
 #: operator token -> builtin name
 _BINOP_NAME = {
@@ -350,8 +360,232 @@ class Evaluator:
             saved[k] = self._select(mask, vt, ve, node.span)
         return self._select(mask, v_t, v_e, node.span)
 
+    # ------------------------------------------------------------------
+    # while loops
+    # ------------------------------------------------------------------
     def _eval_While(self, node: A.While) -> TupleValue:
-        raise R.not_ported("the per-pixel 'while' loop", "ROADMAP A3/A6")
+        """The reference's `_eval_While`: a probe finds the carried names,
+        then the loop runs on one of three routes, recorded in
+        TRACE_LOOP_PATHS: the static-trip-count unroll when the condition
+        const-folds, the generated kernel B3 for an eligible loop (its plain
+        version on the CPU), or the masked eager loop."""
+        names = sorted(A.assigned_names(node.body) | A.assigned_names(node.cond))
+        # probe: evaluate cond + body once on a scratch env for each carried
+        # variable's final length and tag (the results are discarded)
+        probe_env = dict(self.env)
+        probe = Evaluator(self.ctx, self.x, self.y, probe_env)
+        for n in names:
+            if n not in probe_env:
+                # an assigned-but-undeclared internal-named variable (y, t,
+                # ...) starts as the internal: a first read in the loop sees
+                # the coordinate, not zero (the if-phi merge's rule)
+                iv = self._internal(n)
+                probe_env[n] = iv if iv is not None else TupleValue(NIL, (self.lit(0.0),))
+        if node.post:
+            # do-while: the body runs before the first condition
+            probe.eval(node.body)
+            probe.eval(node.cond)
+        else:
+            probe.eval(node.cond)
+            probe.eval(node.body)
+
+        shape = self.ctx.shape
+
+        def widen(v: TupleValue, target: TupleValue) -> TupleValue:
+            if v.is_opaque:
+                raise MMTypeError("image values cannot be loop variables", node.span)
+            arrays = v.arrays
+            if len(arrays) != target.length:
+                if len(arrays) == 1:
+                    arrays = arrays * target.length
+                else:
+                    raise MMTypeError(
+                        f"loop variable changes tuple length "
+                        f"{len(arrays)} -> {target.length}", node.span)
+            tag = v.tag if v.tag != NIL else target.tag
+            cst = None
+            if v.const is not None:
+                cs = (v.const * target.length
+                      if len(v.const) == 1 and target.length > 1 else v.const)
+                if len(cs) == target.length:
+                    cst = tuple(float(c) for c in cs)
+            return TupleValue(tag, tuple(torch.broadcast_to(x, shape) for x in arrays),
+                              const=cst)
+
+        init_env = dict(self.env)
+        carried: list[str] = []
+        for n in names:
+            tgt = probe_env[n]
+            if n not in init_env:
+                iv = self._internal(n)
+                if iv is not None and (iv.length == tgt.length or iv.length == 1):
+                    # seed with the internal (a length-1 internal widens
+                    # like any scalar carry); a longer internal carried at
+                    # another length is write-before-read: zero seed
+                    init_env[n] = iv
+                else:
+                    init_env[n] = TupleValue(NIL, (self.lit(0.0),), const=(0.0,))
+            init_env[n] = widen(init_env[n], tgt)
+            carried.append(n)
+        lengths = {n: init_env[n].length for n in carried}
+        tags = {n: init_env[n].tag for n in carried}
+
+        def pack(env):
+            return tuple(a for n in carried for a in env[n].arrays)
+
+        def unpack(flat, base_env=None, consts=None):
+            env = dict(init_env if base_env is None else base_env)
+            i = 0
+            for n in carried:
+                k = lengths[n]
+                cst = None
+                if consts is not None:
+                    comps = consts[i:i + k]
+                    if all(c is not None for c in comps):
+                        cst = tuple(comps)
+                env[n] = TupleValue(tags[n], tuple(flat[i:i + k]), const=cst)
+                i += k
+            return env
+
+        def pack_const(env):
+            """Per-slot host constants (None where unknown): the static
+            unroll's carry, exactly lengths[n] slots per variable."""
+            cs: list = []
+            for n in carried:
+                k = lengths[n]
+                v = env[n]
+                c = v.const if (v.const is not None
+                                and len(v.const) == len(v.arrays)) else None
+                if c is not None and len(c) != k:
+                    c = tuple(c) * k if len(c) == 1 else None
+                if c is not None:
+                    cs.extend(float(x) for x in c)
+                else:
+                    cs.extend([None] * k)
+            return tuple(cs)
+
+        def repack(env, flat, mask, grid_shape):
+            """Fold env's carried values back into the flat carry; `mask`
+            selects the pixels that take the new value (None = all)."""
+            new_flat = []
+            i = 0
+            for n in carried:
+                k = lengths[n]
+                new = env[n]
+                if new.is_opaque:
+                    raise MMTypeError(
+                        f"loop variable {n!r}: image/curve/gradient values "
+                        f"cannot be loop variables", node.span)
+                if new.length != k:
+                    if new.length == 1:
+                        new = TupleValue(tags[n], new.arrays * k)
+                    else:
+                        raise MMTypeError(
+                            f"loop variable {n!r} changes tuple length inside loop",
+                            node.span)
+                for j in range(k):
+                    if mask is None:
+                        new_flat.append(torch.broadcast_to(new.arrays[j], grid_shape))
+                    else:
+                        new_flat.append(torch.where(mask, new.arrays[j], flat[i + j]))
+                i += k
+            return tuple(new_flat)
+
+        #: trace-time truth of the latest condition (None = per pixel)
+        cond_const = [None]
+        #: pack_const() of the env after the latest const-threaded condition
+        carry_consts = [None]
+
+        def locate(tile):
+            return tile or (self.ctx, self.x, self.y, None, Evaluator)
+
+        def eval_cond(flat, mask, tile=None, consts=None):
+            """Evaluate the condition on the carried env; its assignments
+            persist for the pixels that evaluated it (those in `mask`)."""
+            ctx, x, y, base_env, make_ev = locate(tile)
+            env = unpack(flat, base_env, consts=consts)
+            ev = make_ev(ctx, x, y, env)
+            cond_tv = ev.eval(node.cond)
+            cond_mask = ev._truthy_mask(cond_tv, node.span)
+            c = cond_tv.const
+            cond_const[0] = bool(c[0] != 0) if c is not None and len(c) == 1 else None
+            carry_consts[0] = pack_const(env) if consts is not None else None
+            return repack(env, flat, mask, ctx.shape), cond_mask
+
+        def step(flat, mask, tile=None, consts=None):
+            """One iteration under `mask` -> (new flat, next mask). mask=None
+            steps every pixel and returns the condition unmerged. `tile` =
+            (ctx, x, y, base_env, make_evaluator) evaluates the step there:
+            kernels/while_loop.py traces it on symbolic scalars."""
+            ctx, x, y, base_env, make_ev = locate(tile)
+            env = unpack(flat, base_env, consts=consts)
+            make_ev(ctx, x, y, env).eval(node.body)
+            new_flat = repack(env, flat, mask, ctx.shape)
+            new_flat, cond_mask = eval_cond(
+                new_flat, mask, tile=tile,
+                consts=pack_const(env) if consts is not None else None)
+            return new_flat, (cond_mask if mask is None else mask & cond_mask)
+
+        flat0 = pack(init_env)
+        consts0 = pack_const(init_env)
+        if node.post:
+            # do-while: run the body once for every pixel first; its result
+            # carries no constants
+            env = unpack(flat0)
+            Evaluator(self.ctx, self.x, self.y, env).eval(node.body)
+            flat0 = repack(env, flat0, None, shape)
+            consts0 = tuple(None for _ in consts0)
+        flat0, mask0 = eval_cond(flat0, None, consts=consts0)
+        cond0 = cond_const[0]
+        consts0 = carry_consts[0]
+        mask0 = torch.broadcast_to(mask0, shape)
+
+        opts = self.ctx.opts
+        max_iters = int(opts.max_loop_iters)
+        loop = None
+        if opts.pallas_while != "off" and WL.eligible(node, self.env, self.ctx.filters):
+            deps = WL.dependencies(node, init_env, carried, shape)
+            if deps is not None:
+                spec = (tuple((n, lengths[n], tags[n]) for n in carried),
+                        tuple((n, tv.tag, len(tv.arrays)) for n, tv in deps))
+                loop = WL.Loop(step=step, deps=deps, x=self.x, y=self.y, ctx=self.ctx,
+                               unroll=opts.while_unroll, node=node, spec=spec)
+
+        # static-trip-count unroll: while the condition folds to a constant,
+        # step every pixel (no masks, no convergence checks). 'on' forces
+        # the kernel over it, as the reference's pallas_while does.
+        n_done = 0
+        if (cond0 is not None and opts.while_static_unroll > 0
+                and not (loop is not None and opts.pallas_while == "on")):
+            flat_u, consts_u, active = flat0, consts0, cond0
+            while active and n_done < max_iters and n_done < opts.while_static_unroll:
+                flat_u, mask_u = step(flat_u, None, consts=consts_u)
+                consts_u = carry_consts[0]
+                n_done += 1
+                active = cond_const[0]
+            if active is False or (active and n_done >= max_iters):
+                TRACE_LOOP_PATHS.append(("unroll", n_done))
+                final_env = unpack(flat_u, consts=consts_u)
+                for n in carried:
+                    self.env[n] = final_env[n]
+                return TupleValue(NIL, (self.lit(0.0),))
+            # the condition stopped folding (or the budget ran out) after
+            # n_done steps that every pixel took: go on from there with the
+            # last condition as the mask, instead of discarding those steps
+            flat0 = flat_u
+            mask0 = torch.broadcast_to(mask_u, shape)
+
+        if loop is not None:
+            flat_out = loop_kernel(loop, flat0, mask0, max_iters - n_done)
+            TRACE_LOOP_PATHS.append(("kernel", max_iters))
+        else:
+            flat_out, steps = WL.while_loop_reference(
+                step, flat0, mask0, max_iters - n_done, opts.while_unroll)
+            TRACE_LOOP_PATHS.append(("masked", n_done + steps))
+        final_env = unpack(flat_out)
+        for n in carried:
+            self.env[n] = final_env[n]
+        return TupleValue(NIL, (self.lit(0.0),))
 
     # ------------------------------------------------------------------
     # calls / application
@@ -390,7 +624,10 @@ class Evaluator:
             x, y = self.grid(p.arrays[0]), self.grid(p.arrays[1])
             return TupleValue("rgba", tuple(v.payload.sample(self, x, y)))
         if v.tag in ("curve", "gradient"):
-            raise R.not_ported(f"{v.tag} application (kernel B2)", "ROADMAP A6")
+            if len(node.args) != 1:
+                raise MMTypeError(f"{v.tag} application expects one argument", span)
+            apply = apply_curve if v.tag == "curve" else apply_gradient
+            return apply(self, v.payload, self.eval(node.args[0]), span)
         raise MMTypeError(f"cannot apply value of type {v.tag}", span)
 
     # ------------------------------------------------------------------

@@ -1,22 +1,20 @@
 """User values (filter parameters): defaults and Python-value conversion
-(the port of `mathmap_tpu/runtime/uservals.py`) for float, int, bool and
-color params. Curve and gradient params come with kernel B2 (ROADMAP A6);
-image params bound by value come with the rest of the renderer
-(ROADMAP A4) — positional input images are bound by render.build_env.
+(the port of `mathmap_tpu/runtime/uservals.py`) for float, int, bool,
+color, curve and gradient params. Image params bound by value come with the
+rest of the renderer (ROADMAP A4) — positional input images are bound by
+render.build_env.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..lang.astnodes import Param
 from ..ops.registry import not_ported
 from ..typesys.tags import NIL
 from ..utils.errors import MMRuntimeError, MMTypeError
-from .value import TupleValue
-
-_NOT_PORTED_KINDS = {"curve": "ROADMAP A6", "gradient": "ROADMAP A6",
-                     "image": "ROADMAP A4"}
+from .value import Curve, Gradient, TupleValue, curve_value, gradient_value
 
 
 def _tuple(ctx, tag: str, values, const=None) -> TupleValue:
@@ -40,12 +38,14 @@ def default_userval(ctx, p: Param) -> TupleValue:
         # default opaque black
         return _tuple(ctx, "rgba", (0.0, 0.0, 0.0, 1.0),
                       const=(0.0, 0.0, 0.0, 1.0))
+    if p.kind == "curve":
+        return curve_value(Curve.identity(ctx.device))
+    if p.kind == "gradient":
+        return gradient_value(Gradient.default(ctx.device))
     if p.kind == "image":
         raise MMRuntimeError(
             f"image parameter {p.name!r} has no bound input image", p.span
         )
-    if p.kind in _NOT_PORTED_KINDS:
-        raise not_ported(f"{p.kind} parameters", _NOT_PORTED_KINDS[p.kind])
     raise MMTypeError(f"unknown userval kind {p.kind!r}", p.span)
 
 
@@ -71,9 +71,48 @@ def convert_userval(ctx, p: Param, value) -> TupleValue:
         if len(vals) != 4:
             raise MMTypeError(f"color userval {p.name!r} needs 3 or 4 components", p.span)
         tag = "rgba"
-    elif p.kind in _NOT_PORTED_KINDS:
-        raise not_ported(f"{p.kind} parameters", _NOT_PORTED_KINDS[p.kind])
+    elif p.kind == "curve":
+        return curve_value(_curve(ctx, p, value))
+    elif p.kind == "gradient":
+        return gradient_value(_gradient(ctx, p, value))
+    elif p.kind == "image":
+        raise not_ported("image parameters bound by value", "ROADMAP A4")
     else:
         raise MMTypeError(f"unknown userval kind {p.kind!r}", p.span)
     static = p.name in ctx.opts.static_params
     return _tuple(ctx, tag, vals, const=tuple(float(v) for v in vals) if static else None)
+
+
+def _lut_array(value) -> torch.Tensor:
+    if isinstance(value, torch.Tensor):
+        return value.detach().to(torch.float32)
+    return torch.from_numpy(np.array(value, dtype=np.float32))
+
+
+def _curve(ctx, p: Param, value) -> Curve:
+    """A Curve, a callable on the (K,) position ramp, or a 1-D LUT of at
+    least 2 samples -> a Curve on the render device."""
+    if isinstance(value, Curve):
+        return Curve(lut=value.lut.to(ctx.device, torch.float32), name=value.name)
+    if callable(value):
+        return Curve.from_function(ctx.device, value)
+    lut = _lut_array(value)
+    if lut.dim() != 1 or lut.shape[0] < 2:
+        raise MMTypeError(
+            f"curve userval {p.name!r} needs a 1-D LUT of >=2 samples "
+            f"(or a Curve / callable)", p.span)
+    return Curve(lut=lut.to(ctx.device).contiguous())
+
+
+def _gradient(ctx, p: Param, value) -> Gradient:
+    """A Gradient or an (N, 3) / (N, 4) array (RGB gets an opaque alpha)
+    -> a Gradient on the render device."""
+    if isinstance(value, Gradient):
+        return Gradient(lut=value.lut.to(ctx.device, torch.float32), name=value.name)
+    lut = _lut_array(value)
+    if lut.dim() != 2 or lut.shape[1] not in (3, 4):
+        raise MMTypeError(
+            f"gradient userval {p.name!r} needs an (N,3) or (N,4) array", p.span)
+    if lut.shape[1] == 3:
+        lut = torch.cat([lut, torch.ones((lut.shape[0], 1), dtype=torch.float32)], dim=1)
+    return Gradient(lut=lut.to(ctx.device).contiguous())

@@ -7,15 +7,17 @@ every scalar op of the per-pixel program is one elementwise torch op over
 the grid. Images are first-class values carried in length-1 tuples with the
 tag 'image' and the image object in `payload`.
 
-Animated inputs, prepared (padded) images, tiled inputs, curves and
-gradients are not ported yet (ROADMAP A4, A6, A9).
+Curves and gradients are LUT-backed opaque values ('curve', 'gradient')
+applied through kernel B2 (ops/color_ops.py). Animated inputs, prepared
+(padded) images and tiled inputs are not ported yet (ROADMAP A4, A9).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any
+from typing import Any, Callable
 
+import numpy as np
 import torch
 
 from ..utils.errors import MMTypeError
@@ -99,5 +101,54 @@ class ClosureImage(ImageBase):
         return ev.eval_filter_at(self.filter_def, self.args, x, y)
 
 
+def _ramp(resolution: int, device) -> torch.Tensor:
+    """np.linspace(0, 1, resolution, dtype=float32) on `device`, bit for
+    bit: computed in float64 and rounded once, as numpy does (a float32
+    torch.linspace differs from it in the last place)."""
+    return torch.from_numpy(
+        np.linspace(0.0, 1.0, resolution, dtype=np.float32)).to(device)
+
+
+@dataclass
+class Curve:
+    """A user-editable 1-D function sampled as a (K,) float32 LUT over
+    [0, 1]; application clamps the position to [0, 1]."""
+
+    lut: torch.Tensor  # (K,) float32
+    name: str = "curve"
+
+    @staticmethod
+    def identity(device, resolution: int = 256) -> "Curve":
+        return Curve(lut=_ramp(resolution, device))
+
+    @staticmethod
+    def from_function(device, fn: Callable[[torch.Tensor], Any],
+                      resolution: int = 256) -> "Curve":
+        out = fn(_ramp(resolution, device))
+        return Curve(lut=torch.as_tensor(out, dtype=torch.float32, device=device))
+
+
+@dataclass
+class Gradient:
+    """A color gradient: a (K, 4) float32 RGBA LUT over [0, 1]."""
+
+    lut: torch.Tensor  # (K, 4) float32
+    name: str = "gradient"
+
+    @staticmethod
+    def default(device, resolution: int = 256) -> "Gradient":
+        """Black to white, opaque."""
+        ramp = _ramp(resolution, device)
+        return Gradient(lut=torch.stack([ramp, ramp, ramp, torch.ones_like(ramp)], dim=-1))
+
+
 def image_value(img: ImageBase) -> TupleValue:
     return TupleValue("image", payload=img)
+
+
+def curve_value(c: Curve) -> TupleValue:
+    return TupleValue("curve", payload=c)
+
+
+def gradient_value(g: Gradient) -> TupleValue:
+    return TupleValue("gradient", payload=g)

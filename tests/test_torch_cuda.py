@@ -1,5 +1,6 @@
-"""Tests that need the card: the CUDA sampler kernel against its plain
-PyTorch version, and renders on the GPU against the port's CPU renders.
+"""Tests that need the card: the CUDA kernels (B1 sampler, B2 LUT, B3
+generated while loop) against their plain PyTorch versions, and renders on
+the GPU against the port's CPU renders.
 
 They carry the `cuda` marker and skip without a GPU. This file imports only
 torch, numpy and the port, so it also runs on a GPU machine without jax:
@@ -14,7 +15,10 @@ import pytest
 import torch
 
 import mathmap_tpu_torch as mt
+from mathmap_tpu_torch.kernels import apply_lut as L
 from mathmap_tpu_torch.kernels import sample_image as K
+from mathmap_tpu_torch.kernels import while_loop as WL
+from mathmap_tpu_torch.runtime import tracer
 
 pytestmark = pytest.mark.cuda
 
@@ -102,3 +106,124 @@ def test_cuda_render_goes_through_the_kernel(cuda, name):
     assert got.device.type == "cuda" and got.shape == (48, 64, 4)
     want = f.render(img, t=0.3, device="cpu")
     torch.testing.assert_close(got.cpu(), want, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("channels", [1, 4])
+@pytest.mark.parametrize("k", [2, 256, 5000])
+def test_cuda_lut_kernel_matches_plain_version(cuda, k, channels):
+    """Both LUT routes (shared memory, and global for 5000 x 4), positions
+    below 0, above 1, exactly 0 and 1, and inside; rtol=1e-5, atol=1e-6."""
+    rs = np.random.RandomState(k)
+    lut = torch.from_numpy(rs.rand(k, channels).astype(np.float32).squeeze(-1)
+                           if channels == 1 else rs.rand(k, channels).astype(np.float32)).to(cuda)
+    pos = rs.uniform(-0.5, 1.5, (H, W)).astype(np.float32)
+    pos[0, :2] = (0.0, 1.0)
+    pos = torch.from_numpy(pos).to(cuda)
+    before = L.apply_lut.launches
+    got = L.apply_lut(lut, pos)
+    want = L.apply_lut_reference(lut, pos)
+    torch.cuda.synchronize()
+    assert L.apply_lut.launches == before + 1
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+
+
+def _loop_calls(f, **kw):
+    calls = []
+    orig = tracer.loop_kernel
+
+    def spy(loop, flat0, mask0, max_iters):
+        out = orig(loop, flat0, mask0, max_iters)
+        calls.append((loop, flat0, mask0, max_iters, out))
+        return out
+
+    tracer.loop_kernel = spy
+    try:
+        f.render(**kw)
+    finally:
+        tracer.loop_kernel = orig
+    return calls
+
+
+@pytest.mark.parametrize("name", ["mandelbrot", "julia", "burning_ship", "tricorn", "biomorph"])
+def test_cuda_loop_kernel_matches_the_eager_loop(cuda, name):
+    """Identical carried grids (escape counts included): --fmad=false and
+    the eager ops' order make the kernel round like the eager loop."""
+    f = mt.compile_file(os.path.join(ROOT, "filters", "Render", f"{name}.mm"))
+    before = WL.while_loop.launches
+    (loop, flat0, mask0, max_iters, got), = _loop_calls(f, width=W, height=H, device=cuda)
+    want, _ = WL.while_loop_reference(loop.step, flat0, mask0, max_iters, loop.unroll)
+    torch.cuda.synchronize()
+    assert WL.while_loop.launches == before + 1
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+def test_cuda_mandelbrot_render_launches_both_kernels(cuda):
+    f = mt.compile_file(os.path.join(ROOT, "filters", "Render", "mandelbrot.mm"))
+    before = (L.apply_lut.launches, WL.while_loop.launches)
+    got = f.render(width=64, height=48, device=cuda)
+    torch.cuda.synchronize()
+    assert (L.apply_lut.launches, WL.while_loop.launches) == (before[0] + 1, before[1] + 1)
+    want = f.render(width=64, height=48, device="cpu")
+    torch.testing.assert_close(got.cpu(), want, rtol=RTOL, atol=ATOL)
+
+
+#: a loop body per builtin a kernel may call and per tag overload: p, q are
+#: scalars, z an ri: value, c an rgba color (generator_source binds them);
+#: tests/test_torch_while.py holds their generated programs against the
+#: eager loop on the CPU, the test below their kernels on the card
+GENERATOR_BODIES = {
+    "arith": "v = p + q - p * q / (q + 2) % 0.7",
+    "pow": "v = abs(p) ^ 0.5 + pow(abs(q) + 0.1, p)",
+    "compare": "v = (p == q) + (p != q) + (p < q) + (p > q) + (p <= q) + (p >= q)",
+    "logic": "v = (p > 0 && q > 0) + (p > 0 || q > 0) + (p > 0 xor q > 0) + !(p > 0)",
+    "neg": "v = -p",
+    "abs_sign": "v = abs(p) + sign(q) + abs(z)",
+    "min_max_clamp": "v = min(p, q) + max(p, q) + clamp(p, -0.2, q)",
+    "lerp_smooth": "v = lerp(p, q, 2) + smoothstep(0, 1, q) + inintv(p, -0.5, 0.5)",
+    "rounding": "v = floor(p * 3) + ceil(q * 3) + round(p * 7) + fmod(p * 5, 0.7)",
+    "hypot": "v = hypot(p, q)",
+    "exp_log": "v = sqrt(abs(p)) + exp(q) + exp2(p) + log(abs(q) + 1) + log2(abs(p) + 1) + log10(abs(q) + 2)",
+    "trig": "v = sin(p) + cos(q) + tan(p * 0.5) + tanh(q)",
+    "degrees": "v = deg2rad(p * 90) + rad2deg(q)",
+    "ri_mul_div": "w = z * z / (z + ri:[1, 0.5]); v = w[0] + w[1]",
+    "ri_exp_log": "w = exp(z) + log(z + ri:[2, 0]); v = w[0] - w[1]",
+    "ri_sqrt_pow": "w = sqrt(z) + z ^ ri:[0.5, 0.1] + pow(z, 2); v = w[0] + w[1]",
+    "ri_trig": "w = sin(z) + cos(z) + tan(z * 0.5); v = w[0] * w[1]",
+    "ri_scalar_div": "w = 1 / (z + ri:[0.5, 0.5]) + conj(z); v = w[0] + w[1]",
+    "colors": ("k = rgbColor(p, q, 0.5) + rgbaColor(q, p, 0.25, 1) + grayColor(p) + grayaColor(q, 0.5);"
+               "v = red(k) + green(k) + blue(k) + alpha(k) + gray(k)"),
+    "hsva": "k = toHSVA(c); m = toRGBA(k); v = m[0] + m[1] * 2 + m[2] * 3 + k[0]",
+    "toxy": "w = toXY(ra:[p + 1, q]); v = w[0] * w[1]",
+    "scale": "w = scale(c, 0.5); v = w[0] + scale(p, -1, 1, 0, 10)",
+    "internals": "v = r / R + a + t + X / W + Y / H + pi + e + I[1] + frame",
+    "dynamic_index": "k = [p, q, 0.5]; j = floor(abs(q) * 3); v = k[j]; k[j] = 1; v = v + k[1]",
+    "if": "if p > q then v = p * 2 else v = q - 1 end",
+    "tuples": ("k = clamp(c * 2 - [0.1, 0.2, 0.3, 0.4], 0, 1) + min(c, 0.5) + max(c, q);"
+               "v = k[0] + k[3] + abs(xy) + abs(z * 2) + (c == c) + (c != k)"),
+}
+
+
+def generator_source(body: str) -> str:
+    """A filter whose loop runs `body` 4 times with per-pixel p, q, z, c."""
+    return ("filter f () i = 0; v = 0;"
+            "  while i + x * 0 < 4 do"
+            "    p = x / W * 2 + i * 0.25; q = y / H * 2 - i * 0.125;"
+            "    z = ri:[p, q]; c = rgbaColor(abs(p), abs(q), 0.5, 1);"
+            f"    {body};"
+            "    i = i + 1 end;"
+            "  grayColor(v) end")
+
+
+@pytest.mark.parametrize("name", sorted(GENERATOR_BODIES))
+def test_cuda_generated_kernel_matches_the_eager_loop(cuda, name):
+    """Every op's C spelling on the card: the compiled kernel against the
+    eager loop on the same CUDA tensors, rtol=1e-4, atol=1e-5 (libm calls
+    may differ in the last place between nvcc's build and PyTorch's)."""
+    f = mt.compile_source(generator_source(GENERATOR_BODIES[name]))
+    (loop, flat0, mask0, max_iters, got), = _loop_calls(
+        f, width=W, height=H, t=0.3, frame=2.0, device=cuda)
+    want, _ = WL.while_loop_reference(loop.step, flat0, mask0, max_iters, loop.unroll)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=RTOL, atol=ATOL, equal_nan=True)

@@ -32,6 +32,8 @@ img = np.random.RandomState(0).rand(16, 20, 4).astype(np.float32)
 out = f.render(img, device="cpu")
 assert tuple(out.shape) == (16, 20, 4), out.shape
 assert K.sample_image.launches == 0
+m = mt.compile_file("filters/Render/mandelbrot.mm").render(width=20, height=16, device="cpu")
+assert tuple(m.shape) == (16, 20, 4), m.shape
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "mathmap_tpu", "PIL"))
 assert not loaded, loaded

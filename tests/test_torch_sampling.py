@@ -140,4 +140,4 @@ def test_library_name_follows_the_sources(tmp_path):
     first = build._digest([a])
     a.write_text("// two")
     assert build._digest([a]) != first
-    assert sorted(p.name for p in build.CSRC.glob("*.cu")) == ["sample_image.cu"]
+    assert sorted(p.name for p in build.CSRC.glob("*.cu")) == ["apply_lut.cu", "sample_image.cu"]
