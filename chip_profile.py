@@ -7,15 +7,20 @@ renders of the PyTorch port (mathmap_tpu_torch) drift apart.
 Two parts, each printing one line per case:
 
 1. profile: fisheye, twirl and pond at their default params, u8 input of
-   1920x1080 and 3840x2160 already on the device, and mandelbrot at its
+   1920x1080 and 3840x2160 already on the device, mandelbrot at its
    default params at both sizes, through the generated loop kernel and
-   (pallas_while="off") through the masked eager loop. The median of 20 fenced renders (as
-   chip_smoke.py times them), then torch.profiler over 5 renders: device
-   kernels per render, device busy ms per render and its share of the
-   median, split into the channel stack (the cat kernel of render_frame's
-   torch.stack), the kernels B1 (sampler), B2 (LUT) and B3 (generated
-   while loop) and all other torch kernels, plus the host-device copies and
-   cudaStreamSynchronize calls per render.
+   (pallas_while="off") through the masked eager loop, and pond through
+   render_tiled on a (1,4,1) mesh of the card (and at 4K a (1,2,2) one)
+   and through render_sharded on (1,4,1); at 4K also render_tiled on the
+   default mesh, every visible card on the rows (on a host of several
+   cards, the kernel and busy times are sums over the cards). The median of 20 fenced renders
+   (as chip_smoke.py times them), then torch.profiler over 5 renders:
+   device kernels per render, device busy ms per render and its share of
+   the median, split into the channel stack (the cat kernel of
+   render_frame's torch.stack, and of the tiled renders' halo exchange and
+   tile assembly), the kernels B1 (sampler), B2 (LUT), B3 (generated while
+   loop) and B4 (tiled sampler) and all other torch kernels, plus the
+   host-device copies and cudaStreamSynchronize calls per render.
 2. coords: each filter at 1920x1080 rendered on the card and on the CPU
    (the plain sampler). The largest difference of the world coordinates the
    two hand to the sampler (in pixels), and of the outputs on three seeded
@@ -31,7 +36,7 @@ import sys
 
 import torch
 
-from chip_smoke import (FILTERS, ROOT, card_line, render_median_ms,
+from chip_smoke import (FILTERS, ROOT, card_line, fenced_median_ms,
                         seeded_image, smooth_image)
 
 PROFILED_RENDERS = 5
@@ -40,21 +45,24 @@ SIZES = ((1920, 1080), (3840, 2160))
 
 #: kernel-name fragment -> class
 KERNEL_CLASSES = (("sample_image_kernel", "B1"), ("apply_lut_kernel", "B2"),
-                  ("while_loop_kernel", "B3"), ("CatArrayBatchedCopy", "stack"))
+                  ("while_loop_kernel", "B3"), ("sample_tiled_kernel", "B4"),
+                  ("CatArrayBatchedCopy", "stack"))
 
 
-def profile_render(f, inputs, dev, **kw):
-    """Per-render device time by kernel class, from torch.profiler."""
+def profile_render(render):
+    """Per-render device time by kernel class, from torch.profiler;
+    `render()` renders one frame."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    f.render(*inputs, device=dev, **kw)
+    render()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(PROFILED_RENDERS):
-            f.render(*inputs, device=dev, **kw)
+            render()
         torch.cuda.synchronize()
-    us = {"stack": 0.0, "B1": 0.0, "B2": 0.0, "B3": 0.0, "other": 0.0, "copy": 0.0}
+    us = {"stack": 0.0, "B1": 0.0, "B2": 0.0, "B3": 0.0, "B4": 0.0, "other": 0.0,
+          "copy": 0.0}
     kernels = copies = syncs = 0
     by_name = {}
     for e in prof.events():
@@ -76,26 +84,45 @@ def profile_render(f, inputs, dev, **kw):
             syncs / n, [(k[:70], v / n / 1e3) for k, v in top])
 
 
-def part_profile(filters, mandelbrot, eager_loop, dev, card):
+def part_profile(mt, filters, mandelbrot, eager_loop, dev, card):
     """`eager_loop`: RenderOptions that run mandelbrot's loop as the masked
-    eager loop (pallas_while="off"), for the syncs the kernel removes."""
+    eager loop (pallas_while="off"), for the syncs the kernel removes. The
+    tiled renders (pond through render_tiled on (1,4,1) and, at 4K, (1,2,2)
+    meshes of the first card and on the default mesh of every card) and
+    the sharded one (pond through render_sharded on (1,4,1)) run their
+    tiles one after another from one process."""
+    def mesh(*shape):
+        return mt.make_mesh(*shape, devices=[dev] * (shape[1] * shape[2]))
+
     for (w, h) in SIZES:
         _, u8 = seeded_image(w, h, seed=4)
         img = torch.from_numpy(u8).to(dev)
-        cases = [(name, filters[name], (img,), {}) for name in FILTERS]
-        cases.append(("mandelbrot", mandelbrot, (), {"width": w, "height": h}))
-        cases.append(("mandelbrot, eager loop", mandelbrot, (),
-                      {"width": w, "height": h, "options": eager_loop}))
-        for name, f, inputs, kw in cases:
-            median = render_median_ms(f, inputs[0] if inputs else None, dev, **kw)
-            ms, kernels, copies, syncs, top = profile_render(f, inputs, dev, **kw)
+        cases = [(name, lambda f=filters[name]: f.render(img, device=dev))
+                 for name in FILTERS]
+        cases.append(("mandelbrot", lambda: mandelbrot.render(width=w, height=h,
+                                                              device=dev)))
+        cases.append(("mandelbrot, eager loop", lambda: mandelbrot.render(
+            width=w, height=h, options=eager_loop, device=dev)))
+        pond = filters["pond"]
+        cases.append(("pond tiled (1,4,1)", lambda: pond.render_tiled(img, mesh=mesh(1, 4, 1))))
+        if (w, h) == SIZES[1]:
+            cases.append(("pond tiled (1,2,2)",
+                          lambda: pond.render_tiled(img, mesh=mesh(1, 2, 2))))
+            cases.append(("pond sharded (1,4,1)",
+                          lambda: pond.render_sharded(img, mesh=mesh(1, 4, 1))))
+            cards = torch.cuda.device_count()
+            cases.append((f"pond tiled, make_mesh() over {cards} card(s)",
+                          lambda: pond.render_tiled(img, mesh=mt.make_mesh())))
+        for name, render in cases:
+            median = fenced_median_ms(render)
+            ms, kernels, copies, syncs, top = profile_render(render)
             busy = sum(ms.values())
             print(f"profile {name} {w}x{h}: median {median:.3f} ms/frame, "
                   f"{kernels:g} kernels, device busy {busy:.4f} ms "
                   f"({100 * busy / median:.1f}% of the median): stack "
                   f"{ms['stack']:.4f}, other torch {ms['other']:.4f}, B1 "
-                  f"{ms['B1']:.4f}, B2 {ms['B2']:.4f}, B3 {ms['B3']:.4f}, copies "
-                  f"{ms['copy']:.4f} ms ({copies:g}); "
+                  f"{ms['B1']:.4f}, B2 {ms['B2']:.4f}, B3 {ms['B3']:.4f}, B4 "
+                  f"{ms['B4']:.4f}, copies {ms['copy']:.4f} ms ({copies:g}); "
                   f"{syncs:g} cudaStreamSynchronize per render [{card}]")
             for kname, kms in top:
                 print(f"  top kernel {kms:.4f} ms/render: {kname}")
@@ -152,7 +179,7 @@ def main() -> int:
     filters = {n: mt.compile_file(str(ROOT / "filters" / "Distorts" / f"{n}.mm"))
                for n in FILTERS}
     mandelbrot = mt.compile_file(str(ROOT / "filters" / "Render" / "mandelbrot.mm"))
-    part_profile(filters, mandelbrot, mt.RenderOptions(pallas_while="off"), dev, card)
+    part_profile(mt, filters, mandelbrot, mt.RenderOptions(pallas_while="off"), dev, card)
     part_coords(filters, dev, card)
     return 0
 

@@ -8,7 +8,7 @@ Phases, each printing its own lines:
 1. card and build: the GPU's name and power limit (nvidia-smi), CUDA and
    torch versions; every kernel built by nvcc at once, one process per
    source, all started together: the library of mathmap_tpu_torch/csrc/*.cu
-   (B1, B2) and one generated while-loop kernel (B3) per distinct loop body
+   (B1, B2, B4) and one generated while-loop kernel (B3) per distinct loop body
    of the phases below, traced from tiny CPU renders (nvcc seconds and
    ptxas register reports);
 2. B1 vs plain: the CUDA origVal sampler against its plain PyTorch version
@@ -34,9 +34,26 @@ Phases, each printing its own lines:
    3840x2160; every render must launch the loop kernel once and the LUT
    kernel once, and the 1080p renders must match the port's CPU renders
    (rtol=1e-4, atol=1e-5, differing pixels counted; uint8 within 1 LSB);
-7. timings on the card: median fenced render times, each kernel alone
-   against its plain version and, where one PyTorch call computes the same
-   function, against that call (grid_sample), and each kernel's bound.
+7. B4 vs plain: the tiled origVal sampler against its plain version on the
+   same CUDA tensors at 3840x2160, on the blocks of a top, an interior and
+   a bottom tile of a (1,4,1) mesh with halo 27, a corner tile of a (1,2,2)
+   mesh with halo (27, 27) and a (1,1,1) mesh, probe and in-contract
+   coordinates, every interpolation x edge pair, at rtol=1e-4, atol=1e-5
+   and an equal excess;
+8. tiled path: pond (default and amplitude=25) and ripple through
+   Filter.render_tiled(halo="auto") at 3840x2160, u8 input on the card, on
+   (1,4,1) and (1,2,2) meshes of the one card and the default make_mesh();
+   every render must launch B4 once per tile and match the unsharded card
+   render (rtol=1e-4, atol=1e-5, differing pixels counted); the 1080p tiled
+   renders of a smooth image must match the port's CPU tiled render; a
+   sample 40 rows away with halo 4 must raise;
+9. sharded path: Filter.render_sharded of pond on (1,4,1) (one B1 launch
+   per tile) and mandelbrot on (1,2,2) (one B3 and one B2 launch per tile)
+   at 3840x2160, matching the unsharded card render;
+10. timings on the card: median fenced render times (tiled pond 4K beside
+   unsharded pond 4K), each kernel alone against its plain version and,
+   where one PyTorch call computes the same function, against that call
+   (grid_sample), and each kernel's bound.
 
 The line before the last is the JSON record of the kernels; the last line
 is {"ok": true, "device": {...}}. Any failure raises and exits non-zero;
@@ -132,24 +149,26 @@ def smooth_image(w: int, h: int, seed: int, fade: bool = True):
     return f32, u8
 
 
-def probe_coordinates(w: int, h: int, seed: int):
-    """(h, w) world-coordinate grids in four row bands: in range, exact
-    texel centres, far outside (±3·W), and within 3 px of an edge."""
+def probe_coordinates(w: int, h: int, seed: int, shape=None):
+    """World-coordinate grids of a (w, h) frame in four row bands: in range,
+    exact texel centres, far outside (±3·W), and within 3 px of an edge;
+    (h, w) grids unless `shape` gives another (rows, cols)."""
     rs = np.random.RandomState(seed)
-    x = np.empty((h, w), np.float32)
-    y = np.empty((h, w), np.float32)
-    bands = np.array_split(np.arange(h), 4)
-    n = [len(b) * w for b in bands]
-    x[bands[0]] = rs.uniform(-w / 2, w / 2, n[0]).reshape(-1, w)
-    y[bands[0]] = rs.uniform(-h / 2, h / 2, n[0]).reshape(-1, w)
-    x[bands[1]] = (rs.randint(0, w, n[1]) + 0.5 - w / 2).reshape(-1, w)
-    y[bands[1]] = (h / 2 - 0.5 - rs.randint(0, h, n[1])).reshape(-1, w)
-    x[bands[2]] = rs.uniform(-3 * w, 3 * w, n[2]).reshape(-1, w)
-    y[bands[2]] = rs.uniform(-3 * w, 3 * w, n[2]).reshape(-1, w)
+    rows, cols = shape or (h, w)
+    x = np.empty((rows, cols), np.float32)
+    y = np.empty((rows, cols), np.float32)
+    bands = np.array_split(np.arange(rows), 4)
+    n = [len(b) * cols for b in bands]
+    x[bands[0]] = rs.uniform(-w / 2, w / 2, n[0]).reshape(-1, cols)
+    y[bands[0]] = rs.uniform(-h / 2, h / 2, n[0]).reshape(-1, cols)
+    x[bands[1]] = (rs.randint(0, w, n[1]) + 0.5 - w / 2).reshape(-1, cols)
+    y[bands[1]] = (h / 2 - 0.5 - rs.randint(0, h, n[1])).reshape(-1, cols)
+    x[bands[2]] = rs.uniform(-3 * w, 3 * w, n[2]).reshape(-1, cols)
+    y[bands[2]] = rs.uniform(-3 * w, 3 * w, n[2]).reshape(-1, cols)
     ex = rs.choice([-w / 2, w / 2], n[3]) + rs.uniform(-3, 3, n[3])
     ey = rs.choice([-h / 2, h / 2], n[3]) + rs.uniform(-3, 3, n[3])
-    x[bands[3]] = ex.reshape(-1, w)
-    y[bands[3]] = ey.reshape(-1, w)
+    x[bands[3]] = ex.reshape(-1, cols)
+    y[bands[3]] = ey.reshape(-1, cols)
     return x, y
 
 
@@ -178,20 +197,10 @@ def event_ms(fn, iters: int) -> float:
 
 
 def render_median_ms(f, img, dev, n: int = TIMED_RENDERS, **kw) -> float:
-    """Median host ms of `n` renders, each fenced by synchronize, after two
-    warm-up renders. `img` is None for a filter without an image input;
-    `kw` goes to Filter.render (width, height, params)."""
+    """fenced_median_ms of Filter.render. `img` is None for a filter without
+    an image input; `kw` goes to Filter.render (width, height, params)."""
     inputs = () if img is None else (img,)
-    for _ in range(2):
-        f.render(*inputs, device=dev, **kw)
-    times = []
-    for _ in range(n):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        f.render(*inputs, device=dev, **kw)
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
-    return statistics.median(times)
+    return fenced_median_ms(lambda: f.render(*inputs, device=dev, **kw), n)
 
 
 def check_close(name, got, want, rtol=RTOL, atol=ATOL) -> float:
@@ -651,6 +660,283 @@ def phase_generative_timings(mt, L, WL, tracer, dev, filters, card):
     return records
 
 
+#: kernel B4's cases at 4K: (label, mesh rows, mesh cols, halo rows, halo
+#: cols, the tile's row, the tile's col)
+TILED_CASES = (("(1,4,1) top", 4, 1, 27, 0, 0, 0), ("(1,4,1) interior", 4, 1, 27, 0, 1, 0),
+               ("(1,4,1) bottom", 4, 1, 27, 0, 3, 0), ("(1,2,2) corner", 2, 2, 27, 27, 0, 1),
+               ("(1,1,1)", 1, 1, 27, 0, 0, 0))
+#: the tiled path's renders at 4K, each on every mesh of TILED_MESHES
+TILED_FILTERS = (("pond", {}), ("pond", {"amplitude": 25.0}), ("ripple", {}))
+#: meshes of the one card; None = make_mesh(), every visible GPU on the rows
+TILED_MESHES = ((1, 4, 1), (1, 2, 2), None)
+
+
+def card_mesh(mt, dev, shape):
+    if shape is None:
+        return mt.make_mesh()
+    return mt.make_mesh(*shape, devices=[dev] * int(np.prod(shape)))
+
+
+def tiled_block(img, th: int, tw: int, hy: int, hx: int, r: int, c: int, nx: int):
+    """The halo-extended block tile (r, c) holds after the ring exchange:
+    its rows (and cols, when split) plus the halo, wrapping at the frame's
+    edges."""
+    gh, gw = img.shape[:2]
+    rows = torch.arange(r * th - hy, (r + 1) * th + hy, device=img.device) % gh
+    cols = (torch.arange(c * tw - hx, (c + 1) * tw + hx, device=img.device) % gw
+            if nx > 1 else torch.arange(gw, device=img.device))
+    return img[rows][:, cols].contiguous()
+
+
+def contract_coordinates(w: int, h: int, th: int, tw: int, r: int, c: int,
+                         hy: int, hx: int, seed: int):
+    """World coordinates of tile (r, c)'s pixel centres displaced by up to
+    its halo less the bicubic margin of 3 (±20 px across an axis that is
+    not split, hx == 0)."""
+    rs = np.random.RandomState(seed)
+    x = (np.arange(c * tw, (c + 1) * tw)[None, :] + 0.5 - w / 2) \
+        + rs.uniform(-1, 1, (th, tw)) * (hx - 3 if hx else 20)
+    y = (h / 2 - 0.5 - np.arange(r * th, (r + 1) * th)[:, None]) \
+        + rs.uniform(-1, 1, (th, tw)) * (hy - 3)
+    return x.astype(np.float32), y.astype(np.float32)
+
+
+def phase_tiled_vs_plain(B4, dev) -> float:
+    """B4 against its plain version on the blocks of a top, an interior and
+    a bottom tile of a (1,4,1) mesh, a corner tile of a (1,2,2) mesh and a
+    (1,1,1) mesh at 4K: probe coordinates (mostly far out of the halo) and
+    in-contract ones, every interpolation x edge pair; equal excess."""
+    gw, gh = SIZES[1]
+    f32, _ = seeded_image(gw, gh, seed=11)
+    img = torch.from_numpy(f32).to(dev)
+    worst, n = 0.0, 0
+    for k, (label, ny, nx, hy, hx, r, c) in enumerate(TILED_CASES):
+        th, tw = gh // ny, gw // nx
+        hx = hx if nx > 1 else 0
+        ext = tiled_block(img, th, tw, hy, hx, r, c, nx)
+        geom = dict(gh=gh, gw=gw, row_base=r * th - hy, col_base=c * tw - hx,
+                    col_sharded=nx > 1, edge_color=EDGE_COLOR)
+        coord_sets = {"probe": probe_coordinates(gw, gh, seed=20 + k, shape=(th, tw)),
+                      "in-contract": contract_coordinates(gw, gh, th, tw, r, c, hy, hx,
+                                                          seed=30 + k)}
+        for cname, (xn, yn) in coord_sets.items():
+            x, y = torch.from_numpy(xn).to(dev), torch.from_numpy(yn).to(dev)
+            errs, excesses = [], set()
+            for interp in INTERPOLATIONS:
+                for ex, ey in EDGE_PAIRS:
+                    kw = dict(geom, interpolation=interp, edge_x=ex, edge_y=ey)
+                    got, e_got = B4.sample_tiled(ext, x, y, **kw)
+                    want, e_want = B4.sample_tiled_reference(ext, x, y, **kw)
+                    torch.cuda.synchronize()
+                    tag = f"B4 {label} {cname} {interp} {ex}/{ey}"
+                    errs.append(check_close(tag, got, want))
+                    if int(e_got) != int(e_want):
+                        raise AssertionError(f"{tag}: excess {int(e_got)} != plain {int(e_want)}")
+                    if cname == "in-contract" and int(e_got) > 0:
+                        raise AssertionError(f"{tag}: in-contract taps reached {int(e_got)} "
+                                             f"past the block")
+                    excesses.add(int(e_got))
+                    n += 1
+            worst = max(worst, max(errs))
+            print(f"B4 vs plain {gw}x{gh} {label:16s} block {tuple(ext.shape[:2])} "
+                  f"{cname:11s}: 15 cases, max abs err {max(errs):.3e}, excess "
+                  f"{min(excesses)}..{max(excesses)} (equal)")
+    print(f"B4 vs plain: all {n} cases agree (rtol={RTOL}, atol={ATOL}, equal excess), "
+          f"worst max abs err {worst:.3e}")
+    return worst
+
+
+def phase_tiled_path(mt, B4, dev, filters):
+    """render_tiled of pond and ripple at 4K on every mesh of the one card:
+    one B4 launch per tile, the unsharded card render's values; the 1080p
+    tiled renders of a smooth image against the port's CPU tiled render; a
+    sample past the halo raises."""
+    B4.sample_tiled.launches = 0
+    renders = 0
+    gw, gh = SIZES[1]
+    _, u8 = seeded_image(gw, gh, seed=12)
+    img = torch.from_numpy(u8).to(dev)
+    for name, params in TILED_FILTERS:
+        f = filters[name]
+        want = f.render(img, params=params, t=0.3, device=dev)
+        for shape in TILED_MESHES:
+            mesh = card_mesh(mt, dev, shape)
+            before = B4.sample_tiled.launches
+            out = f.render_tiled(img, mesh=mesh, params=params, t=0.3)
+            torch.cuda.synchronize()
+            renders += 1
+            tiles = mesh.devices.size
+            tag = (f"tiled {name:6s} {'default' if not params else 'amplitude=25'} "
+                   f"{gw}x{gh} u8 in, mesh {tuple(mesh.devices.shape)}")
+            if B4.sample_tiled.launches - before != tiles:
+                raise AssertionError(f"{tag}: {B4.sample_tiled.launches - before} B4 "
+                                     f"launches for {tiles} tiles")
+            if tuple(out.shape) != (gh, gw, 4) or out.device != want.device:
+                raise AssertionError(f"{tag}: bad output {tuple(out.shape)} on {out.device}")
+            err = check_close(tag, out, want)
+            n_px = int(((out - want).abs() > 0).any(-1).sum())
+            print(f"tiled path {tag}: {tiles} B4 launches, max abs err {err:.3e} vs the "
+                  f"unsharded card render, {n_px} pixels differ")
+    w1, h1 = SIZES[0]
+    _, su8 = smooth_image(w1, h1, seed=13)
+    sdev = torch.from_numpy(su8).to(dev)
+    for name in ("pond", "ripple"):
+        for shape in TILED_MESHES[:2]:
+            n_dev = int(np.prod(shape))
+            out = filters[name].render_tiled(sdev, mesh=card_mesh(mt, dev, shape), t=0.3)
+            torch.cuda.synchronize()
+            renders += 1
+            ref = filters[name].render_tiled(
+                su8, mesh=mt.make_mesh(*shape, devices=["cpu"] * n_dev), t=0.3)
+            tag = f"tiled {name:6s} {w1}x{h1} smooth u8 in, mesh {shape}"
+            err = check_close(tag, out.cpu(), ref)
+            n_px = int(((out.cpu() - ref).abs() > 0).any(-1).sum())
+            print(f"tiled path {tag}: max abs err {err:.3e} vs the CPU tiled render, "
+                  f"{n_px} pixels differ")
+    launches = B4.sample_tiled.launches
+    try:
+        mt.compile_source("origVal(xy + xy:[0, 40])").render_tiled(
+            img, halo=4, mesh=card_mesh(mt, dev, (1, 4, 1)))
+    except mt.MMRuntimeError as e:
+        print(f"tiled path: a sample 40 rows away with halo 4 raises: {e}")
+    else:
+        raise AssertionError("a sample past the halo did not raise")
+    print(f"tiled path: {renders} GPU renders, {launches} B4 launches")
+    return launches
+
+
+def phase_sharded_path(mt, K, L, WL, dev, filters):
+    """render_sharded of pond on (1,4,1) and mandelbrot on (1,2,2) at 4K:
+    one B1 (pond) or one B3 and one B2 (mandelbrot) launch per tile, the
+    unsharded card render's values."""
+    gw, gh = SIZES[1]
+    _, u8 = seeded_image(gw, gh, seed=14)
+    img = torch.from_numpy(u8).to(dev)
+    cases = (("pond", (img,), (1, 4, 1), {}), ("mandelbrot", (), (1, 2, 2),
+                                                dict(width=gw, height=gh)))
+    for name, inputs, shape, size in cases:
+        f = filters[name]
+        want = f.render(*inputs, device=dev, **size)
+        before = (K.sample_image.launches, L.apply_lut.launches, WL.while_loop.launches)
+        out = f.render_sharded(*inputs, mesh=card_mesh(mt, dev, shape), **size)
+        torch.cuda.synchronize()
+        counts = tuple(a - b for a, b in zip(
+            (K.sample_image.launches, L.apply_lut.launches, WL.while_loop.launches), before))
+        expected = (4, 0, 0) if name == "pond" else (0, 4, 4)
+        tag = f"sharded {name} {gw}x{gh} mesh {shape}"
+        if counts != expected:
+            raise AssertionError(f"{tag}: (B1, B2, B3) launches {counts}, expected {expected}")
+        err = check_close(tag, out, want)
+        n_px = int(((out - want).abs() > 0).any(-1).sum())
+        print(f"sharded path {tag}: (B1, B2, B3) launches {counts}, max abs err {err:.3e} "
+              f"vs the unsharded card render, {n_px} pixels differ")
+
+
+class TiledCapture:
+    """Records the arguments of every B4 call the renderer makes while
+    active (runtime.sampling.tiled_kernel)."""
+
+    def __init__(self, sampling):
+        self.sampling = sampling
+        self.calls = []
+
+    def __enter__(self):
+        self.orig = orig = self.sampling.tiled_kernel
+
+        def spy(*args, **kwargs):
+            self.calls.append((args, kwargs))
+            return orig(*args, **kwargs)
+
+        self.sampling.tiled_kernel = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.sampling.tiled_kernel = self.orig
+
+
+def fenced_median_ms(call, n: int = TIMED_RENDERS) -> float:
+    """Median host ms of `n` calls, each fenced by synchronize, after two
+    warm-up calls."""
+    for _ in range(2):
+        call()
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def grid_sample_tiled(ext, x, y, gh: int, gw: int, row_base: int):
+    """B4's function on an interior tile's in-contract taps (columns not
+    split, the default transparent edge color) as one PyTorch call:
+    bilinear grid_sample of the f32 block with coordinates localised to
+    the block beforehand; zero padding is the transparent color edge across
+    the frame's left and right borders, and the rows never leave the
+    block. Returns (call, its (4, H, W) output)."""
+    import torch.nn.functional as F
+
+    ext_h, ext_w = ext.shape[:2]
+    src = ext.permute(2, 0, 1)[None].contiguous()
+    px = x + (gw * 0.5 - 0.5)
+    py = (gh * 0.5 - 0.5) - y - row_base
+    grid = torch.stack([(px + 0.5) * (2.0 / ext_w) - 1.0,
+                        (py + 0.5) * (2.0 / ext_h) - 1.0], dim=-1)[None]
+
+    def call():
+        return F.grid_sample(src, grid, mode="bilinear", padding_mode="zeros",
+                             align_corners=False)
+
+    return call, call()[0]
+
+
+def phase_tiled_timings(mt, B4, sampling, dev, filters, card):
+    """Tiled pond 4K on (1,4,1) beside unsharded pond 4K; B4 alone on the
+    interior tile's block and coordinates against its plain version,
+    grid_sample and its bound."""
+    gw, gh = SIZES[1]
+    _, u8 = seeded_image(gw, gh, seed=4)
+    img = torch.from_numpy(u8).to(dev)
+    f = filters["pond"]
+    mesh = card_mesh(mt, dev, (1, 4, 1))
+    runs = [fenced_median_ms(lambda: f.render(img, device=dev)),
+            fenced_median_ms(lambda: f.render_tiled(img, mesh=mesh)),
+            fenced_median_ms(lambda: f.render_tiled(img, mesh=mesh)),
+            fenced_median_ms(lambda: f.render(img, device=dev))]
+    print(f"timing render pond {gw}x{gh} u8 in: unsharded median {runs[0]:.3f} / "
+          f"{runs[3]:.3f} ms/frame, tiled (1,4,1) halo (27, 2) median {runs[1]:.3f} / "
+          f"{runs[2]:.3f} ms/frame (order: unsharded, tiled, tiled, unsharded; "
+          f"{TIMED_RENDERS} renders each) [{card}]")
+    with TiledCapture(sampling) as cap:
+        f.render_tiled(img, mesh=mesh)
+    (ext, x, y, tgh, tgw, row_base, col_base, col_sharded, interp, ex, ey, col), kw = \
+        cap.calls[1]
+    args = (ext, x, y, tgh, tgw, row_base, col_base, col_sharded, interp, ex, ey, col)
+    kernel_ms, plain_ms = turns(lambda: B4.sample_tiled_reference(*args),
+                                lambda: B4.sample_tiled(*args, **kw), 5, 50)
+    unchecked_ms = event_ms(lambda: B4.sample_tiled(*args, check=False), 50)
+    got, excess = B4.sample_tiled(*args, **kw)
+    want, want_excess = B4.sample_tiled_reference(*args)
+    err = check_close("timed B4", got, want)
+    if int(excess) != int(want_excess) or int(excess) > 0:
+        raise AssertionError(f"timed B4: excess {int(excess)}, plain {int(want_excess)}")
+    lib, lib_out = grid_sample_tiled(ext, x, y, tgh, tgw, row_base)
+    lib_ms = event_ms(lib, 50)
+    n_bytes = ext.numel() * 4 + (x.numel() + y.numel()) * 4 + got.numel() * 4
+    bound, by = bound_ms(n_bytes)
+    print(f"timing B4 pond {gw}x{gh} interior tile of (1,4,1), block {tuple(ext.shape[:2])} "
+          f"f32, {interp}, check={kw.get('check')}: kernel {kernel_ms:.4f} ms (check=False "
+          f"{unchecked_ms:.4f} ms), plain "
+          f"{plain_ms:.4f} ms ({plain_ms / kernel_ms:.1f}x), max abs err {err:.3e}, excess "
+          f"{int(excess)}; grid_sample {lib_ms:.4f} ms (max abs diff "
+          f"{float((lib_out - got).abs().max()):.2e}); bound {bound:.4f} ms "
+          f"({n_bytes / 1e6:.1f} MB) [{card}]")
+    return dict(ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                library_ms=lib_ms)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA GPU available", file=sys.stderr)
@@ -664,15 +950,16 @@ def main() -> int:
     from mathmap_tpu_torch.kernels import apply_lut as L
     from mathmap_tpu_torch.kernels import build
     from mathmap_tpu_torch.kernels import sample_image as K
+    from mathmap_tpu_torch.kernels import sample_tiled as B4
     from mathmap_tpu_torch.kernels import while_loop as WL
-    from mathmap_tpu_torch.runtime import tracer
+    from mathmap_tpu_torch.runtime import sampling, tracer
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     t0 = time.perf_counter()
     filters = {n: mt.compile_file(str(ROOT / "filters" / "Distorts" / f"{n}.mm"))
-               for n in FILTERS}
+               for n in FILTERS + ("ripple",)}
     filters.update({n: mt.compile_file(str(ROOT / "filters" / "Render" / f"{n}.mm"))
                     for n in GENERATIVE})
     sin_filter = mt.compile_source(SIN_BODY)
@@ -684,8 +971,12 @@ def main() -> int:
     worst_b3 = phase_loop_vs_plain(mt, WL, tracer, dev, filters, sin_filter)
     b1_launches = phase_distortion_path(mt, K, dev, filters)
     b2_launches, b3_launches = phase_generative_path(mt, L, WL, dev, filters)
+    worst_b4 = phase_tiled_vs_plain(B4, dev)
+    b4_launches = phase_tiled_path(mt, B4, dev, filters)
+    phase_sharded_path(mt, K, L, WL, dev, filters)
     b1 = phase_timings(mt, K, dev, filters, card)
     gen = phase_generative_timings(mt, L, WL, tracer, dev, filters, card)
+    b4 = phase_tiled_timings(mt, B4, sampling, dev, filters, card)
     print(f"nvcc builds in this run: {len(build.BUILDS)}, "
           f"{sum(s for _, s in build.BUILDS):.2f} s in all")
     print(f"chip_smoke: {time.perf_counter() - t0:.1f} s")
@@ -703,6 +994,10 @@ def main() -> int:
          "source": "mathmap_tpu_torch/csrc/while_loop.cu.tmpl",
          "replaces": "mathmap_tpu/pallas_kernels/while_kernel.py:143",
          "launches": b3_launches, "max_abs_err": worst_b3, **gen["default"]},
+        {"name": "sample_tiled", "route": "cuda",
+         "source": "mathmap_tpu_torch/csrc/sample_tiled.cu",
+         "replaces": "mathmap_tpu/runtime/sampling.py:188",
+         "launches": b4_launches, "max_abs_err": worst_b4, **b4},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

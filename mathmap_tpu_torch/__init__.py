@@ -10,7 +10,10 @@ on the device the caller names, origVal goes through a hand-written CUDA
 sampler (csrc/sample_image.cu), curves and gradients through a CUDA LUT
 kernel (csrc/apply_lut.cu), and each eligible `while` loop through a CUDA
 kernel generated from its body (kernels/while_loop.py), all built by nvcc
-at first use. ROADMAP.md lists what is still to port.
+at first use. `Filter.render_sharded` and `Filter.render_tiled` split a
+render over a mesh of devices (`make_mesh`), the latter sampling each
+tile's halo-extended input block through a CUDA kernel of its own
+(csrc/sample_tiled.cu). ROADMAP.md lists what is still to port.
 
     import mathmap_tpu_torch as mt
     f = mt.compile_file("filters/Distorts/twirl.mm")
@@ -25,6 +28,7 @@ _sys.setrecursionlimit(max(_sys.getrecursionlimit(), 20000))
 
 from . import ops as _ops  # noqa: E402,F401  — populate the builtin registry
 from .api import Filter, compile_file, compile_source  # noqa: E402
+from .parallel.mesh import make_mesh  # noqa: E402
 from .runtime.options import RenderOptions  # noqa: E402
 from .utils.errors import (  # noqa: E402
     MMError,
@@ -38,6 +42,7 @@ __all__ = [
     "Filter",
     "compile_source",
     "compile_file",
+    "make_mesh",
     "RenderOptions",
     "MMError",
     "MMSyntaxError",

@@ -1,11 +1,12 @@
 """Build the CUDA sources of this package at first use.
 
-Every `*.cu` file under `mathmap_tpu_torch/csrc/` is compiled by nvcc for
-Hopper (`sm_90a`) into ONE shared library with a plain C interface, loaded
-with ctypes (`library()`). Each generated source (a while loop's kernel,
-kernels/while_loop.py) is compiled into a library of its own
-(`generated_library()`), with `--fmad=false` so nvcc keeps every multiply
-and add separately rounded, as the eager torch ops are. Libraries land in
+Every `*.cu` file under `mathmap_tpu_torch/csrc/` (with the `*.cuh` headers
+they share) is compiled by nvcc for Hopper (`sm_90a`) into ONE shared
+library with a plain C interface, loaded with ctypes (`library()`). Each
+generated source (a while loop's kernel, kernels/while_loop.py) is
+compiled into a library of its own (`generated_library()`), with
+`--fmad=false` so nvcc keeps every multiply and add separately rounded, as
+the eager torch ops are. Libraries land in
 `mathmap_tpu_torch/kernels/build/`, named by a hash of the sources and
 flags, so an edited source rebuilds and an unchanged one loads from disk;
 each is loaded once per process. Nothing here runs at import time: the
@@ -95,11 +96,13 @@ def _build(path: Path, flags, sources) -> Library:
 
 @functools.cache
 def library() -> Library:
-    """Build (if needed) and load the library of csrc/*.cu."""
+    """Build (if needed) and load the library of csrc/*.cu; the headers
+    they include (csrc/*.cuh) are part of its name."""
     sources = sorted(CSRC.glob("*.cu"))
     if not sources:
         raise RuntimeError(f"no CUDA sources under {CSRC}")
-    return _build(BUILD_DIR / f"libmm_kernels_{_digest(sources)}.so", NVCC_FLAGS, sources)
+    digest = _digest(sources + sorted(CSRC.glob("*.cuh")))
+    return _build(BUILD_DIR / f"libmm_kernels_{digest}.so", NVCC_FLAGS, sources)
 
 
 @functools.cache

@@ -37,6 +37,7 @@ import numpy as np
 import torch
 
 from ..lang import astnodes as A
+from ..ops import libm
 from . import build
 
 #: builtins a kernel body may call: the reference's SAFE_CALLS
@@ -429,7 +430,7 @@ def trace(loop: Loop, n_flat: int) -> Program:
 _INTERP = {
     "add": operator.add, "sub": operator.sub, "mul": operator.mul,
     "div": operator.truediv, "remainder": torch.remainder, "fmod": torch.fmod,
-    "pow": operator.pow, "atan2": torch.atan2, "minimum": torch.minimum,
+    "pow": operator.pow, "minimum": torch.minimum,
     "maximum": torch.maximum, "eq": operator.eq, "ne": operator.ne,
     "lt": operator.lt, "gt": operator.gt, "le": operator.le, "ge": operator.ge,
     "and": operator.and_, "or": operator.or_, "xor": operator.xor,
@@ -453,7 +454,7 @@ def run_program(prog: Program, inputs: dict, device) -> tuple:
             vals.append(torch.tensor(operands[0], dtype=dtype, device=device))
             continue
         args = [vals[o[1]] if o[0] == "v" else o[1] for o in operands]
-        fn = _INTERP.get(op) or getattr(torch, op)
+        fn = _INTERP.get(op) or libm.FUNCTIONS.get(op) or getattr(torch, op)
         vals.append(fn(*args))
 
     def get(o):

@@ -14,6 +14,7 @@ import torch
 from ..kernels.apply_lut import apply_lut
 from ..runtime.value import TupleValue
 from ..typesys.tags import NIL
+from . import libm
 from .registry import builtin, need_args, need_length
 
 LUMA_R, LUMA_G, LUMA_B = 0.299, 0.587, 0.114
@@ -128,7 +129,7 @@ def _to_ra(ev, args, span):
     x, y = p.arrays
     r = torch.sqrt(x * x + y * y)
     # angle in [0, 2*pi), counterclockwise from the +x axis
-    a = torch.remainder(torch.atan2(y, x), _2PI)
+    a = torch.remainder(libm.atan2(y, x), _2PI)
     # float mod of a tiny negative yields EXACTLY 2*pi: wrap into [0, 2*pi)
     a = torch.where(a >= _2PI, 0.0, a)
     return TupleValue("ra", (r, a))
@@ -139,7 +140,7 @@ def _to_xy(ev, args, span):
     (p,) = need_args(args, 1, "toXY", span)
     need_length(p, 2, "toXY", span)
     r, a = p.arrays
-    return TupleValue("xy", (r * torch.cos(a), r * torch.sin(a)))
+    return TupleValue("xy", (r * libm.cos(a), r * libm.sin(a)))
 
 
 # ---------------------------------------------------------------------------

@@ -12,6 +12,7 @@ import torch
 from ..runtime.value import TupleValue
 from ..typesys.tags import NIL
 from ..utils.errors import MMTypeError
+from . import libm
 from .registry import builtin, need_args, need_length
 
 
@@ -31,29 +32,29 @@ def c_div(a: TupleValue, b: TupleValue) -> TupleValue:
 def c_exp(a: TupleValue) -> TupleValue:
     re, im = a.arrays
     m = torch.exp(re)
-    return TupleValue("ri", (m * torch.cos(im), m * torch.sin(im)))
+    return TupleValue("ri", (m * libm.cos(im), m * libm.sin(im)))
 
 
 def c_log(a: TupleValue) -> TupleValue:
     re, im = a.arrays
-    return TupleValue("ri", (0.5 * torch.log(re * re + im * im), torch.atan2(im, re)))
+    return TupleValue("ri", (0.5 * torch.log(re * re + im * im), libm.atan2(im, re)))
 
 
 def c_sqrt(a: TupleValue) -> TupleValue:
     re, im = a.arrays
     r = torch.sqrt(torch.sqrt(re * re + im * im))
-    th = 0.5 * torch.atan2(im, re)
-    return TupleValue("ri", (r * torch.cos(th), r * torch.sin(th)))
+    th = 0.5 * libm.atan2(im, re)
+    return TupleValue("ri", (r * libm.cos(th), r * libm.sin(th)))
 
 
 def c_sin(a: TupleValue) -> TupleValue:
     re, im = a.arrays
-    return TupleValue("ri", (torch.sin(re) * torch.cosh(im), torch.cos(re) * torch.sinh(im)))
+    return TupleValue("ri", (libm.sin(re) * libm.cosh(im), libm.cos(re) * libm.sinh(im)))
 
 
 def c_cos(a: TupleValue) -> TupleValue:
     re, im = a.arrays
-    return TupleValue("ri", (torch.cos(re) * torch.cosh(im), -torch.sin(re) * torch.sinh(im)))
+    return TupleValue("ri", (libm.cos(re) * libm.cosh(im), -libm.sin(re) * libm.sinh(im)))
 
 
 def c_tan(a: TupleValue) -> TupleValue:
@@ -76,7 +77,7 @@ def _conj(ev, args, span):
 def _arg(ev, args, span):
     (a,) = need_args(args, 1, "arg", span)
     need_length(a, 2, "arg", span)
-    return TupleValue(NIL, (torch.atan2(a.arrays[1], a.arrays[0]),))
+    return TupleValue(NIL, (libm.atan2(a.arrays[1], a.arrays[0]),))
 
 
 # -- overload-aware trig/exp builtins: ri: goes to the complex form, any
@@ -95,6 +96,6 @@ def _complex_dispatch(name: str, complex_fn, real_fn):
 
 _complex_dispatch("exp", c_exp, torch.exp)
 _complex_dispatch("sqrt", c_sqrt, torch.sqrt)
-_complex_dispatch("sin", c_sin, torch.sin)
-_complex_dispatch("cos", c_cos, torch.cos)
-_complex_dispatch("tan", c_tan, torch.tan)
+_complex_dispatch("sin", c_sin, libm.sin)
+_complex_dispatch("cos", c_cos, libm.cos)
+_complex_dispatch("tan", c_tan, libm.tan)

@@ -16,6 +16,7 @@ import torch
 from ..runtime.value import TupleValue
 from ..typesys.tags import NIL
 from ..utils.errors import MMTypeError
+from . import libm
 from .registry import (
     broadcast_pair,
     builtin,
@@ -144,14 +145,14 @@ def _not(ev, args, span):
 # overloads in complex_ops)
 # ---------------------------------------------------------------------------
 
-ew1("asin", torch.asin)
-ew1("acos", torch.acos)
-ew1("sinh", torch.sinh)
-ew1("cosh", torch.cosh)
-ew1("tanh", torch.tanh)
-ew1("asinh", torch.asinh)
-ew1("acosh", torch.acosh)
-ew1("atanh", torch.atanh)
+ew1("asin", libm.asin)
+ew1("acos", libm.acos)
+ew1("sinh", libm.sinh)
+ew1("cosh", libm.cosh)
+ew1("tanh", libm.tanh)
+ew1("asinh", libm.asinh)
+ew1("acosh", libm.acosh)
+ew1("atanh", libm.atanh)
 ew1("floor", torch.floor)
 ew1("ceil", torch.ceil)
 ew1("round", torch.round)  # half to even, like np.round
@@ -178,13 +179,13 @@ def _atan(ev, args, span):
         (a,) = args
         if a.is_opaque:
             raise MMTypeError(f"'atan' not defined on {a.tag}", span)
-        return TupleValue(a.tag, tuple(torch.atan(x) for x in a.arrays))
+        return TupleValue(a.tag, tuple(libm.atan(x) for x in a.arrays))
     a, b = need_args(args, 2, "atan", span)
     pairs = broadcast_pair(a, b, span, "atan")
-    return TupleValue(result_tag(a, b), tuple(torch.atan2(x, y) for x, y in pairs))
+    return TupleValue(result_tag(a, b), tuple(libm.atan2(x, y) for x, y in pairs))
 
 
-ew2("atan2", torch.atan2)
+ew2("atan2", libm.atan2)
 # `__pow` and `pow` (with the complex overload) live in ops/__init__
 
 

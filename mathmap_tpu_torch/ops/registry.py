@@ -60,6 +60,12 @@ def not_ported(what: str, item: str):
     return NotImplementedError(f"{what} is not ported yet ({item})")
 
 
+def is_builtin(name: str) -> bool:
+    """A name of the language's builtin table: ported or not (the
+    reference's registry holds both)."""
+    return name in BUILTINS or name in NOT_PORTED
+
+
 def lookup(name: str):
     fn = BUILTINS.get(name)
     if fn is None and name in NOT_PORTED:

@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import torch
 
+from ..kernels.sample_image import u8_to_float
 from ..lang import astnodes as A
 from ..utils.errors import MMRuntimeError
 from .tracer import Evaluator, RenderContext, coerce_rgba
@@ -20,20 +21,34 @@ from .value import InputImage, image_value
 
 
 def coordinate_grids(ctx: RenderContext, dx: float = 0.0, dy: float = 0.0):
-    """Centered world-coordinate grids: pixel (row j, col i) center at
-    (i + 0.5 - W/2, H/2 - 0.5 - j), y pointing up. (dx, dy) are subpixel
-    offsets in pixel units for supersampling."""
+    """Centered world-coordinate grids: GLOBAL pixel (row j, col i) center
+    at (i + 0.5 - W/2, H/2 - 0.5 - j), y pointing up. (dx, dy) are subpixel
+    offsets in pixel units for supersampling. A tile of a mesh
+    (ctx.grid_shape set) builds only its own rows and columns from its
+    offsets, in the reference's order of operations (arange + offset +
+    (0.5 + dx) - W/2), so its coordinates are the same floats as the
+    whole frame's: the integer-valued aranges start at the offset, which
+    equals adding it."""
     h, w = ctx.shape
     dt, dev = ctx.dtype, ctx.device
 
     def lit(v):
         return torch.tensor(v, dtype=dt, device=dev)
 
-    xs = torch.arange(w, dtype=dt, device=dev) + lit(0.5 + dx) - lit(ctx.width * 0.5)
-    ys = lit(ctx.height * 0.5) - (torch.arange(h, dtype=dt, device=dev) + lit(0.5 + dy))
+    cols = torch.arange(ctx.col_offset, ctx.col_offset + w, dtype=dt, device=dev)
+    rows = torch.arange(ctx.row_offset, ctx.row_offset + h, dtype=dt, device=dev)
+    xs = cols + lit(0.5 + dx) - lit(ctx.width * 0.5)
+    ys = lit(ctx.height * 0.5) - (rows + lit(0.5 + dy))
     x = torch.broadcast_to(xs[None, :], (h, w))
     y = torch.broadcast_to(ys[:, None], (h, w))
     return x, y
+
+
+def float_inputs(arrays):
+    """The tiled renderer's input blocks as float32: uint8 by
+    kernels/sample_image.u8_to_float (the one conversion rule, the same
+    values the sampler's u8 taps take), float32 as they are."""
+    return [u8_to_float(a) if a.dtype == torch.uint8 else a for a in arrays]
 
 
 def subpixel_offsets(s: int):
@@ -74,8 +89,8 @@ def pack_uint8(rgba: torch.Tensor) -> torch.Tensor:
 
 
 def render_frame(ctx: RenderContext, fdef: A.FilterDef, uservals: dict):
-    """Render one frame -> (H, W, 4) float32 in [0,1] (uint8 when
-    opts.output_dtype='uint8')."""
+    """Render one frame, or one tile of it -> ctx.shape + (4,) float32 in
+    [0,1] (uint8 when opts.output_dtype='uint8')."""
     s = ctx.opts.supersample
     acc = None
     for dx, dy in subpixel_offsets(s):
@@ -128,6 +143,10 @@ def render(program_filters: dict, fdef: A.FilterDef, width: int, height: int,
         inputs=[InputImage(pixels=a, name=f"in{i}")
                 for i, a in enumerate(inputs)],
     )
-    uservals = {p.name: convert_userval(ctx, p, params[p.name])
-                for p in fdef.params if p.name in params}
-    return render_frame(ctx, fdef, uservals)
+    return render_frame(ctx, fdef, user_values(ctx, fdef, params))
+
+
+def user_values(ctx: RenderContext, fdef: A.FilterDef, params: dict) -> dict:
+    """The caller's param values as TupleValues on ctx's device."""
+    return {p.name: convert_userval(ctx, p, params[p.name])
+            for p in fdef.params if p.name in params}

@@ -18,6 +18,7 @@ yet (ROADMAP A3), nor the loop's rand counter and salt plumbing.
 
 from __future__ import annotations
 
+import contextlib
 import math
 from dataclasses import dataclass, field
 from typing import Any
@@ -25,6 +26,7 @@ from typing import Any
 import torch
 
 from ..lang import astnodes as A
+from ..ops import libm
 from ..ops import registry as R
 from ..kernels import while_loop as WL
 from ..kernels.while_loop import while_loop as loop_kernel
@@ -82,9 +84,22 @@ class RenderContext:
     #: filter-inlining depth (recursive filters would inline forever)
     inline_depth: int = 0
     max_inline_depth: int = 32
+    #: >0 while a while loop is evaluated (probe, unroll, kernel route,
+    #: masked loop): the tiled renderer's halo check skips samples there,
+    #: as the reference's does
+    loop_depth: int = 0
+    #: this tile's (rows, cols) when the grid is split over a mesh
+    #: (parallel/); None = the whole (height, width) frame. The internals
+    #: X, Y, W, H and R always use the global size.
+    grid_shape: tuple | None = None
+    #: the tile's global (row, col) origin
+    row_offset: int = 0
+    col_offset: int = 0
 
     @property
     def shape(self):
+        if self.grid_shape is not None:
+            return self.grid_shape
         return (self.height, self.width)
 
 
@@ -123,6 +138,15 @@ class Evaluator:
     def _zero_like(self, v: TupleValue) -> TupleValue:
         return TupleValue(v.tag, tuple(torch.zeros_like(x) for x in v.arrays))
 
+    @contextlib.contextmanager
+    def _in_loop(self):
+        """Raise ctx.loop_depth while a loop's body or condition runs."""
+        self.ctx.loop_depth += 1
+        try:
+            yield
+        finally:
+            self.ctx.loop_depth -= 1
+
     # ------------------------------------------------------------------
     # variable resolution
     # ------------------------------------------------------------------
@@ -139,7 +163,7 @@ class Evaluator:
             v = TupleValue(NIL, (torch.sqrt(self.x * self.x + self.y * self.y),))
         elif name == "a":
             # angle in [0, 2pi) counterclockwise from +x
-            v = TupleValue(NIL, (torch.remainder(torch.atan2(self.y, self.x), _2PI),))
+            v = TupleValue(NIL, (torch.remainder(libm.atan2(self.y, self.x), _2PI),))
         elif name == "t":
             v = TupleValue(NIL, (self.lit(ctx.t),))
         elif name == "frame":
@@ -381,13 +405,14 @@ class Evaluator:
                 # the coordinate, not zero (the if-phi merge's rule)
                 iv = self._internal(n)
                 probe_env[n] = iv if iv is not None else TupleValue(NIL, (self.lit(0.0),))
-        if node.post:
-            # do-while: the body runs before the first condition
-            probe.eval(node.body)
-            probe.eval(node.cond)
-        else:
-            probe.eval(node.cond)
-            probe.eval(node.body)
+        with self._in_loop():
+            if node.post:
+                # do-while: the body runs before the first condition
+                probe.eval(node.body)
+                probe.eval(node.cond)
+            else:
+                probe.eval(node.cond)
+                probe.eval(node.body)
 
         shape = self.ctx.shape
 
@@ -558,11 +583,12 @@ class Evaluator:
         if (cond0 is not None and opts.while_static_unroll > 0
                 and not (loop is not None and opts.pallas_while == "on")):
             flat_u, consts_u, active = flat0, consts0, cond0
-            while active and n_done < max_iters and n_done < opts.while_static_unroll:
-                flat_u, mask_u = step(flat_u, None, consts=consts_u)
-                consts_u = carry_consts[0]
-                n_done += 1
-                active = cond_const[0]
+            with self._in_loop():
+                while active and n_done < max_iters and n_done < opts.while_static_unroll:
+                    flat_u, mask_u = step(flat_u, None, consts=consts_u)
+                    consts_u = carry_consts[0]
+                    n_done += 1
+                    active = cond_const[0]
             if active is False or (active and n_done >= max_iters):
                 TRACE_LOOP_PATHS.append(("unroll", n_done))
                 final_env = unpack(flat_u, consts=consts_u)
@@ -575,13 +601,14 @@ class Evaluator:
             flat0 = flat_u
             mask0 = torch.broadcast_to(mask_u, shape)
 
-        if loop is not None:
-            flat_out = loop_kernel(loop, flat0, mask0, max_iters - n_done)
-            TRACE_LOOP_PATHS.append(("kernel", max_iters))
-        else:
-            flat_out, steps = WL.while_loop_reference(
-                step, flat0, mask0, max_iters - n_done, opts.while_unroll)
-            TRACE_LOOP_PATHS.append(("masked", n_done + steps))
+        with self._in_loop():
+            if loop is not None:
+                flat_out = loop_kernel(loop, flat0, mask0, max_iters - n_done)
+                TRACE_LOOP_PATHS.append(("kernel", max_iters))
+            else:
+                flat_out, steps = WL.while_loop_reference(
+                    step, flat0, mask0, max_iters - n_done, opts.while_unroll)
+                TRACE_LOOP_PATHS.append(("masked", n_done + steps))
         final_env = unpack(flat_out)
         for n in carried:
             self.env[n] = final_env[n]

@@ -8,8 +8,10 @@ the grid. Images are first-class values carried in length-1 tuples with the
 tag 'image' and the image object in `payload`.
 
 Curves and gradients are LUT-backed opaque values ('curve', 'gradient')
-applied through kernel B2 (ops/color_ops.py). Animated inputs, prepared
-(padded) images and tiled inputs are not ported yet (ROADMAP A4, A9).
+applied through kernel B2 (ops/color_ops.py). A tile of the input-sharded
+renderer (parallel/halo.py) samples its halo-extended block, a
+`TiledInput`, through kernel B4. Animated inputs are not ported yet
+(ROADMAP A4).
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
+from ..kernels.sample_tiled import localize_period  # noqa: F401  (the reference's home of it)
 from ..utils.errors import MMTypeError
 from . import sampling
 
@@ -84,6 +87,35 @@ class InputImage(ImageBase):
 
     def sample(self, ev, x, y, frame=None):
         return sampling.sample_image(ev, self, x, y, frame=frame)
+
+
+@dataclass
+class TiledInput(InputImage):
+    """One tile's input block of the input-sharded renderer
+    (parallel/halo.py): `pixels` is the tile's rows (and columns, when the
+    mesh splits columns) PLUS the halo rows/cols taken from its ring
+    neighbours, (ext_h, ext_w, 4) float32 on the tile's device. Global
+    index (row_base, col_base) is local (0, 0). A sample beyond the halo
+    clamps into the block (the bounded-displacement contract);
+    `violation_hook`, when set, receives how far past the block any tap
+    reached (<= 0 when the contract held), as a 0-d int32 tensor."""
+
+    global_height: int = 0
+    #: 0 = the columns are not split (the block spans the full width)
+    global_width: int = 0
+    row_base: int = 0
+    col_base: int = 0
+    #: halo widths exchanged and painted around the block
+    halo_y: int = 0
+    halo_x: int = 0
+    violation_hook: Any = None
+
+    @property
+    def global_shape(self):
+        return self.global_height, self.global_width or int(self.pixels.shape[1])
+
+    def sample(self, ev, x, y, frame=None):
+        return sampling.sample_tiled(ev, self, x, y)
 
 
 @dataclass

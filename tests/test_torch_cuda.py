@@ -1,6 +1,8 @@
 """Tests that need the card: the CUDA kernels (B1 sampler, B2 LUT, B3
-generated while loop) against their plain PyTorch versions, and renders on
-the GPU against the port's CPU renders.
+generated while loop, B4 tiled sampler) against their plain PyTorch
+versions, and renders on the GPU (unsharded, tiled and sharded over a mesh
+of the one card) against the port's CPU renders and the unsharded card
+render.
 
 They carry the `cuda` marker and skip without a GPU. This file imports only
 torch, numpy and the port, so it also runs on a GPU machine without jax:
@@ -17,6 +19,7 @@ import torch
 import mathmap_tpu_torch as mt
 from mathmap_tpu_torch.kernels import apply_lut as L
 from mathmap_tpu_torch.kernels import sample_image as K
+from mathmap_tpu_torch.kernels import sample_tiled as B4
 from mathmap_tpu_torch.kernels import while_loop as WL
 from mathmap_tpu_torch.runtime import tracer
 
@@ -227,3 +230,93 @@ def test_cuda_generated_kernel_matches_the_eager_loop(cuda, name):
     torch.cuda.synchronize()
     for a, b in zip(got, want):
         torch.testing.assert_close(a, b, rtol=RTOL, atol=ATOL, equal_nan=True)
+
+
+#: (global rows, cols, tile rows, tile cols, halo_y, halo_x, tile row, tile
+#: col, mesh cols): a top, an interior and a bottom row tile, a column-split
+#: corner tile and a whole-frame 1-tile block
+TILED_BLOCKS = [(40, 36, 10, 36, 5, 0, 0, 0, 1), (40, 36, 10, 36, 5, 0, 2, 0, 1),
+                (40, 36, 10, 36, 5, 0, 3, 0, 1), (40, 36, 20, 9, 4, 4, 1, 3, 4),
+                (40, 36, 40, 36, 3, 0, 0, 0, 1)]
+
+
+@pytest.mark.parametrize("ex,ey", EDGE_PAIRS)
+@pytest.mark.parametrize("interp", INTERPOLATIONS)
+@pytest.mark.parametrize("block", range(len(TILED_BLOCKS)))
+def test_cuda_tiled_kernel_matches_plain_version(cuda, block, interp, ex, ey):
+    """Coordinates around the tile, in and far out of its halo: the same
+    samples (rtol=1e-4, atol=1e-5) and the same excess."""
+    gh, gw, th, tw, hy, hx, r, c, nx = TILED_BLOCKS[block]
+    rs = np.random.RandomState(block)
+    ext = torch.from_numpy(rs.rand(th + 2 * hy, tw + 2 * hx if nx > 1 else gw, 4)
+                           .astype(np.float32)).to(cuda)
+    x = (np.arange(c * tw, (c + 1) * tw)[None, :] + 0.5 - gw / 2) + rs.uniform(-40, 40, (th, tw))
+    y = (gh / 2 - 0.5 - np.arange(r * th, (r + 1) * th)[:, None]) + rs.uniform(-40, 40, (th, tw))
+    x, y = (torch.from_numpy(a.astype(np.float32)).to(cuda) for a in (x, y))
+    geom = dict(gh=gh, gw=gw, row_base=r * th - hy, col_base=c * tw - hx if nx > 1 else 0,
+                col_sharded=nx > 1, interpolation=interp, edge_x=ex, edge_y=ey,
+                edge_color=EDGE_COLOR)
+    before = B4.sample_tiled.launches
+    got, excess = B4.sample_tiled(ext, x, y, **geom)
+    want, want_excess = B4.sample_tiled_reference(ext, x, y, **geom)
+    torch.cuda.synchronize()
+    assert B4.sample_tiled.launches == before + 1
+    torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+    assert int(excess) == int(want_excess)
+    unchecked, none = B4.sample_tiled(ext, x, y, check=False, **geom)
+    assert none is None and torch.equal(unchecked, got)
+
+
+def test_cuda_tiled_pond_launches_the_tiled_kernel_per_tile(cuda):
+    """pond on a (1,4,1) mesh of the one card: 4 tiles, 4 B4 launches, the
+    unsharded card render's values; render_sharded launches B1 per tile."""
+    f = mt.compile_file(os.path.join(ROOT, "filters", "Distorts", "pond.mm"))
+    img = torch.from_numpy((_smooth_image(96, 128) * 255 + 0.5).astype(np.uint8)).to(cuda)
+    mesh = mt.make_mesh(1, 4, 1, devices=[cuda] * 4)
+    before = B4.sample_tiled.launches
+    got = f.render_tiled(img, mesh=mesh)
+    torch.cuda.synchronize()
+    assert B4.sample_tiled.launches == before + 4
+    want = f.render(img, device=cuda)
+    torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+    before = K.sample_image.launches
+    sharded = f.render_sharded(img, mesh=mesh)
+    torch.cuda.synchronize()
+    assert K.sample_image.launches == before + 4
+    torch.testing.assert_close(sharded, want, rtol=RTOL, atol=ATOL)
+
+
+def test_cuda_tiled_violation_raises(cuda):
+    f = mt.compile_source("origVal(xy + xy:[0, 40])")
+    img = torch.rand(64, 48, 4, device=cuda)
+    with pytest.raises(mt.MMRuntimeError, match="bounded-displacement"):
+        f.render_tiled(img, halo=4, mesh=mt.make_mesh(1, 4, 1, devices=[cuda] * 4))
+
+
+def test_cuda_tiled_and_sharded_renders_across_every_card(cuda):
+    """The default mesh puts every visible GPU on the rows: halo rows and
+    tiles move between cards by peer copies. Tiled pond (one B4 launch per
+    card), sharded pond and sharded mandelbrot equal the one-card render."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two or more GPUs")
+    first = torch.device("cuda", 0)
+    pond = mt.compile_file(os.path.join(ROOT, "filters", "Distorts", "pond.mm"))
+    img = torch.from_numpy((_smooth_image(96, 32 * n) * 255 + 0.5).astype(np.uint8)).to(first)
+    want = pond.render(img, device=first)
+    meshes = [mt.make_mesh()] + ([mt.make_mesh(1, n // 2, 2)] if n % 2 == 0 else [])
+    for mesh in meshes:
+        assert {d.index for d in mesh.devices.flat} == set(range(n))
+        before = B4.sample_tiled.launches
+        got = pond.render_tiled(img, mesh=mesh)
+        for i in range(n):
+            torch.cuda.synchronize(i)
+        assert B4.sample_tiled.launches == before + n
+        assert got.device == first
+        torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+        torch.testing.assert_close(pond.render_sharded(img, mesh=mesh), want,
+                                   rtol=RTOL, atol=ATOL)
+    mandelbrot = mt.compile_file(os.path.join(ROOT, "filters", "Render", "mandelbrot.mm"))
+    want = mandelbrot.render(width=64, height=16 * n, device=first)
+    got = mandelbrot.render_sharded(width=64, height=16 * n, mesh=mt.make_mesh())
+    torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)

@@ -1,5 +1,7 @@
 """The PyTorch port imports and renders with JAX blocked, and never loads the
-JAX package (the card's machine has neither jax nor Pillow)."""
+JAX package (the card's machine has neither jax nor Pillow): the unsharded
+renders, and the tiled and sharded renders of mathmap_tpu_torch.parallel on
+a CPU mesh."""
 
 import os
 import subprocess
@@ -34,6 +36,17 @@ assert tuple(out.shape) == (16, 20, 4), out.shape
 assert K.sample_image.launches == 0
 m = mt.compile_file("filters/Render/mandelbrot.mm").render(width=20, height=16, device="cpu")
 assert tuple(m.shape) == (16, 20, 4), m.shape
+import mathmap_tpu_torch.parallel.bounds  # noqa: F401
+import mathmap_tpu_torch.parallel.halo  # noqa: F401
+import mathmap_tpu_torch.parallel.shard  # noqa: F401
+import mathmap_tpu_torch.kernels.sample_tiled as B4
+mesh = mt.make_mesh(1, 2, 2, devices=["cpu"] * 4)
+p = mt.compile_file("filters/Distorts/pond.mm")
+img = np.random.RandomState(1).rand(64, 48, 4).astype(np.float32)
+tiled = p.render_tiled(img, halo=(3, 3), mesh=mesh, params={"amplitude": 1.0})
+sharded = p.render_sharded(img, mesh=mesh)
+assert tuple(tiled.shape) == tuple(sharded.shape) == (64, 48, 4)
+assert B4.sample_tiled.launches == 0
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "mathmap_tpu", "PIL"))
 assert not loaded, loaded

@@ -73,10 +73,6 @@ def test_port_matches_oracle(name, opts, params, dtype, size):
     np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
 
 
-#: rose_curve reads the angle `a` (atan2) and cos(petals * a): torch's and
-#: numpy's CPU libm differ there by an ulp, which petals=7 and the distance
-#: scale of 8 amplify to ~1.2e-4 at a few pixels (ROADMAP queue C)
-LIBM_ATOL = {"rose_curve": 2e-4}
 GENERATIVE = {
     # name -> (category, non-default params)
     "mandelbrot": ("Render", {"maxiter": 100, "zoom": 2.5, "cx": -0.7, "cy": 0.2,
@@ -114,7 +110,7 @@ def test_generative_entries_match_oracle(name, params, size):
     prm = other if params == "other" else {}
     want = ref.render(*inputs, width=w, height=h, t=0.3, params=prm, interpret=True)
     got = port.render(*inputs, width=w, height=h, t=0.3, params=prm, device="cpu")
-    np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=LIBM_ATOL.get(name, ATOL))
+    np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
 
 
 def _library():
@@ -147,10 +143,11 @@ NOT_RENDERED = {
                      "rotate"), "ROADMAP A7"),
     "sharpen": "ROADMAP A2",
 }
-#: rendered, but the CPU libm differs from numpy's by an ulp in atan2/cos,
-#: which flips some uint8 values by one (ROADMAP queue C)
+#: entries whose angle `a` (atan2) and trig an ulp of torch's CPU libm
+#: used to flip by one 8-bit level (ROADMAP C1, closed): the CPU route now
+#: computes them with numpy's float32 ufuncs, the oracle's own (ops/libm.py)
 LIBM_ULP = ("rose_curve",)
-RENDERED = sorted(set(LIBRARY) - set(NOT_RENDERED) - set(LIBM_ULP))
+RENDERED = sorted(set(LIBRARY) - set(NOT_RENDERED))
 
 
 def _library_filter(name):
@@ -195,7 +192,7 @@ def test_uint8_output_matches_goldens(name):
 
 @pytest.mark.parametrize("name", LIBM_ULP)
 def test_uint8_output_within_one_level_of_the_oracle(name):
-    """The entries whose goldens an ulp of libm flips: within 1 of the
+    """The entries whose goldens an ulp of libm used to flip: equal to the
     oracle's uint8 render."""
     from mathmap_tpu.imgio.images import to_uint8
 
@@ -203,7 +200,7 @@ def test_uint8_output_within_one_level_of_the_oracle(name):
     ref = mm.compile_file(path, main=name).render(width=20, height=16, t=0.3,
                                                   interpret=True)
     diff = np.abs(_goldens_render(name).numpy().astype(int) - to_uint8(ref).astype(int))
-    assert diff.max() <= 1
+    assert diff.max() == 0
 
 
 @pytest.mark.parametrize("name", sorted(NOT_RENDERED))
@@ -268,9 +265,10 @@ def test_unported_options_raise(opts):
         mt.RenderOptions(**opts)
 
 
-@pytest.mark.parametrize("entry,item", [("render_batch", "A4"), ("render_animation", "A4"),
-                                        ("render_sharded", "A9"), ("render_tiled", "A9")])
+@pytest.mark.parametrize("entry,item", [("render_batch", "A4"), ("render_animation", "A4")])
 def test_unported_entry_points_raise(entry, item):
+    """(render_sharded and render_tiled are ported: tests/test_torch_shard.py
+    holds what of them still raises.)"""
     port, _ = _pair("twirl")
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         getattr(port, entry)(_image(20, 16, 0, "f32"))

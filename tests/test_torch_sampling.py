@@ -140,4 +140,9 @@ def test_library_name_follows_the_sources(tmp_path):
     first = build._digest([a])
     a.write_text("// two")
     assert build._digest([a]) != first
-    assert sorted(p.name for p in build.CSRC.glob("*.cu")) == ["apply_lut.cu", "sample_image.cu"]
+    assert sorted(p.name for p in build.CSRC.glob("*.cu")) == [
+        "apply_lut.cu", "sample_image.cu", "sample_tiled.cu"]
+    # the shared header is part of the library's name, so editing it rebuilds
+    header = build.CSRC / "sampler_common.cuh"
+    assert header.exists()
+    assert build._digest([a, header]) != build._digest([a])
