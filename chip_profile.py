@@ -2,9 +2,10 @@
 """Where a render's time goes on one NVIDIA GPU, and how far card and CPU
 renders of the PyTorch port (mathmap_tpu_torch) drift apart.
 
-    python3 chip_profile.py      # from the root of a checkout, on a GPU host
+    python3 chip_profile.py              # from the root of a checkout, on a GPU host
+    python3 chip_profile.py kernels DIR  # part 3 alone, on the package in DIR
 
-Two parts, each printing one line per case:
+Three parts, each printing one line per case (the first two by default):
 
 1. profile: fisheye, twirl and pond at their default params, u8 input of
    1920x1080 and 3840x2160 already on the device, mandelbrot at its
@@ -26,6 +27,14 @@ Two parts, each printing one line per case:
    two hand to the sampler (in pixels), and of the outputs on three seeded
    images: noise, a smooth image, and the same smooth image faded to the
    edge color at its border (chip_smoke.py's comparison image).
+3. kernels: kernel B1 alone in its six 3840x2160 cases (nearest, bilinear,
+   bicubic on u8 and f32) on the smooth warp, and on the coordinate fields
+   that fisheye, twirl and pond hand it at 3840x2160 (u8, each
+   interpolation), with its bound and grid_sample yardstick, and kernel B4
+   on pond's interior tile (chip_smoke.py's timings, without B1's plain
+   version), for the package in DIR (default: this checkout). Checkouts are
+   compared on one card by running it on each in turns in one call:
+   parent, change, change, parent.
 
 Every line carries the card's name and power limit. It imports no JAX.
 """
@@ -33,14 +42,15 @@ Every line carries the card's name and power limit. It imports no JAX.
 from __future__ import annotations
 
 import sys
+from pathlib import Path
 
 import torch
 
-from chip_smoke import (FILTERS, ROOT, card_line, fenced_median_ms,
-                        seeded_image, smooth_image)
+from chip_smoke import (FILTERS, ROOT, SIZES, card_line, fenced_median_ms,
+                        phase_tiled_timings, seeded_image, smooth_image, time_b1,
+                        time_b1_fields)
 
 PROFILED_RENDERS = 5
-SIZES = ((1920, 1080), (3840, 2160))
 
 
 #: kernel-name fragment -> class
@@ -167,15 +177,38 @@ def part_coords(filters, dev, card):
                   f"{err:.3e} [{card}]")
 
 
-def main() -> int:
+def part_kernels(mt, dev, card):
+    """B1's six 4K cases and the renders' 4K coordinate fields, and B4's
+    interior tile, for the package `mt`."""
+    from mathmap_tpu_torch.kernels import sample_image as K
+    from mathmap_tpu_torch.kernels import sample_tiled as B4
+    from mathmap_tpu_torch.runtime import sampling
+
+    print(f"kernels of {Path(mt.__file__).parent}")
+    time_b1(K, dev, card, sizes=SIZES[1:], with_plain=False)
+    filters = {n: mt.compile_file(str(ROOT / "filters" / "Distorts" / f"{n}.mm"))
+               for n in FILTERS}
+    time_b1_fields(K, sampling, dev, filters, card)
+    phase_tiled_timings(mt, B4, sampling, dev, {"pond": filters["pond"]}, card)
+
+
+def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_profile: no CUDA GPU available", file=sys.stderr)
         return 1
-    sys.path.insert(0, str(ROOT))
+    part = argv[0] if argv else None
+    if part not in (None, "kernels"):
+        print(f"chip_profile: unknown part {part!r} (kernels [DIR])", file=sys.stderr)
+        return 2
+    root = Path(argv[1]).resolve() if part == "kernels" and len(argv) > 1 else ROOT
+    sys.path.insert(0, str(root))
     import mathmap_tpu_torch as mt
 
     dev = torch.device("cuda", 0)
     card = card_line()
+    if part == "kernels":
+        part_kernels(mt, dev, card)
+        return 0
     filters = {n: mt.compile_file(str(ROOT / "filters" / "Distorts" / f"{n}.mm"))
                for n in FILTERS}
     mandelbrot = mt.compile_file(str(ROOT / "filters" / "Render" / "mandelbrot.mm"))
@@ -185,4 +218,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

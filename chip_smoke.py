@@ -12,8 +12,14 @@ Phases, each printing its own lines:
    of the phases below, traced from tiny CPU renders (nvcc seconds and
    ptxas register reports);
 2. B1 vs plain: the CUDA origVal sampler against its plain PyTorch version
-   on the same CUDA tensors, at 1920x1080 and 3840x2160, for every
-   interpolation x edge pair x source dtype, at rtol=1e-4, atol=1e-5;
+   on the same CUDA tensors, for every interpolation x edge pair x source
+   dtype, at rtol=1e-4, atol=1e-5: at 1920x1080 and 3840x2160 (nearest
+   and bilinear take the V = 4 instantiation, four pixels a thread;
+   bicubic V = 1), at the ragged 1919x1081 and on 1920x1080 coordinate
+   views offset by one element, not 16-byte aligned (all V = 1); each case
+   prints its instantiation. Then a 256-value u8 ramp under nearest
+   interpolation, bit for bit equal to u8_to_float, on both
+   instantiations;
 3. B2 vs plain: the LUT kernel against its plain version on the same CUDA
    tensors, (K,) and (K, 4) LUTs at K = 2, 256 and 5000 (shared- and
    global-memory routes), on 3840x2160 positions below 0, above 1, exactly
@@ -53,7 +59,17 @@ Phases, each printing its own lines:
 10. timings on the card: median fenced render times (tiled pond 4K beside
    unsharded pond 4K), each kernel alone against its plain version and,
    where one PyTorch call computes the same function, against that call
-   (grid_sample), and each kernel's bound.
+   (grid_sample), and each kernel's bound. B1: all six cases (nearest,
+   bilinear, bicubic on u8 and f32) at both sizes, with bound and share of
+   bound, grid_sample of the same mode as yardstick for nearest and
+   bilinear (none for bicubic: PyTorch's uses A = -0.75, B1's Catmull-Rom
+   A = -0.5); then B1 on the coordinate fields that fisheye, twirl and pond
+   hand it at 4K (u8 source, each interpolation), the main path's own
+   traffic.
+
+Kernel times are CUDA events around a run of launches that the card starts
+only after a sleep kernel, so the host has enqueued the run by then and the
+events time the device, not the host's launch rate.
 
 The line before the last is the JSON record of the kernels; the last line
 is {"ok": true, "device": {...}}. Any failure raises and exits non-zero;
@@ -64,6 +80,7 @@ exits non-zero before printing any result. It imports no JAX.
 from __future__ import annotations
 
 import json
+import shutil
 import statistics
 import subprocess
 import sys
@@ -106,6 +123,10 @@ LUT_RTOL, LUT_ATOL = 1e-5, 1e-6
 #: H100 SXM peaks (NVIDIA's data sheet): HBM3 bytes/s, fp32 (non-tensor) op/s
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+#: clock cycles of the sleep before a timed run (~25 ms at 2 GHz): longer
+#: than the host takes to queue one, so the events time back-to-back device
+#: work (without it a 0.05 ms kernel times the host's launch rate)
+SLEEP_CYCLES = 50_000_000
 
 
 def card_line() -> str:
@@ -183,11 +204,13 @@ def smooth_warp(w: int, h: int, dev):
 
 
 def event_ms(fn, iters: int) -> float:
-    """Mean device ms per call over `iters` calls, after a warm-up."""
+    """Mean device ms per call over `iters` calls, after a warm-up. The card
+    sleeps first, so the host has queued the calls before the first runs."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SLEEP_CYCLES)
     start.record()
     for _ in range(iters):
         fn()
@@ -249,6 +272,29 @@ class LoopCapture:
         return self.calls[0]
 
 
+def ptxas_report(log: str):
+    """One line per kernel of an `-Xptxas=-v` log: its name (demangled by
+    cu++filt where the toolkit has it), registers and spills."""
+    names, report, name, spill = [], {}, None, ""
+    for line in log.splitlines():
+        line = line.strip()
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+            names.append(name)
+        elif name and "spill" in line:
+            spill = line
+        elif name and "registers" in line:
+            report[name] = f"{line.split(':', 1)[1].strip()}; {spill}"
+    tool = shutil.which("cu++filt") or shutil.which("c++filt")
+    shown = dict(zip(names, names))
+    if tool and names:
+        out = subprocess.run([tool], input="\n".join(names), capture_output=True,
+                             text=True, timeout=60).stdout.splitlines()
+        if len(out) == len(names):
+            shown = dict(zip(names, out))
+    return [f"{shown[n]}: {report[n]}" for n in names if n in report]
+
+
 def phase_card(mt, build, WL, tracer, loop_filters):
     """The card, then every kernel built at once: the csrc/ library and one
     generated kernel per distinct loop body (traced on tiny CPU renders)."""
@@ -271,28 +317,52 @@ def phase_card(mt, build, WL, tracer, loop_filters):
     print(f"nvcc: {len(sources) + 1} builds in parallel, {time.perf_counter() - t0:.2f} s wall")
     print(f"kernel library: {lib.path.relative_to(ROOT)} built by nvcc from "
           f"{build.CSRC.relative_to(ROOT)}/ in {lib.build_seconds:.2f} s")
-    for line in lib.log.splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"  ptxas: {line.strip()}")
+    for line in ptxas_report(lib.log):
+        print(f"  ptxas: {line}")
     for g, loop in zip(gens, sources.values()):
         print(f"generated loop kernel {g.path.name} (loop at {loop.origin}): nvcc "
               f"{g.build_seconds:.2f} s")
-        for line in g.log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  ptxas: {line.strip()}")
+        for line in ptxas_report(g.log):
+            print(f"  ptxas: {line}")
     return card
 
 
+#: B1's cases against its plain version: (w, h), whether the coordinates
+#: are views one element into their buffers, the pixels a thread expected
+#: for nearest and bilinear (bicubic takes 1)
+B1_CASES = (((1920, 1080), False, 4), ((3840, 2160), False, 4),
+            ((1919, 1081), False, 1), ((1920, 1080), True, 1))
+
+
+def offset_view(a):
+    """A contiguous copy of `a` one element into a buffer of its own: the
+    same values at an address 4 bytes past a 16-byte boundary."""
+    buf = torch.empty(a.numel() + 1, dtype=a.dtype, device=a.device)
+    view = buf[1:].view(a.shape)
+    view.copy_(a)
+    return view
+
+
+def instantiation(K, x, y, out, interpolation: str) -> int:
+    """The pixels a thread the wrapper chose for a launch that wrote `out`."""
+    return K.vector_width(int(x.shape[1]), x.data_ptr(), y.data_ptr(), out.data_ptr(),
+                          interpolation)
+
+
 def phase_kernel_vs_plain(K, dev) -> float:
-    """At every shape of the main path: all interpolations x edge pairs x
-    source dtypes."""
+    """At every shape of the main path, a ragged width and misaligned
+    coordinate views: all interpolations x edge pairs x source dtypes; then
+    the u8 ramp bit for bit."""
     worst = 0.0
-    for seed, (w, h) in enumerate(SIZES):
+    for seed, ((w, h), offset, want_vec) in enumerate(B1_CASES):
         f32, u8 = seeded_image(w, h, seed=1 + 2 * seed)
         srcs = {"f32": torch.from_numpy(f32).to(dev),
                 "u8": torch.from_numpy(u8).to(dev)}
         x, y = (torch.from_numpy(a).to(dev)
                 for a in probe_coordinates(w, h, seed=2 + 2 * seed))
+        if offset:
+            x, y = offset_view(x), offset_view(y)
+        layout = "offset views" if offset else "aligned"
         for interp in INTERPOLATIONS:
             for ex, ey in EDGE_PAIRS:
                 for dname, pix in srcs.items():
@@ -300,14 +370,46 @@ def phase_kernel_vs_plain(K, dev) -> float:
                     got = K.sample_image(*args)
                     want = K.sample_image_reference(*args)
                     torch.cuda.synchronize()
-                    err = check_close(f"{w}x{h} {interp} {ex}/{ey} {dname}",
-                                      got, want)
+                    tag = f"{w}x{h} {layout} {interp} {ex}/{ey} {dname}"
+                    err = check_close(tag, got, want)
+                    vec = instantiation(K, x, y, got, interp)
+                    expected = want_vec if interp in K.VECTOR_INTERPOLATIONS else 1
+                    if vec != expected:
+                        raise AssertionError(f"{tag}: V={vec}, expected V={expected}")
                     worst = max(worst, err)
-                    print(f"kernel vs plain {w}x{h} {interp:8s} "
-                          f"{ex + '/' + ey:15s} {dname:3s}: max abs err {err:.3e}")
-    n = len(SIZES) * len(INTERPOLATIONS) * len(EDGE_PAIRS) * 2
+                    print(f"kernel vs plain {w}x{h} {layout:12s} {interp:8s} "
+                          f"{ex + '/' + ey:15s} {dname:3s} V={vec}: max abs err {err:.3e}")
+    n = len(B1_CASES) * len(INTERPOLATIONS) * len(EDGE_PAIRS) * 2
     print(f"kernel vs plain: all {n} cases agree, worst max abs err {worst:.3e}")
+    phase_u8_ramp(K, dev)
     return worst
+
+
+def phase_u8_ramp(K, dev):
+    """Every u8 value in every channel, sampled nearest at the texel
+    centres: the kernel's three-operation conversion must give
+    u8_to_float's bits (IEEE division by 255, on the CPU and on the card),
+    on aligned (V = 4) and offset (V = 1) coordinate views."""
+    hi, wi = 4, 64
+    v = torch.arange(hi * wi).reshape(hi, wi, 1)
+    ramp = ((v + 64 * torch.arange(4)) % 256).to(torch.uint8)
+    want = K.u8_to_float(ramp).permute(2, 0, 1).contiguous()
+    pix = ramp.to(dev)
+    want_card = K.u8_to_float(pix).permute(2, 0, 1).cpu()
+    xs = torch.arange(wi, dtype=torch.float32) + 0.5 - wi / 2
+    ys = hi / 2 - (torch.arange(hi, dtype=torch.float32) + 0.5)
+    x, y = (t.contiguous().to(dev) for t in torch.meshgrid(xs, ys, indexing="xy"))
+    for views in ((x, y), (offset_view(x), offset_view(y))):
+        got = K.sample_image(pix, *views, "nearest", "color", "color", EDGE_COLOR)
+        vec = instantiation(K, *views, got, "nearest")
+        bits = got.cpu().view(torch.int32)
+        differ = int((bits != want.view(torch.int32)).sum())
+        differ_card = int((bits != want_card.view(torch.int32)).sum())
+        if differ or differ_card:
+            raise AssertionError(f"u8 ramp V={vec}: {differ} values differ from the CPU's "
+                                 f"u8/255, {differ_card} from the card's")
+        print(f"u8 ramp (256 values x 4 channels) nearest V={vec}: bit for bit equal to "
+              f"u8_to_float on the CPU and on the card")
 
 
 def lut_positions(w: int, h: int, seed: int):
@@ -446,11 +548,12 @@ def phase_distortion_path(mt, K, dev, filters):
     return launches
 
 
-def grid_sample_image(pix, x, y):
-    """B1's function as one PyTorch call: bilinear grid_sample with zero
-    padding (the transparent edge color) on the float32 NCHW copy of
-    `pix`; returns (call, its (4, H, W) output). The layout copy and the
-    normalised grid are made here, outside the timed call."""
+def grid_sample_image(pix, x, y, mode: str = "bilinear"):
+    """B1's function as one PyTorch call: grid_sample (`mode` "bilinear" or
+    "nearest") with zero padding (the transparent edge color) on the
+    float32 NCHW copy of `pix`; returns (call, its (4, H, W) output). The
+    layout copy and the normalised grid are made here, outside the timed
+    call."""
     import torch.nn.functional as F
 
     hi, wi = pix.shape[:2]
@@ -459,7 +562,7 @@ def grid_sample_image(pix, x, y):
     grid = torch.stack([x * (2.0 / wi), y * (-2.0 / hi)], dim=-1)[None]
 
     def call():
-        return F.grid_sample(img, grid, mode="bilinear", padding_mode="zeros",
+        return F.grid_sample(img, grid, mode=mode, padding_mode="zeros",
                              align_corners=False)
 
     return call, call()[0]
@@ -489,11 +592,118 @@ def turns(plain, kernel, n_plain: int, n_kernel: int):
     return (runs[1] + runs[2]) / 2, (runs[0] + runs[3]) / 2
 
 
-def phase_timings(mt, K, dev, filters, card):
+#: the grid_sample mode that computes each of B1's interpolations, its
+#: yardstick; none computes B1's bicubic
+GRID_SAMPLE_MODE = {"nearest": "nearest", "bilinear": "bilinear", "bicubic": None}
+NO_BICUBIC_YARDSTICK = ("no yardstick: PyTorch's bicubic is the cubic convolution "
+                        "with A = -0.75, B1's Catmull-Rom has A = -0.5")
+
+
+def b1_ops(interp: str, u8: bool) -> int:
+    """fp32 operations per output pixel of B1, an FMA counted as 2: pixel
+    centres, taps and fractions, the interpolation's weights and its
+    arithmetic on 4 channels, and 3 per channel and tap for the u8
+    conversion."""
+    taps, ops = {"nearest": (1, 4), "bilinear": (4, 42), "bicubic": (16, 184)}[interp]
+    return ops + (taps * 4 * 3 if u8 else 0)
+
+
+def b1_inputs(w: int, h: int, dev):
+    """The timed cases' inputs: a seeded u8 image, its f32 copy (u8/255)
+    and the smooth warp's coordinates."""
+    _, u8 = seeded_image(w, h, seed=4)
+    img = torch.from_numpy(u8).to(dev)
+    x, y = smooth_warp(w, h, dev)
+    return {"u8": img, "f32": (img.float() / 255.0).contiguous()}, x, y
+
+
+def time_b1_case(K, label: str, args, lib_bilinear: float, card, with_plain: bool):
+    """B1 on `args` (sample_image's): its time (in turns with the plain
+    version when `with_plain`), its bound and share of bound, the
+    grid_sample yardstick of the same mode, and the time over
+    `lib_bilinear`, the bilinear grid_sample of the same inputs (the ratio
+    that compares calls on different cards). Prints one line, returns the
+    record."""
+    pix, x, y, interp = args[:4]
+
+    def kernel():
+        return K.sample_image(*args)
+
+    if with_plain:
+        kernel_ms, plain_ms = turns(lambda: K.sample_image_reference(*args), kernel, 5, 50)
+    else:
+        kernel_ms, plain_ms = (event_ms(kernel, 50) + event_ms(kernel, 50)) / 2, None
+    got = kernel()
+    err = check_close(f"timed {label} {interp}", got, K.sample_image_reference(*args))
+    n_bytes = (x.numel() + y.numel()) * 4 + got.numel() * 4 + pix.numel() * pix.element_size()
+    bound, by = bound_ms(n_bytes, b1_ops(interp, pix.dtype == torch.uint8) * x.numel())
+    # a checkout from before V = 4 has no vector_width
+    vector_width = getattr(K, "vector_width", None)
+    vec = vector_width(int(x.shape[1]), x.data_ptr(), y.data_ptr(), got.data_ptr(), interp) \
+        if vector_width else None
+    line = (f"timing {label} {interp:8s}{f' V={vec}' if vec else ''}: kernel "
+            f"{kernel_ms:.4f} ms, bound {bound:.4f} ms ({n_bytes / 1e6:.0f} MB, {by}), "
+            f"{100 * bound / kernel_ms:.1f}% of bound")
+    if plain_ms is not None:
+        line += f", plain {plain_ms:.4f} ms ({plain_ms / kernel_ms:.1f}x)"
+    line += f", max abs err {err:.3e}; "
+    mode, lib_ms = GRID_SAMPLE_MODE[interp], None
+    if mode:
+        lib, lib_out = grid_sample_image(pix, x, y, mode)
+        lib_ms = lib_bilinear if mode == "bilinear" else event_ms(lib, 50)
+        line += (f"grid_sample {mode} {lib_ms:.4f} ms (max abs diff "
+                 f"{float((lib_out - got).abs().max()):.2e})")
+    else:
+        line += NO_BICUBIC_YARDSTICK
+    line += (f"; kernel / grid_sample bilinear {lib_bilinear:.4f} ms = "
+             f"{kernel_ms / lib_bilinear:.3f}")
+    print(f"{line} [{card}]")
+    return dict(ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                library_ms=lib_ms, vec=vec)
+
+
+def time_b1(K, dev, card, sizes=SIZES, with_plain: bool = True):
+    """B1 alone in its six cases (nearest, bilinear, bicubic on u8 and f32)
+    on the smooth warp at each size, the renders' transparent color edge
+    (grid_sample's zero padding). Returns {(w, h, dtype, interp): record}."""
+    records = {}
+    for (w, h) in sizes:
+        srcs, x, y = b1_inputs(w, h, dev)
+        for dname, pix in srcs.items():
+            lib_bilinear = event_ms(grid_sample_image(pix, x, y)[0], 50)
+            for interp in INTERPOLATIONS:
+                args = (pix, x, y, interp, "color", "color", (0.0, 0.0, 0.0, 0.0))
+                records[(w, h, dname, interp)] = time_b1_case(
+                    K, f"B1 {w}x{h} {dname:3s}", args, lib_bilinear, card, with_plain)
+    return records
+
+
+def time_b1_fields(K, sampling, dev, filters, card):
+    """B1 on the main path's own traffic: the coordinate fields that
+    fisheye, twirl and pond at their default params hand the sampler at
+    3840x2160 on a seeded u8 image, with the render's edges, at each
+    interpolation. Returns {(filter, interp): record}."""
+    w, h = SIZES[1]
+    _, u8 = seeded_image(w, h, seed=4)
+    img = torch.from_numpy(u8).to(dev)
+    records = {}
+    for name in FILTERS:
+        with KernelCapture(sampling, "sample_kernel") as cap:
+            filters[name].render(img, device=dev)
+        (pix, x, y, _, ex, ey, col), _ = cap.calls[0]
+        lib_bilinear = event_ms(grid_sample_image(pix, x, y)[0], 50)
+        for interp in INTERPOLATIONS:
+            records[(name, interp)] = time_b1_case(
+                K, f"B1 {name:7s} field {w}x{h} u8", (pix, x, y, interp, ex, ey, col),
+                lib_bilinear, card, with_plain=False)
+    return records
+
+
+def phase_timings(mt, K, sampling, dev, filters, card):
     """Fenced render medians, and B1 alone vs its plain version and vs
-    grid_sample; returns B1's record at 4K u8 bilinear (the main path's
-    case)."""
-    record = None
+    grid_sample, on the smooth warp and on the renders' coordinate fields;
+    returns B1's record at 4K u8 bilinear on the smooth warp, with the f32
+    bilinear and u8 bicubic times beside it."""
     for (w, h) in SIZES:
         _, u8 = seeded_image(w, h, seed=4)
         img = torch.from_numpy(u8).to(dev)
@@ -502,34 +712,14 @@ def phase_timings(mt, K, dev, filters, card):
             print(f"timing render {name:7s} {w}x{h} u8 in: median {ms:.3f} "
                   f"ms/frame of {TIMED_RENDERS}, {w * h / ms / 1e3:.1f} Mpix/s "
                   f"[{card}]")
-        x, y = smooth_warp(w, h, dev)
-        for dname, pix in (("u8", img),
-                           ("f32", (img.float() / 255.0).contiguous())):
-            for interp in INTERPOLATIONS:
-                # the renders' default edge color, transparent, which is
-                # grid_sample's zero padding
-                args = (pix, x, y, interp, "color", "color", (0.0, 0.0, 0.0, 0.0))
-                kernel_ms, plain_ms = turns(lambda: K.sample_image_reference(*args),
-                                            lambda: K.sample_image(*args), 5, 50)
-                got = K.sample_image(*args)
-                err = check_close(f"timed {w}x{h} {dname} {interp}", got,
-                                  K.sample_image_reference(*args))
-                line = (f"timing B1 {w}x{h} {dname:3s} {interp:8s}: kernel "
-                        f"{kernel_ms:.4f} ms, plain {plain_ms:.4f} ms "
-                        f"({plain_ms / kernel_ms:.1f}x), max abs err {err:.3e}")
-                if interp == "bilinear":
-                    lib, lib_out = grid_sample_image(pix, x, y)
-                    lib_ms = event_ms(lib, 50)
-                    n_bytes = (x.numel() + y.numel()) * 4 + got.numel() * 4 \
-                        + pix.numel() * pix.element_size()
-                    bound, by = bound_ms(n_bytes)
-                    line += (f"; grid_sample {lib_ms:.4f} ms (max abs diff "
-                             f"{float((lib_out - got).abs().max()):.2e}); bound "
-                             f"{bound:.4f} ms ({n_bytes / 1e6:.0f} MB)")
-                    if (w, h, dname) == (*SIZES[1], "u8"):
-                        record = dict(ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound,
-                                      bound_by=by, library_ms=lib_ms)
-                print(f"{line} [{card}]")
+    records = time_b1(K, dev, card)
+    time_b1_fields(K, sampling, dev, filters, card)
+    w, h = SIZES[1]
+    record = dict(records[(w, h, "u8", "bilinear")])
+    vec = record.pop("vec")
+    record.update(f32_ms=records[(w, h, "f32", "bilinear")]["ms"],
+                  bicubic_u8_ms=records[(w, h, "u8", "bicubic")]["ms"],
+                  instantiation=f"sample_image_kernel<uchar4, bilinear, V={vec}>")
     return record
 
 
@@ -832,26 +1022,27 @@ def phase_sharded_path(mt, K, L, WL, dev, filters):
               f"vs the unsharded card render, {n_px} pixels differ")
 
 
-class TiledCapture:
-    """Records the arguments of every B4 call the renderer makes while
-    active (runtime.sampling.tiled_kernel)."""
+class KernelCapture:
+    """Records the arguments of every call of `module.name` (a kernel
+    wrapper the renderer calls: runtime.sampling's sample_kernel, B1, or
+    tiled_kernel, B4) while active."""
 
-    def __init__(self, sampling):
-        self.sampling = sampling
+    def __init__(self, module, name: str):
+        self.module, self.name = module, name
         self.calls = []
 
     def __enter__(self):
-        self.orig = orig = self.sampling.tiled_kernel
+        self.orig = orig = getattr(self.module, self.name)
 
         def spy(*args, **kwargs):
             self.calls.append((args, kwargs))
             return orig(*args, **kwargs)
 
-        self.sampling.tiled_kernel = spy
+        setattr(self.module, self.name, spy)
         return self
 
     def __exit__(self, *exc):
-        self.sampling.tiled_kernel = self.orig
+        setattr(self.module, self.name, self.orig)
 
 
 def fenced_median_ms(call, n: int = TIMED_RENDERS) -> float:
@@ -909,7 +1100,7 @@ def phase_tiled_timings(mt, B4, sampling, dev, filters, card):
           f"{runs[3]:.3f} ms/frame, tiled (1,4,1) halo (27, 2) median {runs[1]:.3f} / "
           f"{runs[2]:.3f} ms/frame (order: unsharded, tiled, tiled, unsharded; "
           f"{TIMED_RENDERS} renders each) [{card}]")
-    with TiledCapture(sampling) as cap:
+    with KernelCapture(sampling, "tiled_kernel") as cap:
         f.render_tiled(img, mesh=mesh)
     (ext, x, y, tgh, tgw, row_base, col_base, col_sharded, interp, ex, ey, col), kw = \
         cap.calls[1]
@@ -974,7 +1165,7 @@ def main() -> int:
     worst_b4 = phase_tiled_vs_plain(B4, dev)
     b4_launches = phase_tiled_path(mt, B4, dev, filters)
     phase_sharded_path(mt, K, L, WL, dev, filters)
-    b1 = phase_timings(mt, K, dev, filters, card)
+    b1 = phase_timings(mt, K, sampling, dev, filters, card)
     gen = phase_generative_timings(mt, L, WL, tracer, dev, filters, card)
     b4 = phase_tiled_timings(mt, B4, sampling, dev, filters, card)
     print(f"nvcc builds in this run: {len(build.BUILDS)}, "

@@ -63,25 +63,35 @@ __device__ __forceinline__ void catmull_rom(float f, float w[4]) {
   w[3] = 0.5f * f3 - 0.5f * f2;
 }
 
-// Nearest, bilinear or 4x4 Catmull-Rom bicubic at continuous pixel-centre
-// coordinates (px, py), in the plain version's order of operations.
-// `tap(ix, iy)` gives the float4 texel of one integer tap with the edge
-// behaviour applied.
-template <int INTERP, typename Tap>
-__device__ __forceinline__ float4 interpolate(float px, float py,
-                                              const Tap& tap) {
+// Integer taps per axis: 1 (nearest), 2 (bilinear) or 4 (bicubic).
+template <int INTERP>
+constexpr int kTaps = INTERP == INTERP_NEAREST    ? 1
+                      : INTERP == INTERP_BILINEAR ? 2
+                                                  : 4;
+
+// The first integer tap along one axis at continuous pixel-centre
+// coordinate p (the taps are first, first + 1, ..., first + kTaps - 1),
+// and the fraction `f` of p past floor(p) (0 for nearest).
+template <int INTERP>
+__device__ __forceinline__ int first_tap(float p, float& f) {
   if (INTERP == INTERP_NEAREST) {
-    return tap(to_index(floorf(px + 0.5f)), to_index(floorf(py + 0.5f)));
+    f = 0.0f;
+    return to_index(floorf(p + 0.5f));
   }
-  const float x0f = floorf(px);
-  const float y0f = floorf(py);
-  const float fx = px - x0f;
-  const float fy = py - y0f;
-  const int x0 = to_index(x0f);
-  const int y0 = to_index(y0f);
+  const float p0 = floorf(p);
+  f = p - p0;
+  return to_index(p0) - (INTERP == INTERP_BICUBIC ? 1 : 0);
+}
+
+// Nearest, bilinear or 4x4 Catmull-Rom bicubic of the taps `tap(dx, dy)`,
+// dx, dy in [0, kTaps) counted from the first tap of each axis, at the
+// fractions (fx, fy), in the plain version's order of operations.
+template <int INTERP, typename Tap>
+__device__ __forceinline__ float4 blend(float fx, float fy, const Tap& tap) {
+  if (INTERP == INTERP_NEAREST) return tap(0, 0);
   if (INTERP == INTERP_BILINEAR) {
-    const float4 top = lerp4(tap(x0, y0), tap(x0 + 1, y0), fx);
-    const float4 bot = lerp4(tap(x0, y0 + 1), tap(x0 + 1, y0 + 1), fx);
+    const float4 top = lerp4(tap(0, 0), tap(1, 0), fx);
+    const float4 bot = lerp4(tap(0, 1), tap(1, 1), fx);
     return lerp4(top, bot, fy);
   }
   float wx[4], wy[4];
@@ -90,14 +100,27 @@ __device__ __forceinline__ float4 interpolate(float px, float py,
   float4 c = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
 #pragma unroll
   for (int dy = 0; dy < 4; ++dy) {
-    float4 row = scale4(tap(x0 - 1, y0 + dy - 1), wx[0]);
+    float4 row = scale4(tap(0, dy), wx[0]);
 #pragma unroll
     for (int dx = 1; dx < 4; ++dx) {
-      row = add4(row, scale4(tap(x0 + dx - 1, y0 + dy - 1), wx[dx]));
+      row = add4(row, scale4(tap(dx, dy), wx[dx]));
     }
     c = dy == 0 ? scale4(row, wy[0]) : add4(c, scale4(row, wy[dy]));
   }
   return c;
+}
+
+// Nearest, bilinear or bicubic at continuous pixel-centre coordinates
+// (px, py). `tap(ix, iy)` gives the float4 texel of one integer tap with
+// the edge behaviour applied.
+template <int INTERP, typename Tap>
+__device__ __forceinline__ float4 interpolate(float px, float py,
+                                              const Tap& tap) {
+  float fx, fy;
+  const int x0 = first_tap<INTERP>(px, fx);
+  const int y0 = first_tap<INTERP>(py, fy);
+  return blend<INTERP>(fx, fy,
+                       [&](int dx, int dy) { return tap(x0 + dx, y0 + dy); });
 }
 
 }  // namespace mm_sampler

@@ -7,11 +7,16 @@ pixel's world coordinate goes to a pixel centre, the edge behavior maps each
 integer tap, and the RGBA taps are interpolated (nearest, bilinear, or 4x4
 Catmull-Rom bicubic) in fp32.
 
-On the card it is bound by memory: 8 B of coordinates and 16 B of output
-per pixel, plus 1-16 taps of 16 B (f32 source) or 4 B (u8 source), which
-mostly hit L1/L2 for smooth warps. This first version is a simple direct
-gather, one thread per output pixel; making it fast (staged tiles, texture-
-or L2-friendly block shapes) is later work.
+On the card it is bound by bytes: 8 B of coordinates and 16 B of output per
+pixel, touched once, while the taps (16 B of f32 or 4 B of u8 source) mostly
+hit L1/L2 for smooth warps. The kernel converts a u8 tap to u/255 exactly
+in three fused operations instead of an IEEE division, samples V = 4
+adjacent pixels a thread with 16-byte coordinate loads and plane stores
+(`vector_width` chooses V = 1 for bicubic, a ragged width or unaligned
+pointers) and edge-maps each axis once per pixel. The thread block of each
+instantiation is fixed in the source; the block shapes and pixels a thread
+were chosen on the card (csrc/sample_image.cu has the design note, PERF.md
+the numbers).
 
 The helpers below are the semantics the kernel mirrors tap for tap (the
 port of the reference's `runtime/sampling.py` helpers): world coordinates
@@ -34,6 +39,23 @@ EDGES = {"color": 0, "wrap": 1, "reflect": 2}
 #: int32 indexing in the kernel: a source texel's element offset
 #: (row * Wi + col) * 4 must stay below 2^31
 MAX_SOURCE_PIXELS = 2**31 // 4
+#: pixels a thread of the vector instantiation samples
+VECTOR = 4
+#: the interpolations that take it (the C interface refuses bicubic at
+#: V = 4): bicubic's 16 taps a pixel run faster one pixel a thread (PERF.md)
+VECTOR_INTERPOLATIONS = ("nearest", "bilinear")
+
+
+def vector_width(w: int, x_ptr: int, y_ptr: int, out_ptr: int,
+                 interpolation: str = "bilinear") -> int:
+    """Pixels per thread of the kernel's launch: VECTOR for an
+    interpolation of VECTOR_INTERPOLATIONS when the row width `w` divides by
+    it and the coordinate and output pointers are all 16-byte aligned (one
+    float4 load or store per VECTOR pixels), else 1."""
+    if (interpolation in VECTOR_INTERPOLATIONS and w % VECTOR == 0
+            and all(p % 16 == 0 for p in (x_ptr, y_ptr, out_ptr))):
+        return VECTOR
+    return 1
 
 
 def world_to_pixel(x, y, w: int, h: int):
@@ -90,10 +112,10 @@ def _catmull_rom_weights(f):
 
 def u8_to_float(t: torch.Tensor) -> torch.Tensor:
     """uint8 -> float32 in [0, 1] by IEEE division, the reference's
-    `render.float_inputs` rule; the CUDA kernel converts each tap the same
-    way. The divisor is a tensor on `t`'s device: PyTorch's CUDA division
-    by a Python scalar multiplies by its reciprocal instead, which is 1 ulp
-    off for some values."""
+    `render.float_inputs` rule; the CUDA kernel's three fused operations
+    per tap give the same values bit for bit. The divisor is a tensor on
+    `t`'s device: PyTorch's CUDA division by a Python scalar multiplies by
+    its reciprocal instead, which is 1 ulp off for some values."""
     return t.to(torch.float32) / torch.tensor(255.0, device=t.device)
 
 
@@ -199,19 +221,29 @@ def _check(pixels, x, y, interpolation, edge_x, edge_y, edge_color):
             f"exceeds the kernel's int32 indexing ({MAX_SOURCE_PIXELS})")
 
 
-@functools.cache
-def _kernel():
-    fn = build.library().cdll.mm_sample_image
-    fn.argtypes = [
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # pixels
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # x, y, out
-        ctypes.c_int, ctypes.c_int,  # h, w
-        ctypes.c_int, ctypes.c_int, ctypes.c_int,  # interp, edge_x, edge_y
-        ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_float,
-        ctypes.c_void_p,  # stream
-    ]
+#: the C interface's parameters, csrc/sample_image.cu::mm_sample_image
+ARGTYPES = (
+    ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # pixels
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # x, y, out
+    ctypes.c_int, ctypes.c_int,  # h, w
+    ctypes.c_int,  # pixels a thread
+    ctypes.c_int, ctypes.c_int, ctypes.c_int,  # interp, edge_x, edge_y
+    ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_float,
+    ctypes.c_void_p,  # stream
+)
+
+
+def bind(library: build.Library):
+    """The kernel's C entry point in `library`, with its argument types."""
+    fn = library.cdll.mm_sample_image
+    fn.argtypes = ARGTYPES
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.cache
+def _kernel():
+    return bind(build.library())
 
 
 def sample_image(pixels, x, y, interpolation: str, edge_x: str, edge_y: str,
@@ -235,11 +267,13 @@ def sample_image(pixels, x, y, interpolation: str, edge_x: str, edge_y: str,
     if pixels.data_ptr() % align:
         raise ValueError(f"pixels must be {align}-byte aligned for vector loads")
     kernel = _kernel()
+    vec = vector_width(w, x.data_ptr(), y.data_ptr(), out.data_ptr(),
+                       interpolation)
     with torch.cuda.device(pixels.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = kernel(pixels.data_ptr(), int(pixels.dtype == torch.uint8),
                      int(pixels.shape[0]), int(pixels.shape[1]),
-                     x.data_ptr(), y.data_ptr(), out.data_ptr(), h, w,
+                     x.data_ptr(), y.data_ptr(), out.data_ptr(), h, w, vec,
                      INTERPOLATIONS[interpolation], EDGES[edge_x],
                      EDGES[edge_y], *(float(c) for c in edge_color), stream)
     if err != 0:

@@ -67,18 +67,58 @@ def _coords():
     return x, y
 
 
+def _offset_view(a):
+    """A contiguous copy of `a` one element into a buffer of its own: not
+    16-byte aligned."""
+    buf = torch.empty(a.numel() + 1, dtype=a.dtype, device=a.device)
+    view = buf[1:].view(a.shape)
+    view.copy_(a)
+    return view
+
+
+#: coordinate layouts -> the kernel's instantiation for nearest and
+#: bilinear: W = 28 aligned takes V = 4 pixels a thread; the ragged W = 27
+#: and views offset by one element take V = 1, as bicubic always does
+LAYOUTS = {"aligned": 4, "ragged": 1, "offset": 1}
+
+
+@pytest.mark.parametrize("layout", sorted(LAYOUTS))
 @pytest.mark.parametrize("dtype", ["f32", "u8"])
 @pytest.mark.parametrize("ex,ey", EDGE_PAIRS)
 @pytest.mark.parametrize("interp", INTERPOLATIONS)
-def test_cuda_kernel_matches_plain_version(cuda, interp, ex, ey, dtype):
+def test_cuda_kernel_matches_plain_version(cuda, interp, ex, ey, dtype, layout):
     pix = torch.from_numpy(_source(dtype)).to(cuda)
     x, y = (torch.from_numpy(a).to(cuda) for a in _coords())
+    if layout == "ragged":
+        x, y = x[:, :27].contiguous(), y[:, :27].contiguous()
+    elif layout == "offset":
+        x, y = _offset_view(x), _offset_view(y)
     before = K.sample_image.launches
     got = K.sample_image(pix, x, y, interp, ex, ey, EDGE_COLOR)
     want = K.sample_image_reference(pix, x, y, interp, ex, ey, EDGE_COLOR)
     torch.cuda.synchronize()
     assert K.sample_image.launches == before + 1
+    vec = K.vector_width(x.shape[1], x.data_ptr(), y.data_ptr(), got.data_ptr(), interp)
+    assert vec == (LAYOUTS[layout] if interp in K.VECTOR_INTERPOLATIONS else 1)
     torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("layout", ["aligned", "offset"])
+def test_cuda_u8_ramp_is_bit_exact(cuda, layout):
+    """All 256 u8 values in every channel, sampled nearest at texel centres:
+    the kernel's three-operation conversion gives u8_to_float's bits (IEEE
+    division by 255) on both instantiations."""
+    hi, wi = 4, 64
+    v = torch.arange(hi * wi).reshape(hi, wi, 1)
+    ramp = ((v + 64 * torch.arange(4)) % 256).to(torch.uint8)
+    xs = torch.arange(wi, dtype=torch.float32) + 0.5 - wi / 2
+    ys = hi / 2 - (torch.arange(hi, dtype=torch.float32) + 0.5)
+    x, y = (t.contiguous().to(cuda) for t in torch.meshgrid(xs, ys, indexing="xy"))
+    if layout == "offset":
+        x, y = _offset_view(x), _offset_view(y)
+    got = K.sample_image(ramp.to(cuda), x, y, "nearest", "color", "color", EDGE_COLOR)
+    want = K.u8_to_float(ramp).permute(2, 0, 1)
+    assert torch.equal(got.cpu().view(torch.int32), want.contiguous().view(torch.int32))
 
 
 def _smooth_image(w, h):
