@@ -10,7 +10,9 @@ Three parts, each printing one line per case (the first two by default):
 1. profile: fisheye, twirl and pond at their default params, u8 input of
    1920x1080 and 3840x2160 already on the device, mandelbrot at its
    default params at both sizes, through the generated loop kernel and
-   (pallas_while="off") through the masked eager loop, and pond through
+   (pallas_while="off") through the masked eager loop, turbulence and
+   voronoi (noise), static_tv (rand) and rand_walk (rand in a B3 loop) at
+   3840x2160, and pond through
    render_tiled on a (1,4,1) mesh of the card (and at 4K a (1,2,2) one)
    and through render_sharded on (1,4,1); at 4K also render_tiled on the
    default mesh, every visible card on the rows (on a host of several
@@ -46,7 +48,7 @@ from pathlib import Path
 
 import torch
 
-from chip_smoke import (FILTERS, ROOT, SIZES, card_line, fenced_median_ms,
+from chip_smoke import (FILTERS, RAND_WALK, ROOT, SIZES, card_line, fenced_median_ms,
                         phase_tiled_timings, seeded_image, smooth_image, time_b1,
                         time_b1_fields)
 
@@ -94,9 +96,12 @@ def profile_render(render):
             syncs / n, [(k[:70], v / n / 1e3) for k, v in top])
 
 
-def part_profile(mt, filters, mandelbrot, eager_loop, dev, card):
+def part_profile(mt, filters, mandelbrot, stochastic, eager_loop, dev, card):
     """`eager_loop`: RenderOptions that run mandelbrot's loop as the masked
-    eager loop (pallas_while="off"), for the syncs the kernel removes. The
+    eager loop (pallas_while="off"), for the syncs the kernel removes;
+    `stochastic`: turbulence (four noise calls), voronoi (18), static_tv
+    (one rand() draw) and rand_walk (a loop that draws, through B3),
+    profiled at 4K. The
     tiled renders (pond through render_tiled on (1,4,1) and, at 4K, (1,2,2)
     meshes of the first card and on the default mesh of every card) and
     the sharded one (pond through render_sharded on (1,4,1)) run their
@@ -116,6 +121,9 @@ def part_profile(mt, filters, mandelbrot, eager_loop, dev, card):
         pond = filters["pond"]
         cases.append(("pond tiled (1,4,1)", lambda: pond.render_tiled(img, mesh=mesh(1, 4, 1))))
         if (w, h) == SIZES[1]:
+            cases += [(name, lambda f=stochastic[name]: f.render(width=w, height=h, device=dev))
+                      for name in ("turbulence", "voronoi", "rand_walk")]
+            cases.append(("static_tv", lambda: stochastic["static_tv"].render(img, device=dev)))
             cases.append(("pond tiled (1,2,2)",
                           lambda: pond.render_tiled(img, mesh=mesh(1, 2, 2))))
             cases.append(("pond sharded (1,4,1)",
@@ -212,7 +220,12 @@ def main(argv) -> int:
     filters = {n: mt.compile_file(str(ROOT / "filters" / "Distorts" / f"{n}.mm"))
                for n in FILTERS}
     mandelbrot = mt.compile_file(str(ROOT / "filters" / "Render" / "mandelbrot.mm"))
-    part_profile(mt, filters, mandelbrot, mt.RenderOptions(pallas_while="off"), dev, card)
+    stochastic = {n: mt.compile_file(str(ROOT / "filters" / folder / f"{n}.mm"))
+                  for n, folder in (("turbulence", "Noise"), ("voronoi", "Render"),
+                                    ("static_tv", "Noise"))}
+    stochastic["rand_walk"] = mt.compile_source(RAND_WALK)
+    part_profile(mt, filters, mandelbrot, stochastic, mt.RenderOptions(pallas_while="off"),
+                 dev, card)
     part_coords(filters, dev, card)
     return 0
 

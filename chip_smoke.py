@@ -28,7 +28,9 @@ Phases, each printing its own lines:
    on the same CUDA tensors: mandelbrot, julia, burning_ship, tricorn and
    biomorph at 3840x2160 (identical grids), a body with sin() and
    condition assignments at the default cap and at max_loop_iters=9
-   (rtol=1e-4, atol=1e-5), and mandelbrot at 13x100 and 2161x3839
+   (rtol=1e-4, atol=1e-5), mandelbrot at 13x100 and 2161x3839, and
+   rand_walk (rand() in the body) at 3840x2160 after the unroll's first
+   step, from the first iteration under seed 5, and at 2161x3839
    (identical);
 5. distortion path: fisheye, twirl and pond through compile_file ->
    Filter.render(device="cuda") at 1920x1080 and 3840x2160; every render
@@ -65,7 +67,19 @@ Phases, each printing its own lines:
    bilinear (none for bicubic: PyTorch's uses A = -0.75, B1's Catmull-Rom
    A = -0.5); then B1 on the coordinate fields that fisheye, twirl and pond
    hand it at 4K (u8 source, each interpolation), the main path's own
-   traffic.
+   traffic;
+11. stochastic path (rand() and noise): the hash and perlin3 on the card
+   against the CPU bit for bit (and what CUDA's float -> int conversion
+   gives for NaN and inf); static_tv, film_grain, sparkle, dissolve,
+   jitter, turbulence, clouds, voronoi, ridged_noise, hex_grid and
+   rand_walk through Filter.render at 3840x2160, each render's B1, B2 and
+   B3 launches counted (one B3 launch a rand_walk render), then at 480x270
+   against the port's CPU render (bit for bit where only rand() and pixel-
+   centre samples are involved); jitter and static_tv through
+   render_tiled and render_sharded, and rand_walk through render_sharded,
+   on (1,4,1) and (1,2,2) meshes of the card against the unsharded card
+   render; last, the median 4K render times and B3 alone on rand_walk's
+   loop against the eager loop, with its bound.
 
 Kernel times are CUDA events around a run of launches that the card starts
 only after a sleep kernel, so the host has enqueued the run by then and the
@@ -118,6 +132,28 @@ SIN_BODY = ("filter sin_body ()"
             "    z = z + 0.2 + 0.1 * sin(c * 9 + i); i = i + 1 "
             "  end;"
             "  grayColor(clamp(z / 8 + i / 100 + n / 1000, 0, 1)) end")
+#: a per-pixel trip count that draws rand(): its loop takes B3 after the
+#: static unroll's first step
+RAND_WALK = ("filter rand_walk () s = 0; i = 0;"
+             "  while s < 1 && i < 64 do s = s + rand(0, 0.1) * (1 + x / W); i = i + 1 end;"
+             "  grayColor(i / 64) end")
+#: the stochastic path's renders: name -> (library folder, (B1, B2, B3)
+#: launches a render); dissolve samples its two inputs in both branches
+STOCHASTIC = {
+    "static_tv": ("Noise", (1, 0, 0)), "film_grain": ("Noise", (1, 0, 0)),
+    "sparkle": ("Noise", (1, 0, 0)), "dissolve": ("Combine", (2, 0, 0)),
+    "jitter": ("Distorts", (1, 0, 0)), "turbulence": ("Noise", (0, 0, 0)),
+    "clouds": ("Noise", (0, 0, 0)), "voronoi": ("Render", (0, 1, 0)),
+    "ridged_noise": ("Noise", (0, 0, 0)), "hex_grid": ("Render", (0, 1, 0)),
+    "rand_walk": (None, (0, 0, 1)),
+}
+#: drawn with rand() and elementwise ops, sampled at pixel centres only:
+#: the card's render equals the CPU's bit for bit (the other stochastic
+#: renders go through noise's libm-free ops but also sin, pow, sqrt or a
+#: displaced sample, within RTOL, ATOL)
+BIT_EXACT = ("static_tv", "film_grain", "sparkle", "dissolve", "rand_walk")
+#: the card-vs-CPU comparison's size, so the CPU renders stay quick
+REDUCED = (480, 270)
 LUT_SIZES = (2, 256, 5000)
 LUT_RTOL, LUT_ATOL = 1e-5, 1e-6
 #: H100 SXM peaks (NVIDIA's data sheet): HBM3 bytes/s, fp32 (non-tensor) op/s
@@ -457,23 +493,31 @@ def loop_reference(WL, loop, flat0, mask0, max_iters):
     iterations): iterations counts every pixel's body evaluations."""
     active = []
 
-    def counted(flat, mask):
+    def counted(flat, mask, loop_i):
         active.append(mask.sum())
-        return loop.step(flat, mask)
+        return loop.step(flat, mask, loop_i)
 
-    flat, steps = WL.while_loop_reference(counted, flat0, mask0, max_iters, loop.unroll)
+    flat, steps = WL.while_loop_reference(counted, flat0, mask0, max_iters, loop.unroll,
+                                          loop.it_base)
     return flat, steps, int(torch.stack(active).sum()) if active else 0
 
 
-def phase_loop_vs_plain(mt, WL, tracer, dev, filters, sin_filter) -> float:
-    """B3 against the eager masked loop on the same CUDA tensors."""
+def phase_loop_vs_plain(mt, WL, tracer, dev, filters, sin_filter, rand_walk):
+    """B3 against the eager masked loop on the same CUDA tensors -> (worst
+    max abs err, worst of the rand_walk cases)."""
     cases = [(n, filters[n], *SIZES[1], None, True) for n in GENERATIVE]
     cases += [("sin body", sin_filter, *SIZES[1], None, False),
               ("sin body, max_loop_iters=9", sin_filter, *SIZES[1],
                mt.RenderOptions(max_loop_iters=9), False),
               ("mandelbrot", filters["mandelbrot"], 100, 13, None, True),
               ("mandelbrot", filters["mandelbrot"], 3839, 2161, None, True)]
-    worst = 0.0
+    # rand() in the body: after the static unroll's first step (iterations
+    # from 2), from iteration 1 under another seed, and on a ragged size
+    cases += [("rand_walk", rand_walk, *SIZES[1], None, True),
+              ("rand_walk, while_static_unroll=0, seed=5", rand_walk, *SIZES[1],
+               mt.RenderOptions(while_static_unroll=0, seed=5), True),
+              ("rand_walk", rand_walk, 3839, 2161, None, True)]
+    worst = worst_rand = 0.0
     for name, f, w, h, opts, exact in cases:
         with LoopCapture(tracer) as cap:
             f.render(width=w, height=h, options=opts, device=dev)
@@ -490,11 +534,14 @@ def phase_loop_vs_plain(mt, WL, tracer, dev, filters, sin_filter) -> float:
             for a, b in zip(got, want):
                 err = max(err, check_close(tag, a, b))
         worst = max(worst, err)
-        print(f"{tag}: {len(flat0)} carried grids, {steps} eager steps, "
-              f"{iters} pixel iterations; {differ} values differ, max abs err "
-              f"{err:.3e} ({'identical required' if exact else f'rtol={RTOL}, atol={ATOL}'})")
+        if name.startswith("rand_walk"):
+            worst_rand = max(worst_rand, err)
+        print(f"{tag}: {len(flat0)} carried grids, {steps} eager steps from iteration "
+              f"{loop.it_base + 1}, {iters} pixel iterations; {differ} values differ, max "
+              f"abs err {err:.3e} "
+              f"({'identical required' if exact else f'rtol={RTOL}, atol={ATOL}'})")
     print(f"B3 vs plain: all {len(cases)} cases agree, worst max abs err {worst:.3e}")
-    return worst
+    return worst, worst_rand
 
 
 def phase_distortion_path(mt, K, dev, filters):
@@ -784,6 +831,49 @@ def phase_generative_path(mt, L, WL, dev, filters):
     return counts
 
 
+def time_b3(WL, tracer, render, label: str, card):
+    """B3 alone on the loop that `render()` launches: kernel and eager loop
+    in turns on the captured inputs, identical outputs, and the bound
+    (operations: this run's pixel iterations x ops each, a rand() draw
+    counted as its hash's integer ops; bytes: the carried and dependency
+    grids read once, a broadcast one by its distinct values, and the
+    outputs written once). Prints one line, returns the record."""
+    with LoopCapture(tracer) as cap:
+        render()
+    loop, flat0, mask0, max_iters, got = cap.one(label)
+    h, w = mask0.shape
+    prog = WL.trace(loop, len(flat0))
+    want, steps, iters = loop_reference(WL, loop, flat0, mask0, max_iters)
+    kernel_ms, plain_ms = turns(
+        lambda: WL.while_loop_reference(loop.step, flat0, mask0, max_iters, loop.unroll,
+                                        loop.it_base),
+        lambda: WL.while_loop(loop, flat0, mask0, max_iters), 2, 20)
+    values = {("carry", k): a for k, a in enumerate(flat0)}
+    values.update({("x",): loop.x, ("y",): loop.y})
+    values.update({("dep", n, j): a for n, tv in loop.deps for j, a in enumerate(tv.arrays)})
+    n_bytes = mask0.numel() + 4 * sum(a.numel() for a in got)
+    for key in prog.grid_inputs:
+        a = values[key]
+        if a.dim() == 2:
+            n_bytes += 4 * (a.shape[0] if a.stride(0) else 1) * (a.shape[1] if a.stride(1) else 1)
+        else:
+            n_bytes += 4
+    n_ops = iters * prog.n_compute_ops()
+    bound, by = bound_ms(n_bytes, n_ops)
+    same = all(torch.equal(a, b) for a, b in zip(WL.while_loop(loop, flat0, mask0, max_iters), want))
+    n_rand = sum(op == "rand" for op, _, _ in prog.ops)
+    print(f"timing B3 {label}: kernel {kernel_ms:.4f} ms, eager "
+          f"loop {plain_ms:.4f} ms ({plain_ms / kernel_ms:.1f}x), identical {same}; "
+          f"{iters} pixel iterations in the kernel ({iters / (w * h):.2f} per "
+          f"pixel, {steps} steps) + {loop.it_base * w * h} unrolled before it; "
+          f"{prog.n_compute_ops()} ops each ({n_rand} rand draws of {WL.RAND_OPS}) = "
+          f"{n_ops / 1e9:.3f} Gop; {n_bytes / 1e6:.0f} MB; bound {bound:.4f} ms ({by}) "
+          f"[{card}]")
+    if not same:
+        raise AssertionError(f"timed B3 {label}: output differs from the eager loop")
+    return dict(ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by, library_ms=None)
+
+
 def phase_generative_timings(mt, L, WL, tracer, dev, filters, card):
     """Mandelbrot render medians; B3 and B2 alone at 4K against their plain
     versions (and B2 against grid_sample), with their bounds."""
@@ -795,39 +885,9 @@ def phase_generative_timings(mt, L, WL, tracer, dev, filters, card):
                   f"{ms:.3f} ms/frame of {TIMED_RENDERS}, {w * h / ms / 1e3:.1f} "
                   f"Mpix/s [{card}]")
     w, h = SIZES[1]
-    records = {}
-    for label, params in (("default", {}), ("zoomed", ZOOMED)):
-        with LoopCapture(tracer) as cap:
-            f.render(width=w, height=h, params=params, device=dev)
-        loop, flat0, mask0, max_iters, got = cap.one("mandelbrot")
-        prog = WL.trace(loop, len(flat0))
-        want, steps, iters = loop_reference(WL, loop, flat0, mask0, max_iters)
-        kernel_ms, plain_ms = turns(
-            lambda: WL.while_loop_reference(loop.step, flat0, mask0, max_iters, loop.unroll),
-            lambda: WL.while_loop(loop, flat0, mask0, max_iters), 2, 20)
-        values = {("carry", k): a for k, a in enumerate(flat0)}
-        values.update({("x",): loop.x, ("y",): loop.y})
-        values.update({("dep", n, j): a for n, tv in loop.deps for j, a in enumerate(tv.arrays)})
-        n_bytes = mask0.numel() + 4 * sum(a.numel() for a in got)
-        for key in prog.grid_inputs:
-            a = values[key]
-            if a.dim() == 2:
-                n_bytes += 4 * (a.shape[0] if a.stride(0) else 1) * (a.shape[1] if a.stride(1) else 1)
-            else:
-                n_bytes += 4
-        n_ops = iters * prog.n_compute_ops()
-        bound, by = bound_ms(n_bytes, n_ops)
-        same = all(torch.equal(a, b) for a, b in zip(WL.while_loop(loop, flat0, mask0, max_iters), want))
-        print(f"timing B3 mandelbrot {w}x{h} {label}: kernel {kernel_ms:.4f} ms, eager "
-              f"loop {plain_ms:.4f} ms ({plain_ms / kernel_ms:.1f}x), identical {same}; "
-              f"{iters} pixel iterations in the kernel ({iters / (w * h):.2f} per "
-              f"pixel, {steps} steps) + {(10000 - max_iters) * w * h} unrolled "
-              f"before it; {prog.n_compute_ops()} ops each = {n_ops / 1e9:.3f} Gop; "
-              f"{n_bytes / 1e6:.0f} MB; bound {bound:.4f} ms ({by}) [{card}]")
-        if not same:
-            raise AssertionError("timed B3 output differs from the eager loop")
-        records[label] = dict(ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound,
-                              bound_by=by, library_ms=None)
+    records = {label: time_b3(WL, tracer, lambda p=params: f.render(
+        width=w, height=h, params=p, device=dev), f"mandelbrot {w}x{h} {label}", card)
+        for label, params in (("default", {}), ("zoomed", ZOOMED))}
     # B2 at the render's shape and LUT size: (256, 4) gradient, 4K positions
     pos = torch.from_numpy(np.random.RandomState(8).rand(h, w).astype(np.float32)).to(dev)
     lut = torch.from_numpy(seeded_lut(256, 4, seed=9)).to(dev)
@@ -1022,6 +1082,154 @@ def phase_sharded_path(mt, K, L, WL, dev, filters):
               f"vs the unsharded card render, {n_px} pixels differ")
 
 
+def launch_counts(*wrappers) -> tuple:
+    return tuple(w.launches for w in wrappers)
+
+
+def stochastic_inputs(f, w: int, h: int, dev, seed: int) -> list:
+    """Seeded u8 images on `dev`, one per image parameter of `f`."""
+    n = sum(1 for p in f.fdef.params if p.kind == "image")
+    return [torch.from_numpy(seeded_image(w, h, seed=seed + i)[1]).to(dev) for i in range(n)]
+
+
+def phase_rand_noise_vs_cpu(dev):
+    """rand()'s hash and perlin3 on the card against the CPU, bit for bit:
+    the hash at 4K under four salts, loop salts up to 2^32 - 1 among them;
+    perlin3 on random, negative, lattice, large (above 2^24 and 2^31),
+    NaN and infinite coordinates (NaN where the CPU has NaN). Prints what
+    CUDA's own float -> int32 conversion gives where NumPy's gives
+    INT_MIN, and the lattice index the port takes there."""
+    from mathmap_tpu_torch.ops import noise as N
+    from mathmap_tpu_torch.ops import rand as RND
+
+    w, h = SIZES[1]
+    salts = ((RND.draw_salt(0, 1), None), (RND.draw_salt(7, 1000003 * 3 + 2), 9),
+             (0xFFFFFFFF, 0xFFFFFFFF), (0x80000000, 2**31))
+    for salt, extra in salts:
+        got = RND.rand_uniform(RND.rand_index((h, w), w, 0, 0, dev), salt, extra)
+        want = RND.rand_uniform(RND.rand_index((h, w), w, 0, 0, "cpu"), salt, extra)
+        if not torch.equal(got.cpu().view(torch.int32), want.view(torch.int32)):
+            raise AssertionError(f"rand hash, salt {salt:#x}, loop salt {extra}: the card "
+                                 f"differs from the CPU")
+    print(f"rand hash {w}x{h}: {len(salts)} salts, the card equals the CPU bit for bit")
+    rs = np.random.RandomState(3)
+    special = np.array([np.nan, np.inf, -np.inf, 3e9, -3e9, 2.0**31, 2.0**31 - 128, 1e20],
+                       np.float32)
+    n = 1 << 20
+    coords = np.concatenate([
+        rs.uniform(-300, 300, (3, n)), rs.randint(-600, 600, (3, 4096)),
+        rs.choice([-1, 1], (3, 4096)) * rs.uniform(2**24, 2**40, (3, 4096)),
+        np.stack([np.resize(special, 4096), rs.uniform(-9, 9, 4096), rs.uniform(-9, 9, 4096)]),
+    ], axis=1).astype(np.float32)
+    cpu = [torch.from_numpy(c) for c in coords]
+    want = N.perlin3(*cpu)
+    got = N.perlin3(*(c.to(dev) for c in cpu)).cpu()
+    nan = want.isnan()
+    if not (torch.equal(got.isnan(), nan)
+            and torch.equal(got[~nan].view(torch.int32), want[~nan].view(torch.int32))):
+        raise AssertionError("perlin3: the card differs from the CPU")
+    with np.errstate(invalid="ignore"):
+        numpy_index = (special.astype(np.int32) & 255).tolist()
+    sdev = torch.from_numpy(special).to(dev)
+    print(f"perlin3 on {coords.shape[1]} points (random, lattice, large, NaN, inf): the card "
+          f"equals the CPU bit for bit, {int(nan.sum())} NaN on both")
+    print(f"lattice index of {special.tolist()}: NumPy on x86 {numpy_index}; the card's "
+          f"float -> int32 conversion & 255: {(sdev.to(torch.int32) & 255).cpu().tolist()}; "
+          f"noise.lattice on the card: {N.lattice(sdev).cpu().tolist()}")
+
+
+def phase_stochastic_path(mt, K, L, WL, dev, st) -> int:
+    """The stochastic slice through Filter.render at 3840x2160: each
+    render's (B1, B2, B3) launches as STOCHASTIC says, finite output of the
+    frame's shape; then each at REDUCED size against the port's CPU render,
+    bit for bit for BIT_EXACT, within RTOL, ATOL for the others, differing
+    pixels counted. Returns B3's launches in the 4K renders."""
+    K.sample_image.launches = L.apply_lut.launches = WL.while_loop.launches = 0
+    wrappers = (K.sample_image, L.apply_lut, WL.while_loop)
+    w, h = SIZES[1]
+    for name, (_, expected) in STOCHASTIC.items():
+        inputs = stochastic_inputs(st[name], w, h, dev, seed=40)
+        before = launch_counts(*wrappers)
+        out = st[name].render(*inputs, width=w, height=h, t=0.3, device=dev)
+        torch.cuda.synchronize()
+        counts = tuple(a - b for a, b in zip(launch_counts(*wrappers), before))
+        tag = f"{name:12s} {w}x{h}"
+        if counts != expected:
+            raise AssertionError(f"{tag}: (B1, B2, B3) launches {counts}, expected {expected}")
+        if tuple(out.shape) != (h, w, 4) or out.device != dev:
+            raise AssertionError(f"{tag}: bad output {tuple(out.shape)} on {out.device}")
+        if not bool(torch.isfinite(out).all()):
+            raise AssertionError(f"{tag}: non-finite output")
+        print(f"stochastic path {tag}: (B1, B2, B3) launches {counts}: ok")
+    total = launch_counts(*wrappers)
+    print(f"stochastic path: {len(STOCHASTIC)} GPU renders, (B1, B2, B3) launches {total}")
+    w, h = REDUCED
+    for name in STOCHASTIC:
+        inputs = stochastic_inputs(st[name], w, h, "cpu", seed=50)
+        want = st[name].render(*inputs, width=w, height=h, t=0.3, device="cpu")
+        got = st[name].render(*(a.to(dev) for a in inputs), width=w, height=h, t=0.3,
+                              device=dev).cpu()
+        n_px = int((got != want).any(-1).sum())
+        tag = f"stochastic {name:12s} {w}x{h} card vs CPU"
+        if name in BIT_EXACT:
+            if n_px:
+                raise AssertionError(f"{tag}: {n_px} pixels differ, bit for bit required")
+            print(f"{tag}: bit for bit")
+        else:
+            err = check_close(tag, got, want)
+            print(f"{tag}: max abs err {err:.3e}, {n_px} pixels differ")
+    return total[2]
+
+
+def phase_stochastic_meshes(mt, K, B4, WL, dev, st):
+    """jitter and static_tv through render_tiled(halo="auto") and
+    render_sharded, rand_walk through render_sharded, on (1,4,1) and
+    (1,2,2) meshes of the card at 3840x2160: one B4 (tiled), B1 or B3
+    (sharded) launch per tile, and the unsharded card render's values (a
+    draw hashes the global pixel index); rand_walk's tiles identical."""
+    w, h = SIZES[1]
+    wrappers = (K.sample_image, B4.sample_tiled, WL.while_loop)
+    for name in ("jitter", "static_tv", "rand_walk"):
+        f = st[name]
+        inputs = stochastic_inputs(f, w, h, dev, seed=60)
+        size = dict(width=w, height=h, t=0.3)
+        want = f.render(*inputs, device=dev, **size)
+        for entry in ("render_tiled", "render_sharded"):
+            if name == "rand_walk" and entry == "render_tiled":
+                continue  # samples nothing: the tiled path is the sharded one
+            for shape in ((1, 4, 1), (1, 2, 2)):
+                before = launch_counts(*wrappers)
+                out = getattr(f, entry)(*inputs, mesh=card_mesh(mt, dev, shape), **size)
+                torch.cuda.synchronize()
+                counts = tuple(a - b for a, b in zip(launch_counts(*wrappers), before))
+                expected = ((0, 0, 4) if name == "rand_walk" else
+                            (0, 4, 0) if entry == "render_tiled" else (4, 0, 0))
+                tag = f"{entry} {name} {w}x{h} mesh {shape}"
+                if counts != expected:
+                    raise AssertionError(f"{tag}: (B1, B4, B3) launches {counts}, "
+                                         f"expected {expected}")
+                n_px = int((out != want).any(-1).sum())
+                if name == "rand_walk" and n_px:
+                    raise AssertionError(f"{tag}: {n_px} pixels differ from the unsharded "
+                                         f"render, identical required")
+                err = check_close(tag, out, want)
+                print(f"stochastic {tag}: (B1, B4, B3) launches {counts}, max abs err "
+                      f"{err:.3e} vs the unsharded card render, {n_px} pixels differ")
+
+
+def phase_stochastic_timings(WL, tracer, dev, st, card):
+    """Median fenced 4K renders of the stochastic path, then B3 alone on
+    rand_walk's loop -> B3's rand_walk record."""
+    w, h = SIZES[1]
+    for name, f in st.items():
+        inputs = stochastic_inputs(f, w, h, dev, seed=40)
+        ms = fenced_median_ms(lambda: f.render(*inputs, width=w, height=h, t=0.3, device=dev))
+        print(f"timing render {name:12s} {w}x{h}{' u8 in' if inputs else ''}: median "
+              f"{ms:.3f} ms/frame of {TIMED_RENDERS}, {w * h / ms / 1e3:.1f} Mpix/s [{card}]")
+    return time_b3(WL, tracer, lambda: st["rand_walk"].render(width=w, height=h, device=dev),
+                   f"rand_walk {w}x{h}", card)
+
+
 class KernelCapture:
     """Records the arguments of every call of `module.name` (a kernel
     wrapper the renderer calls: runtime.sampling's sample_kernel, B1, or
@@ -1154,20 +1362,29 @@ def main() -> int:
     filters.update({n: mt.compile_file(str(ROOT / "filters" / "Render" / f"{n}.mm"))
                     for n in GENERATIVE})
     sin_filter = mt.compile_source(SIN_BODY)
+    rand_walk = mt.compile_source(RAND_WALK)
+    st = {n: rand_walk if folder is None
+          else mt.compile_file(str(ROOT / "filters" / folder / f"{n}.mm"))
+          for n, (folder, _) in STOCHASTIC.items()}
     loop_filters = [(filters[n], {}) for n in GENERATIVE]
-    loop_filters += [(filters["mandelbrot"], ZOOMED), (sin_filter, {})]
+    loop_filters += [(filters["mandelbrot"], ZOOMED), (sin_filter, {}), (rand_walk, {})]
     card = phase_card(mt, build, WL, tracer, loop_filters)
     worst_b1 = phase_kernel_vs_plain(K, dev)
     worst_b2 = phase_lut_vs_plain(L, dev)
-    worst_b3 = phase_loop_vs_plain(mt, WL, tracer, dev, filters, sin_filter)
+    worst_b3, worst_rand = phase_loop_vs_plain(mt, WL, tracer, dev, filters, sin_filter,
+                                               rand_walk)
     b1_launches = phase_distortion_path(mt, K, dev, filters)
     b2_launches, b3_launches = phase_generative_path(mt, L, WL, dev, filters)
     worst_b4 = phase_tiled_vs_plain(B4, dev)
     b4_launches = phase_tiled_path(mt, B4, dev, filters)
     phase_sharded_path(mt, K, L, WL, dev, filters)
+    phase_rand_noise_vs_cpu(dev)
+    b3_rand_launches = phase_stochastic_path(mt, K, L, WL, dev, st)
+    phase_stochastic_meshes(mt, K, B4, WL, dev, st)
     b1 = phase_timings(mt, K, sampling, dev, filters, card)
     gen = phase_generative_timings(mt, L, WL, tracer, dev, filters, card)
     b4 = phase_tiled_timings(mt, B4, sampling, dev, filters, card)
+    b3_rand = phase_stochastic_timings(WL, tracer, dev, st, card)
     print(f"nvcc builds in this run: {len(build.BUILDS)}, "
           f"{sum(s for _, s in build.BUILDS):.2f} s in all")
     print(f"chip_smoke: {time.perf_counter() - t0:.1f} s")
@@ -1185,6 +1402,10 @@ def main() -> int:
          "source": "mathmap_tpu_torch/csrc/while_loop.cu.tmpl",
          "replaces": "mathmap_tpu/pallas_kernels/while_kernel.py:143",
          "launches": b3_launches, "max_abs_err": worst_b3, **gen["default"]},
+        {"name": "while_loop (rand_walk)", "route": "cuda",
+         "source": "mathmap_tpu_torch/csrc/while_loop.cu.tmpl",
+         "replaces": "mathmap_tpu/pallas_kernels/while_kernel.py:143",
+         "launches": b3_rand_launches, "max_abs_err": worst_rand, **b3_rand},
         {"name": "sample_tiled", "route": "cuda",
          "source": "mathmap_tpu_torch/csrc/sample_tiled.cu",
          "replaces": "mathmap_tpu/runtime/sampling.py:188",

@@ -13,6 +13,12 @@ process and on disk by a hash of the source. `run_program` interprets the
 same list with torch, so the CPU tests hold the op list against the eager
 loop and only the C spelling of each op is left to the card.
 
+A rand() draw in the body is one op, `rand`, whose operand is the draw's
+number within the step; the kernel hashes it in uint32 (`mm_rand`, the hash
+of ops/rand.py) with the pixel's global index, the salt of the step's first
+counter and the iteration number, all kernel arguments, so a new seed,
+frame size or tile offset does not rebuild.
+
 The plain version is `while_loop_reference`, the eager masked loop (the
 reference's oracle loop with the lax route's `while_unroll` gating): every
 step evaluates the body over the whole grid and merges it under the mask.
@@ -38,11 +44,12 @@ import torch
 
 from ..lang import astnodes as A
 from ..ops import libm
+from ..ops.rand import COUNTER, M32, draw_salt, rand_uniform
 from . import build
 
 #: builtins a kernel body may call: the reference's SAFE_CALLS
-#: (while_kernel.py) minus what this package does not have yet (rand, and
-#: the vector builtins of ROADMAP A7). The reference's other exclusions (the
+#: (while_kernel.py) minus what this package does not have yet (the vector
+#: builtins of ROADMAP A7). The reference's other exclusions (the
 #: internals `a`/`ra` and the `ri:` overloads that reach atan2/sinh/cosh)
 #: were limits of the TPU's Mosaic compiler; they do not apply here.
 SAFE_CALLS = frozenset({
@@ -53,7 +60,7 @@ SAFE_CALLS = frozenset({
     "floor", "ceil", "round", "fmod", "hypot",
     "sqrt", "exp", "exp2", "log", "log2", "log10", "pow",
     "sin", "cos", "tan", "tanh",
-    "deg2rad", "rad2deg",
+    "deg2rad", "rad2deg", "rand",
     "rgbColor", "rgbaColor", "grayColor", "grayaColor",
     "red", "green", "blue", "alpha", "gray",
     "toXY", "toHSVA", "toRGBA",
@@ -112,10 +119,11 @@ class Loop:
     """One loop as the tracer hands it over: its step closure, the values
     it reads, and where it came from."""
 
-    #: step(flat, mask, tile=None) -> (flat, mask): one masked iteration
-    #: (body, then the condition whose assignments persist); with mask=None
-    #: every pixel steps and the condition mask comes back unmerged.
-    #: tile=(ctx, x, y, base_env, make_evaluator) evaluates it there instead.
+    #: step(flat, mask, loop_i, tile=None) -> (flat, mask): iteration
+    #: loop_i, counted from 1, under the mask (body, then the condition
+    #: whose assignments persist); with mask=None every pixel steps and the
+    #: condition mask comes back unmerged. tile=(ctx, x, y, base_env,
+    #: make_evaluator) evaluates it there instead.
     step: Callable
     deps: list  # [(name, TupleValue)], dependencies()
     x: torch.Tensor
@@ -126,26 +134,37 @@ class Loop:
     #: what else fixes the traced ops: the carried names with their
     #: lengths and tags, and each dependency's name, tag and length
     spec: tuple
+    #: the rand counter every step starts from: a step's k-th draw takes
+    #: counter rand_base + k
+    rand_base: int = 0
+    #: iterations already run (the static unroll's): the first one here is
+    #: number it_base + 1
+    it_base: int = 0
 
     @property
     def origin(self) -> str:
         """Where the loop is, for the generated source's header."""
         return f"line {self.node.span.line}:{self.node.span.col}"
 
+    @property
+    def rand_salt(self) -> int:
+        """The salt of counter rand_base (a step's draw k adds k * COUNTER)."""
+        return draw_salt(self.ctx.opts.seed, self.rand_base)
+
 
 # ---------------------------------------------------------------------------
 # the plain version
 # ---------------------------------------------------------------------------
 
-def while_loop_reference(step, flat0, mask0, max_iters: int, unroll: int):
+def while_loop_reference(step, flat0, mask0, max_iters: int, unroll: int, it_base: int = 0):
     """The eager masked loop -> (final flat carry, steps run): `unroll`
-    masked steps per `any()` check, none past `max_iters`. A step past a
-    pixel's exit leaves it as it was, so the count of checks changes no
-    value."""
+    masked steps per `any()` check, none past `max_iters`, numbered from
+    it_base + 1. A step past a pixel's exit leaves it as it was, so the
+    count of checks changes no value."""
     flat, mask, i = flat0, mask0, 0
     while i < max_iters and bool(mask.any()):
         for _ in range(min(unroll, max_iters - i)):
-            flat, mask = step(flat, mask)
+            flat, mask = step(flat, mask, it_base + i + 1)
             i += 1
     return flat, i
 
@@ -187,20 +206,28 @@ _UNARY = {
 _BOOL_RESULT = {"eq", "ne", "lt", "gt", "le", "ge", "and", "or", "xor", "not"}
 _BOOL_OPERANDS = {"and", "or", "xor", "not", "to_float"}
 
+#: the iteration number a traced step is given: the kernel computes it
+ITERATION = object()
+#: integer and float ops of one `rand` op in the kernel (mm_rand and the
+#: salt's add), counted as operations in the kernel's bound
+RAND_OPS = 15
+
 
 class Program:
     """An SSA list: ops[i] = (op, operands, kind); an operand is
     ("v", index) for an earlier op's value or ("s", float) for a Python
     scalar (PyTorch's CPU-scalar semantics); kind is "f" (float32) or "b"
     (bool). "in" ops name a kernel input, "const" ops a float32 or bool
-    literal."""
+    literal, and a "rand" op, operand ("n", k), the step's k-th draw."""
 
-    def __init__(self):
+    def __init__(self, rand_base: int = 0):
         self.ops: list = []
         self.outputs: list = []  # operand per carried slot
         self.cond = None  # operand of the continue condition
         self._consts: dict = {}
         self._inputs: dict = {}
+        #: the rand counter the traced step started from (Loop.rand_base)
+        self.rand_base = rand_base
 
     def add(self, op: str, operands: tuple, kind: str) -> "Sym":
         self.ops.append((op, operands, kind))
@@ -252,7 +279,9 @@ class Program:
         return [k for k in self._inputs if k[0] == "scalar"]
 
     def n_compute_ops(self) -> int:
-        return sum(1 for op, _, _ in self.ops if op not in ("in", "const"))
+        """Operations a pixel iteration, a rand() draw counted as RAND_OPS."""
+        return sum(RAND_OPS if op == "rand" else 1
+                   for op, _, _ in self.ops if op not in ("in", "const"))
 
 
 def _program_of(args) -> Program:
@@ -377,12 +406,20 @@ def _sym_evaluator_class():
     from ..typesys.tags import NIL
 
     class SymEvaluator(Evaluator):
-        def __init__(self, program, ctx, x, y, env):
-            super().__init__(ctx, x, y, env)
+        def __init__(self, program, ctx, x, y, env, salt_extra=None):
+            super().__init__(ctx, x, y, env, salt_extra)
             self.program = program
 
         def lit(self, v):
             return self.program.const(v)
+
+        def rand_uniform(self):
+            # the step's k-th draw; the kernel salts it with the iteration
+            self.ctx.rand_counter += 1
+            if self.salt_extra is not ITERATION:
+                raise GeneratorError("a rand() draw with another salt than the iteration's")
+            k = self.ctx.rand_counter - self.program.rand_base
+            return self.program.add("rand", (("n", k),), "f")
 
         def _internal(self, name):
             # the size internals keep their host constants, as in the
@@ -404,7 +441,7 @@ def trace(loop: Loop, n_flat: int) -> Program:
     """Run the loop's step once on symbolic inputs -> its Program."""
     from ..runtime.value import TupleValue
 
-    prog = Program()
+    prog = Program(loop.rand_base)
     flat = tuple(prog.input(("carry", i)) for i in range(n_flat))
     base_env = {name: TupleValue(tv.tag, tuple(prog.input(("dep", name, j))
                                                for j in range(len(tv.arrays))))
@@ -412,10 +449,11 @@ def trace(loop: Loop, n_flat: int) -> Program:
     x, y = prog.input(("x",)), prog.input(("y",))
     cls = _sym_evaluator_class()
 
-    def make_evaluator(ctx, ex, ey, env):
-        return cls(prog, ctx, ex, ey, env)
+    def make_evaluator(ctx, ex, ey, env, salt_extra):
+        return cls(prog, ctx, ex, ey, env, salt_extra)
 
-    new_flat, cond = loop.step(flat, None, tile=(loop.ctx, x, y, base_env, make_evaluator))
+    new_flat, cond = loop.step(flat, None, ITERATION,
+                               tile=(loop.ctx, x, y, base_env, make_evaluator))
     prog.outputs = [prog.operand(v) for v in new_flat]
     prog.cond = prog.operand(cond)
     if prog.kind_of(prog.cond) != "b" or any(prog.kind_of(o) != "f" for o in prog.outputs):
@@ -440,10 +478,12 @@ _INTERP = {
 }
 
 
-def run_program(prog: Program, inputs: dict, device) -> tuple:
+def run_program(prog: Program, inputs: dict, device, rand=None) -> tuple:
     """Evaluate one step of `prog` with torch -> (outputs, cond). `inputs`
     maps each input key to a tensor (grids or 0-d). Constants are 0-d
-    tensors on `device`, as the evaluator's literals are."""
+    tensors on `device`, as the evaluator's literals are. `rand` = (the
+    grid's global index, Loop.rand_salt, the iteration number) draws the
+    "rand" ops with the evaluator's hash."""
     vals = []
     for op, operands, kind in prog.ops:
         if op == "in":
@@ -452,6 +492,10 @@ def run_program(prog: Program, inputs: dict, device) -> tuple:
         if op == "const":
             dtype = torch.bool if kind == "b" else torch.float32
             vals.append(torch.tensor(operands[0], dtype=dtype, device=device))
+            continue
+        if op == "rand":
+            index, salt, loop_i = rand
+            vals.append(rand_uniform(index, (salt + operands[0][1] * COUNTER) & M32, loop_i))
             continue
         args = [vals[o[1]] if o[0] == "v" else o[1] for o in operands]
         fn = _INTERP.get(op) or libm.FUNCTIONS.get(op) or getattr(torch, op)
@@ -541,6 +585,10 @@ def emit_cuda(prog: Program, origin: str = "") -> str:
 
     names = {}
     loads, body = [], []
+    if any(op == "rand" for op, _, _ in prog.ops):
+        loads.append("  const unsigned int rand_idx = static_cast<unsigned int>(row0 + i) * "
+                     "static_cast<unsigned int>(width) + static_cast<unsigned int>(col0 + j);")
+        body.append("    const unsigned int loop_i = static_cast<unsigned int>(it_base + it + 1);")
     for i, (op, operands, kind) in enumerate(prog.ops):
         ctype = "bool" if kind == "b" else "float"
         if op == "in":
@@ -559,6 +607,10 @@ def emit_cuda(prog: Program, origin: str = "") -> str:
             value = operands[0]
             lit = ("true" if value else "false") if kind == "b" else _f32(value)
             loads.append(f"  const {ctype} v{i} = {lit};")
+            continue
+        if op == "rand":
+            k_salt = (operands[0][1] * COUNTER) & M32
+            body.append(f"    const float v{i} = mm_rand(rand_idx, rand_salt + 0x{k_salt:08x}u, loop_i);")
             continue
         expr = _c_expr(op, operands, names.__getitem__)
         body.append(f"    const {ctype} v{i} = {expr};")
@@ -608,6 +660,8 @@ def _launcher(source: str):
         fn = lib.cdll.mm_while_loop
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # ptrs, strides, scalars
                        ctypes.c_int, ctypes.c_int, ctypes.c_int,  # h, w, max_iters
+                       ctypes.c_int, ctypes.c_int, ctypes.c_int,  # row0, col0, width
+                       ctypes.c_uint32, ctypes.c_int,  # rand_salt, it_base
                        ctypes.c_void_p]  # stream
         fn.restype = ctypes.c_int
         _LAUNCHERS[source] = fn
@@ -631,10 +685,12 @@ def while_loop(loop: Loop, flat0: tuple, mask0: torch.Tensor, max_iters: int) ->
 
     A CPU mask goes to the plain version; on a CUDA device the loop's
     kernel is generated, built (once per distinct source) and launched on
-    the current stream without synchronising, or this raises."""
+    the current stream without synchronising, or this raises. Iterations
+    are numbered from loop.it_base + 1."""
     dev = mask0.device
     if dev.type == "cpu":
-        return while_loop_reference(loop.step, flat0, mask0, max_iters, loop.unroll)[0]
+        return while_loop_reference(loop.step, flat0, mask0, max_iters, loop.unroll,
+                                    loop.it_base)[0]
     if dev.type != "cuda":
         raise ValueError(f"no while-loop kernel for device {dev}")
     if mask0.dtype != torch.bool:
@@ -661,9 +717,11 @@ def while_loop(loop: Loop, flat0: tuple, mask0: torch.Tensor, max_iters: int) ->
     strides_c = (ctypes.c_longlong * len(strides))(*strides)
     scalars = [scalar_internal(loop.ctx, k[1]) for k in prog.scalar_inputs]
     scalars_c = (ctypes.c_float * max(1, len(scalars)))(*scalars)
+    ctx = loop.ctx
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(ptrs, strides_c, scalars_c, h, w, min(int(max_iters), 2**31 - 1), stream)
+        err = fn(ptrs, strides_c, scalars_c, h, w, min(int(max_iters), 2**31 - 1),
+                 ctx.row_offset, ctx.col_offset, ctx.width, loop.rand_salt, loop.it_base, stream)
     if err != 0:
         raise RuntimeError(
             f"while_loop kernel launch failed: cudaError {err} "

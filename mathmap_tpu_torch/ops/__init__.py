@@ -9,7 +9,8 @@ from ..runtime.value import TupleValue as _TV
 from . import color_ops  # noqa: F401  (colors, HSVA, toXY/toRA)
 from . import complex_ops  # noqa: F401  (ri: algebra + overload dispatch)
 from . import image_ops  # noqa: F401  (origVal family)
-from . import math_ops  # noqa: F401  (arithmetic, trig, logic)
+from . import math_ops  # noqa: F401  (arithmetic, trig, logic, rand)
+from . import noise  # noqa: F401  (Perlin noise)
 from .registry import broadcast_pair, builtin, need_args, result_tag
 
 

@@ -280,3 +280,12 @@ def _smoothstep(ev, args, span):
     los, his, xs = lo.scalar(span), hi.scalar(span), x.scalar(span)
     t = torch.clamp((xs - los) / (his - los), 0.0, 1.0)
     return TupleValue(NIL, (t * t * (3.0 - 2.0 * t),))
+
+
+@builtin("rand")
+def _rand(ev, args, span):
+    """rand(lo, hi): one draw per pixel (Evaluator.rand_uniform), scaled."""
+    lo, hi = need_args(args, 2, "rand", span)
+    los, his = lo.scalar(span), hi.scalar(span)
+    u = ev.rand_uniform()
+    return TupleValue(NIL, (los + u * (his - los),))

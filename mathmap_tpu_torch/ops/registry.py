@@ -31,7 +31,6 @@ DISPLAY_NAMES = {
 #: builtins of the JAX package that this package does not have yet, with
 #: the ROADMAP item that ports them; calling one raises NotImplementedError
 NOT_PORTED = {
-    **dict.fromkeys(("rand", "noise"), "ROADMAP A3"),
     **dict.fromkeys(("gaussian-blur", "gaussianBlur", "gaussian_blur"),
                     "ROADMAP A2"),
     **dict.fromkeys((

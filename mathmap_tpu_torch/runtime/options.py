@@ -5,7 +5,8 @@ one set of options drives both packages (convert.options_from_reference).
 Fields fall in three groups on this card:
 
 - implemented: interpolation, edge_x, edge_y, edge_color, supersample
-  (grid scheme), output_dtype, static_params, and the loop options
+  (grid scheme), output_dtype, static_params, seed (rand()'s draws), and
+  the loop options
   max_loop_iters, while_unroll, while_static_unroll and pallas_while,
   which maps onto this package's while-loop kernel switch (kernel B3):
   'off' runs every loop as the masked eager loop, 'auto' runs every
@@ -16,9 +17,8 @@ Fields fall in three groups on this card:
 - accepted and validated, but steering only TPU machinery, so they have
   no effect here: sampler, pallas_tiers, pallas_per_tile,
   pallas_precision, sweep_unroll;
-- steering parts of the system that are not ported yet: seed (rand(),
-  ROADMAP A3), periodic (animation, ROADMAP A4). These parts raise when a
-  filter reaches them, so the fields cannot change a render today.
+- steering a part of the system that is not ported yet: periodic
+  (animation, ROADMAP A4), which no render reaches today.
   `region` and `supersample_scheme="corners"` raise NotImplementedError
   here when set to a non-default value (ROADMAP A4).
 """
@@ -58,7 +58,7 @@ class RenderOptions:
     while_static_unroll: int = 64
     #: animation time convention (ROADMAP A4).
     periodic: bool = True
-    #: PRNG seed for rand() (ROADMAP A3).
+    #: rand()'s seed: every draw hashes it (ops/rand.py).
     seed: int = 0
     #: param names whose values are trace-time constants: their values
     #: carry a constant mirror, like the reference's baked params.

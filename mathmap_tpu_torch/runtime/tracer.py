@@ -12,8 +12,12 @@ the hand-written sampler kernel.
 `while` loops run in `_eval_While`: unrolled when the trip count folds to
 a constant, else through the generated kernel B3 (kernels/while_loop.py)
 when the loop is eligible, else as the masked eager loop. Curves and
-gradients apply through kernel B2 (ops/color_ops.py). rand() is not ported
-yet (ROADMAP A3), nor the loop's rand counter and salt plumbing.
+gradients apply through kernel B2 (ops/color_ops.py).
+
+rand() draws from a counter hash of the global pixel index (ops/rand.py):
+each draw takes the context's next counter, and inside a loop every step
+restarts from the same counter while the iteration number salts the draw,
+so the unroll, kernel B3 and the masked loop draw the same values.
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ from ..ops import registry as R
 from ..kernels import while_loop as WL
 from ..kernels.while_loop import while_loop as loop_kernel
 from ..ops.color_ops import apply_curve, apply_gradient
+from ..ops.rand import draw_salt, mix_salt, rand_index, rand_uniform
 from ..runtime.value import ClosureImage, TupleValue, image_value
 from ..typesys import tags as tagmod
 from ..typesys.tags import NIL
@@ -95,6 +100,11 @@ class RenderContext:
     #: the tile's global (row, col) origin
     row_offset: int = 0
     col_offset: int = 0
+    #: rand() draws so far: the next draw takes the next counter
+    rand_counter: int = 0
+    #: loops begun at this level so far; offsets a loop's counters, so two
+    #: loops in sequence draw different streams
+    rand_loop_nonce: int = 0
 
     @property
     def shape(self):
@@ -104,12 +114,15 @@ class RenderContext:
 
 
 class Evaluator:
-    def __init__(self, ctx: RenderContext, x, y, env: dict):
+    def __init__(self, ctx: RenderContext, x, y, env: dict, salt_extra=None):
         self.ctx = ctx
         self.x = x
         self.y = y
         self.env = env
         self._cache: dict = {}
+        #: the iteration salt of the loop step this evaluation is in (an int
+        #: below 2^32; None outside loops): every iteration draws afresh
+        self.salt_extra = salt_extra
 
     # ------------------------------------------------------------------
     # small helpers
@@ -121,6 +134,22 @@ class Evaluator:
     def grid(self, arr):
         """Broadcast a component to the full (H, W) grid."""
         return torch.broadcast_to(arr, self.ctx.shape)
+
+    def rand_uniform(self):
+        """One draw in [0, 1) per pixel: the context's next counter, salted
+        with the loop iteration this evaluation is in."""
+        ctx = self.ctx
+        ctx.rand_counter += 1
+        index = rand_index(ctx.shape, ctx.width, ctx.row_offset, ctx.col_offset, ctx.device)
+        return rand_uniform(index, draw_salt(ctx.opts.seed, ctx.rand_counter), self.salt_extra)
+
+    def _mix_salt(self, loop_i):
+        """The salt of iteration `loop_i` of a loop evaluated here: the
+        iteration number, mixed with the enclosing loop's salt when this
+        evaluation is itself inside a loop."""
+        if self.salt_extra is None:
+            return loop_i
+        return mix_salt(self.salt_extra, loop_i)
 
     def _truthy_mask(self, v: TupleValue, span):
         if v.is_opaque or v.length != 1:
@@ -394,6 +423,11 @@ class Evaluator:
         const-folds, the generated kernel B3 for an eligible loop (its plain
         version on the CPU), or the masked eager loop."""
         names = sorted(A.assigned_names(node.body) | A.assigned_names(node.cond))
+        # rand(): the unroll and the kernel fix a step's counters when they
+        # evaluate or trace it, the masked loop draws step by step; so every
+        # step restarts from one counter and its iteration number salts the
+        # draws. The probe's draws are discarded with its results.
+        counter_entry, nonce_entry = self.ctx.rand_counter, self.ctx.rand_loop_nonce
         # probe: evaluate cond + body once on a scratch env for each carried
         # variable's final length and tag (the results are discarded)
         probe_env = dict(self.env)
@@ -413,6 +447,7 @@ class Evaluator:
             else:
                 probe.eval(node.cond)
                 probe.eval(node.body)
+        self.ctx.rand_counter, self.ctx.rand_loop_nonce = counter_entry, nonce_entry
 
         shape = self.ctx.shape
 
@@ -524,12 +559,13 @@ class Evaluator:
         def locate(tile):
             return tile or (self.ctx, self.x, self.y, None, Evaluator)
 
-        def eval_cond(flat, mask, tile=None, consts=None):
-            """Evaluate the condition on the carried env; its assignments
-            persist for the pixels that evaluated it (those in `mask`)."""
+        def eval_cond(flat, mask, salt, tile=None, consts=None):
+            """Evaluate the condition on the carried env, drawing with the
+            iteration salt `salt`; its assignments persist for the pixels
+            that evaluated it (those in `mask`)."""
             ctx, x, y, base_env, make_ev = locate(tile)
             env = unpack(flat, base_env, consts=consts)
-            ev = make_ev(ctx, x, y, env)
+            ev = make_ev(ctx, x, y, env, salt)
             cond_tv = ev.eval(node.cond)
             cond_mask = ev._truthy_mask(cond_tv, node.span)
             c = cond_tv.const
@@ -537,17 +573,20 @@ class Evaluator:
             carry_consts[0] = pack_const(env) if consts is not None else None
             return repack(env, flat, mask, ctx.shape), cond_mask
 
-        def step(flat, mask, tile=None, consts=None):
-            """One iteration under `mask` -> (new flat, next mask). mask=None
-            steps every pixel and returns the condition unmerged. `tile` =
-            (ctx, x, y, base_env, make_evaluator) evaluates the step there:
-            kernels/while_loop.py traces it on symbolic scalars."""
+        def step(flat, mask, loop_i, tile=None, consts=None):
+            """Iteration `loop_i` (counted from 1) under `mask` -> (new flat,
+            next mask). mask=None steps every pixel and returns the
+            condition unmerged. `tile` = (ctx, x, y, base_env,
+            make_evaluator) evaluates the step there: kernels/while_loop.py
+            traces it on symbolic scalars."""
             ctx, x, y, base_env, make_ev = locate(tile)
+            ctx.rand_counter, ctx.rand_loop_nonce = rand_base, nonce_loop
+            salt = self._mix_salt(loop_i)
             env = unpack(flat, base_env, consts=consts)
-            make_ev(ctx, x, y, env).eval(node.body)
+            make_ev(ctx, x, y, env, salt).eval(node.body)
             new_flat = repack(env, flat, mask, ctx.shape)
             new_flat, cond_mask = eval_cond(
-                new_flat, mask, tile=tile,
+                new_flat, mask, salt, tile=tile,
                 consts=pack_const(env) if consts is not None else None)
             return new_flat, (cond_mask if mask is None else mask & cond_mask)
 
@@ -557,24 +596,45 @@ class Evaluator:
             # do-while: run the body once for every pixel first; its result
             # carries no constants
             env = unpack(flat0)
-            Evaluator(self.ctx, self.x, self.y, env).eval(node.body)
+            Evaluator(self.ctx, self.x, self.y, env, self.salt_extra).eval(node.body)
             flat0 = repack(env, flat0, None, shape)
             consts0 = tuple(None for _ in consts0)
-        flat0, mask0 = eval_cond(flat0, None, consts=consts0)
+        flat0, mask0 = eval_cond(flat0, None, self.salt_extra, consts=consts0)
         cond0 = cond_const[0]
         consts0 = carry_consts[0]
         mask0 = torch.broadcast_to(mask0, shape)
+        # every step starts from these counters (step() resets them)
+        counter_loop, nonce = self.ctx.rand_counter, self.ctx.rand_loop_nonce
+        nonce_loop = nonce + 1
+        rand_base = counter_loop + nonce * 1000003
+        self.ctx.rand_loop_nonce = nonce_loop
+
+        def finish(flat, consts=None):
+            """Bind the loop's results. The steps a route ran depend on the
+            data, so the counters go back to their state after the first
+            condition: a draw after the loop is the same on every route, and
+            a sibling loop starts from the next nonce."""
+            self.ctx.rand_counter, self.ctx.rand_loop_nonce = counter_loop, nonce_loop
+            final_env = unpack(flat, consts=consts)
+            for n in carried:
+                self.env[n] = final_env[n]
+            return TupleValue(NIL, (self.lit(0.0),))
 
         opts = self.ctx.opts
         max_iters = int(opts.max_loop_iters)
         loop = None
-        if opts.pallas_while != "off" and WL.eligible(node, self.env, self.ctx.filters):
+        # a loop inside another loop's step draws with its enclosing salt,
+        # which the kernel does not take: it never goes to the kernel, as in
+        # the reference
+        if (opts.pallas_while != "off" and self.salt_extra is None
+                and WL.eligible(node, self.env, self.ctx.filters)):
             deps = WL.dependencies(node, init_env, carried, shape)
             if deps is not None:
                 spec = (tuple((n, lengths[n], tags[n]) for n in carried),
                         tuple((n, tv.tag, len(tv.arrays)) for n, tv in deps))
                 loop = WL.Loop(step=step, deps=deps, x=self.x, y=self.y, ctx=self.ctx,
-                               unroll=opts.while_unroll, node=node, spec=spec)
+                               unroll=opts.while_unroll, node=node, spec=spec,
+                               rand_base=rand_base)
 
         # static-trip-count unroll: while the condition folds to a constant,
         # step every pixel (no masks, no convergence checks). 'on' forces
@@ -585,34 +645,30 @@ class Evaluator:
             flat_u, consts_u, active = flat0, consts0, cond0
             with self._in_loop():
                 while active and n_done < max_iters and n_done < opts.while_static_unroll:
-                    flat_u, mask_u = step(flat_u, None, consts=consts_u)
+                    flat_u, mask_u = step(flat_u, None, n_done + 1, consts=consts_u)
                     consts_u = carry_consts[0]
                     n_done += 1
                     active = cond_const[0]
             if active is False or (active and n_done >= max_iters):
                 TRACE_LOOP_PATHS.append(("unroll", n_done))
-                final_env = unpack(flat_u, consts=consts_u)
-                for n in carried:
-                    self.env[n] = final_env[n]
-                return TupleValue(NIL, (self.lit(0.0),))
+                return finish(flat_u, consts_u)
             # the condition stopped folding (or the budget ran out) after
             # n_done steps that every pixel took: go on from there with the
-            # last condition as the mask, instead of discarding those steps
+            # last condition as the mask, instead of discarding those steps;
+            # the next iteration is number n_done + 1, as in the reference
             flat0 = flat_u
             mask0 = torch.broadcast_to(mask_u, shape)
 
         with self._in_loop():
             if loop is not None:
+                loop.it_base = n_done
                 flat_out = loop_kernel(loop, flat0, mask0, max_iters - n_done)
                 TRACE_LOOP_PATHS.append(("kernel", max_iters))
             else:
                 flat_out, steps = WL.while_loop_reference(
-                    step, flat0, mask0, max_iters - n_done, opts.while_unroll)
+                    step, flat0, mask0, max_iters - n_done, opts.while_unroll, n_done)
                 TRACE_LOOP_PATHS.append(("masked", n_done + steps))
-        final_env = unpack(flat_out)
-        for n in carried:
-            self.env[n] = final_env[n]
-        return TupleValue(NIL, (self.lit(0.0),))
+        return finish(flat_out)
 
     # ------------------------------------------------------------------
     # calls / application
@@ -670,7 +726,8 @@ class Evaluator:
                 fdef.span,
             )
         env = bind_params(self.ctx, fdef, args)
-        ev = Evaluator(self.ctx, x, y, env)
+        # an inlined filter draws with the caller's iteration salt
+        ev = Evaluator(self.ctx, x, y, env, self.salt_extra)
         self.ctx.inline_depth += 1
         try:
             out = ev.eval(fdef.body)

@@ -2,7 +2,8 @@
 generated while loop, B4 tiled sampler) against their plain PyTorch
 versions, and renders on the GPU (unsharded, tiled and sharded over a mesh
 of the one card) against the port's CPU renders and the unsharded card
-render.
+render; rand()'s hash and Perlin noise on the card against the CPU, bit for
+bit, and B3 loops that draw.
 
 They carry the `cuda` marker and skip without a GPU. This file imports only
 torch, numpy and the port, so it also runs on a GPU machine without jax:
@@ -194,7 +195,8 @@ def test_cuda_loop_kernel_matches_the_eager_loop(cuda, name):
     f = mt.compile_file(os.path.join(ROOT, "filters", "Render", f"{name}.mm"))
     before = WL.while_loop.launches
     (loop, flat0, mask0, max_iters, got), = _loop_calls(f, width=W, height=H, device=cuda)
-    want, _ = WL.while_loop_reference(loop.step, flat0, mask0, max_iters, loop.unroll)
+    want, _ = WL.while_loop_reference(loop.step, flat0, mask0, max_iters, loop.unroll,
+                                      loop.it_base)
     torch.cuda.synchronize()
     assert WL.while_loop.launches == before + 1
     for a, b in zip(got, want):
@@ -240,6 +242,7 @@ GENERATOR_BODIES = {
     "toxy": "w = toXY(ra:[p + 1, q]); v = w[0] * w[1]",
     "scale": "w = scale(c, 0.5); v = w[0] + scale(p, -1, 1, 0, 10)",
     "internals": "v = r / R + a + t + X / W + Y / H + pi + e + I[1] + frame",
+    "rand": "v = rand(p, q) + rand(-1, 1) * p",
     "dynamic_index": "k = [p, q, 0.5]; j = floor(abs(q) * 3); v = k[j]; k[j] = 1; v = v + k[1]",
     "if": "if p > q then v = p * 2 else v = q - 1 end",
     "tuples": ("k = clamp(c * 2 - [0.1, 0.2, 0.3, 0.4], 0, 1) + min(c, 0.5) + max(c, q);"
@@ -266,7 +269,8 @@ def test_cuda_generated_kernel_matches_the_eager_loop(cuda, name):
     f = mt.compile_source(generator_source(GENERATOR_BODIES[name]))
     (loop, flat0, mask0, max_iters, got), = _loop_calls(
         f, width=W, height=H, t=0.3, frame=2.0, device=cuda)
-    want, _ = WL.while_loop_reference(loop.step, flat0, mask0, max_iters, loop.unroll)
+    want, _ = WL.while_loop_reference(loop.step, flat0, mask0, max_iters, loop.unroll,
+                                      loop.it_base)
     torch.cuda.synchronize()
     for a, b in zip(got, want):
         torch.testing.assert_close(a, b, rtol=RTOL, atol=ATOL, equal_nan=True)
@@ -360,3 +364,72 @@ def test_cuda_tiled_and_sharded_renders_across_every_card(cuda):
     want = mandelbrot.render(width=64, height=16 * n, device=first)
     got = mandelbrot.render_sharded(width=64, height=16 * n, mesh=mt.make_mesh())
     torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+
+
+RAND_WALK = ("filter rand_walk () s = 0; i = 0;"
+             "  while s < 1 && i < 64 do s = s + rand(0, 0.1) * (1 + x / W); i = i + 1 end;"
+             "  grayColor(i / 64) end")
+
+
+@pytest.mark.parametrize("fields", [{}, dict(while_static_unroll=0, seed=5)],
+                         ids=["after_the_unroll", "from_iteration_1"])
+def test_cuda_rand_loop_kernel_matches_the_eager_loop(cuda, fields):
+    """rand() in a generated loop: mm_rand hashes like the eager ops, so the
+    carried grids are identical, iterations numbered after the unroll's."""
+    f = mt.compile_source(RAND_WALK)
+    (loop, flat0, mask0, max_iters, got), = _loop_calls(
+        f, width=W, height=H, options=mt.RenderOptions(**fields), device=cuda)
+    assert loop.it_base == (0 if fields else 1)
+    want, _ = WL.while_loop_reference(loop.step, flat0, mask0, max_iters, loop.unroll,
+                                      loop.it_base)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    cpu = f.render(width=W, height=H, options=mt.RenderOptions(**fields), device="cpu")
+    assert torch.equal(f.render(width=W, height=H, options=mt.RenderOptions(**fields),
+                                device=cuda).cpu(), cpu)
+
+
+def test_cuda_rand_loop_tiles_draw_by_the_global_index(cuda):
+    """render_sharded on a (1,2,2) mesh of the card: one B3 launch a tile,
+    each with its tile's offsets, the unsharded render's pixels."""
+    f = mt.compile_source(RAND_WALK)
+    want = f.render(width=64, height=48, device=cuda)
+    before = WL.while_loop.launches
+    got = f.render_sharded(width=64, height=48, mesh=mt.make_mesh(1, 2, 2, devices=[cuda] * 4))
+    torch.cuda.synchronize()
+    assert WL.while_loop.launches == before + 4
+    assert torch.equal(got, want)
+
+
+def test_cuda_hash_and_noise_equal_the_cpu(cuda):
+    from mathmap_tpu_torch.ops import noise as N
+    from mathmap_tpu_torch.ops import rand as RND
+
+    for salt, extra in ((RND.draw_salt(3, 7), None), (0xFFFFFFFF, 0xFFFFFFFF)):
+        got = RND.rand_uniform(RND.rand_index((40, 52), 100, 8, 30, cuda), salt, extra)
+        want = RND.rand_uniform(RND.rand_index((40, 52), 100, 8, 30, "cpu"), salt, extra)
+        assert torch.equal(got.cpu(), want)
+    rs = np.random.RandomState(4)
+    pts = np.concatenate([rs.uniform(-300, 300, (3, 5000)),
+                          rs.uniform(2**24, 2**40, (3, 500)),
+                          [[np.nan, np.inf, -np.inf, 3e9], [0.5, 0.5, 0.5, 0.5],
+                           [0.25, 0.25, 0.25, 0.25]]], axis=1).astype(np.float32)
+    want = N.perlin3(*(torch.from_numpy(a) for a in pts))
+    got = N.perlin3(*(torch.from_numpy(a).to(cuda) for a in pts)).cpu()
+    assert torch.equal(got.isnan(), want.isnan())
+    assert torch.equal(got[~want.isnan()], want[~want.isnan()])
+
+
+@pytest.mark.parametrize("name", ["static_tv", "dissolve", "turbulence", "voronoi"])
+def test_cuda_stochastic_render_matches_the_cpu(cuda, name):
+    folder = {"static_tv": "Noise", "dissolve": "Combine", "turbulence": "Noise",
+              "voronoi": "Render"}[name]
+    f = mt.compile_file(os.path.join(ROOT, "filters", folder, f"{name}.mm"))
+    n = sum(1 for p in f.fdef.params if p.kind == "image")
+    imgs = [_smooth_image(64, 48)] * n
+    got = f.render(*imgs, width=64, height=48, t=0.3, device=cuda)
+    want = f.render(*imgs, width=64, height=48, t=0.3, device="cpu")
+    if name in ("static_tv", "dissolve"):
+        assert torch.equal(got.cpu(), want)
+    torch.testing.assert_close(got.cpu(), want, rtol=RTOL, atol=ATOL)

@@ -66,6 +66,8 @@ CASES = [
     ("green", (RGBA,)), ("blue", (RGBA,)), ("alpha", (RGBA,)),
     ("gray", (RGBA,)), ("toHSVA", (RGBA,)), ("toHSVA", (("rgba", 4, 0, 1, "q"),)),
     ("toRGBA", (HSVA,)), ("toRA", (XY,)), ("toXY", (RA,)),
+    ("rand", (S, S)), ("rand", (U, U)), ("noise", (V3,)), ("noise", (U, U, S)),
+    ("noise", (("nil", 3, -300.0, 300.0),)),
 ]
 
 

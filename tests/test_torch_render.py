@@ -2,9 +2,11 @@
 pond) and the generative slice (mandelbrot, the escape-time fractals and
 the other entries that curves, gradients and loops unblock) against the
 reference's NumPy oracle (`interpret=True`, rtol=1e-4, atol=1e-5); the
-8-bit goldens of every library .mm entry the port renders, bit for bit;
-and every entry or feature the port does not have yet raising
-NotImplementedError with its ROADMAP item."""
+8-bit goldens of every library .mm entry the port renders, bit for bit
+(the rand() and noise entries among them; tests/test_torch_rand.py and
+test_torch_noise.py hold those against the oracle at 64x48); and every
+entry or feature the port does not have yet raising NotImplementedError
+with its ROADMAP item."""
 
 import hashlib
 import json
@@ -134,11 +136,6 @@ LIBRARY = _library()
 #: library entries the port cannot render yet, with the ROADMAP item each
 #: one's NotImplementedError names
 NOT_RENDERED = {
-    **dict.fromkeys(("camo", "caustics", "clouds", "dissolve", "film_grain",
-                     "hex_grid", "jitter", "lava", "marble", "night_vision",
-                     "ridged_noise", "rust", "sparkle", "stars", "static_tv",
-                     "truchet", "turbulence", "voronoi", "warp_noise", "wood"),
-                    "ROADMAP A3"),
     **dict.fromkeys(("affine", "elliptic_rings", "gamma_spiral", "quat_julia",
                      "rotate"), "ROADMAP A7"),
     "sharpen": "ROADMAP A2",
@@ -241,10 +238,6 @@ def test_unknown_param_name_raises():
 
 
 NOT_PORTED = {
-    # loops are ported; rand() in a loop (its counter and salt) is not
-    "while": ("v = 0; while v < 3 do v = v + rand(0, 1) end; grayColor(v / 3)", {}, "ROADMAP A3"),
-    "rand": ("grayColor(rand(0, 1))", {}, "ROADMAP A3"),
-    "noise": ("grayColor(noise([x, y, 0]))", {}, "ROADMAP A3"),
     "quaternion": ("q = quat:[1, 2, 3, 4] * quat:[1, 0, 0, 0]; rgbaColor(q[0], q[1], q[2], 1)",
                    {}, "ROADMAP A7"),
 }

@@ -112,11 +112,8 @@ def _library():
 LIBRARY = _library()
 SWEEP_SIZE = 128
 #: the library entries the port does not render yet (tests/test_torch_render.py)
-NOT_RENDERED = {"camo", "caustics", "clouds", "dissolve", "film_grain", "hex_grid",
-                "jitter", "lava", "marble", "night_vision", "ridged_noise", "rust",
-                "sparkle", "stars", "static_tv", "truchet", "turbulence", "voronoi",
-                "warp_noise", "wood", "affine", "elliptic_rings", "gamma_spiral",
-                "quat_julia", "rotate", "sharpen"}
+NOT_RENDERED = {"affine", "elliptic_rings", "gamma_spiral", "quat_julia", "rotate",
+                "sharpen"}
 
 
 def _library_filter(name):

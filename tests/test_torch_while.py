@@ -23,6 +23,7 @@ import torch
 import mathmap_tpu as mm
 import mathmap_tpu_torch as mt
 from mathmap_tpu_torch.kernels import while_loop as WL
+from mathmap_tpu_torch.ops.rand import rand_index
 from mathmap_tpu_torch.runtime import tracer
 from test_torch_cuda import GENERATOR_BODIES, generator_source
 
@@ -120,11 +121,15 @@ def test_mandelbrot_body_equals_the_jax_engine_in_interpret_mode():
 
 
 def test_rand_in_a_loop_is_not_ported():
+    """Once refused (ROADMAP A3): a loop that draws now takes the kernel
+    route and draws what the oracle draws, step by step
+    (tests/test_torch_rand.py holds every route)."""
     src = ("s = 0; i = 0;"
            "while i + x * 0 < 6 do s = s + rand(0, 1); i = i + 1 end;"
            "grayColor(s / 6)")
-    with pytest.raises(NotImplementedError, match="ROADMAP A3"):
-        mt.compile_source(src).render(_zeros(13, 100), device="cpu")
+    got, ref = _both(src, 13, 100)
+    np.testing.assert_array_equal(got, ref)
+    assert _routes(mt.compile_source(src), _zeros(13, 100)) == ["kernel"]
 
 
 # ----------------------------------------------------------------------
@@ -266,11 +271,14 @@ def _interpret_loop(prog, loop, flat0, mask0, max_iters):
     values.update({k: torch.tensor(WL.scalar_internal(loop.ctx, k[1]), dtype=torch.float32)
                    for k in prog.scalar_inputs})
     flat, mask = flat0, mask0
-    for _ in range(max_iters):
+    ctx = loop.ctx
+    index = rand_index(ctx.shape, ctx.width, ctx.row_offset, ctx.col_offset, ctx.device)
+    for it in range(max_iters):
         if not bool(mask.any()):
             break
         values.update({("carry", k): a for k, a in enumerate(flat)})
-        outs, cond = WL.run_program(prog, values, "cpu")
+        outs, cond = WL.run_program(prog, values, "cpu",
+                                    rand=(index, loop.rand_salt, loop.it_base + it + 1))
         flat = tuple(torch.where(mask, o, a) for o, a in zip(outs, flat))
         mask = mask & cond
     return flat
@@ -285,7 +293,8 @@ def _check_generated(f, *inputs, **kw):
     assert calls, "no loop reached the kernel route"
     for loop, flat0, mask0, max_iters in calls:
         prog = WL.trace(loop, len(flat0))
-        want, _ = WL.while_loop_reference(loop.step, flat0, mask0, max_iters, loop.unroll)
+        want, _ = WL.while_loop_reference(loop.step, flat0, mask0, max_iters, loop.unroll,
+                                          loop.it_base)
         got = _interpret_loop(prog, loop, flat0, mask0, max_iters)
         assert all(_same(g, w) for g, w in zip(got, want))
         assert "while_loop_kernel" in WL.emit_cuda(prog, loop.origin)
