@@ -16,8 +16,13 @@ Three parts, each printing one line per case (the first two by default):
    render_tiled on a (1,4,1) mesh of the card (and at 4K a (1,2,2) one)
    and through render_sharded on (1,4,1); at 4K also render_tiled on the
    default mesh, every visible card on the rows (on a host of several
-   cards, the kernel and busy times are sums over the cards). The median of 20 fenced renders
-   (as chip_smoke.py times them), then torch.profiler over 5 renders:
+   cards, the kernel and busy times are sums over the cards); BASELINE
+   config 4's frames (ripple at 1080p, supersample=2 as
+   benchmarks/run_configs.py renders "4x AA", through render_animation, 8
+   frames a call) and chip_smoke's param batch (8 mandelbrot jobs at 4K
+   through render_batch), per frame or job. The
+   median of 20 fenced renders (5 calls of a sweep or batch, as
+   chip_smoke.py times them), then torch.profiler over 5 renders (calls):
    device kernels per render, device busy ms per render and its share of
    the median, split into the channel stack (the cat kernel of
    render_frame's torch.stack, and of the tiled renders' halo exchange and
@@ -48,11 +53,15 @@ from pathlib import Path
 
 import torch
 
-from chip_smoke import (FILTERS, RAND_WALK, ROOT, SIZES, card_line, fenced_median_ms,
-                        phase_tiled_timings, seeded_image, smooth_image, time_b1,
-                        time_b1_fields)
+from chip_smoke import (ANIMATION_SUPERSAMPLE, BATCH_JOBS, FILTERS, RAND_WALK, ROOT, SIZES,
+                        batch_params, card_line, fenced_median_ms, phase_tiled_timings,
+                        seeded_image, smooth_image, time_b1, time_b1_fields)
 
 PROFILED_RENDERS = 5
+#: frames a profiled render_animation call renders, and the timed calls of
+#: a multi-frame case
+ANIMATION_CALL = 8
+TIMED_CALLS = 5
 
 
 #: kernel-name fragment -> class
@@ -61,9 +70,10 @@ KERNEL_CLASSES = (("sample_image_kernel", "B1"), ("apply_lut_kernel", "B2"),
                   ("CatArrayBatchedCopy", "stack"))
 
 
-def profile_render(render):
+def profile_render(render, per: int = 1):
     """Per-render device time by kernel class, from torch.profiler;
-    `render()` renders one frame."""
+    `render()` renders `per` frames (or batch jobs), and the numbers are
+    per frame."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -90,7 +100,7 @@ def profile_render(render):
             us[cls] += dur
         elif e.name == "cudaStreamSynchronize":
             syncs += 1
-    n = PROFILED_RENDERS
+    n = PROFILED_RENDERS * per
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:3]
     return ({k: v / n / 1e3 for k, v in us.items()}, kernels / n, copies / n,
             syncs / n, [(k[:70], v / n / 1e3) for k, v in top])
@@ -109,11 +119,20 @@ def part_profile(mt, filters, mandelbrot, stochastic, eager_loop, dev, card):
     def mesh(*shape):
         return mt.make_mesh(*shape, devices=[dev] * (shape[1] * shape[2]))
 
+    aa = mt.RenderOptions(supersample=ANIMATION_SUPERSAMPLE)
+    batch = batch_params()
+
     for (w, h) in SIZES:
         _, u8 = seeded_image(w, h, seed=4)
         img = torch.from_numpy(u8).to(dev)
         cases = [(name, lambda f=filters[name]: f.render(img, device=dev))
                  for name in FILTERS]
+        if (w, h) == SIZES[0]:
+            cases.append((f"ripple animation supersample={ANIMATION_SUPERSAMPLE}, per frame "
+                          f"of {ANIMATION_CALL}",
+                          lambda: filters["ripple"].render_animation(
+                              img, num_frames=ANIMATION_CALL, options=aa, device=dev),
+                          ANIMATION_CALL))
         cases.append(("mandelbrot", lambda: mandelbrot.render(width=w, height=h,
                                                               device=dev)))
         cases.append(("mandelbrot, eager loop", lambda: mandelbrot.render(
@@ -121,6 +140,10 @@ def part_profile(mt, filters, mandelbrot, stochastic, eager_loop, dev, card):
         pond = filters["pond"]
         cases.append(("pond tiled (1,4,1)", lambda: pond.render_tiled(img, mesh=mesh(1, 4, 1))))
         if (w, h) == SIZES[1]:
+            cases.append((f"mandelbrot batch, per job of {BATCH_JOBS}",
+                          lambda: mandelbrot.render_batch(width=w, height=h, params=batch,
+                                                          frames=[0.0] * BATCH_JOBS,
+                                                          device=dev), BATCH_JOBS))
             cases += [(name, lambda f=stochastic[name]: f.render(width=w, height=h, device=dev))
                       for name in ("turbulence", "voronoi", "rand_walk")]
             cases.append(("static_tv", lambda: stochastic["static_tv"].render(img, device=dev)))
@@ -131,9 +154,10 @@ def part_profile(mt, filters, mandelbrot, stochastic, eager_loop, dev, card):
             cards = torch.cuda.device_count()
             cases.append((f"pond tiled, make_mesh() over {cards} card(s)",
                           lambda: pond.render_tiled(img, mesh=mt.make_mesh())))
-        for name, render in cases:
-            median = fenced_median_ms(render)
-            ms, kernels, copies, syncs, top = profile_render(render)
+        for name, render, *per in cases:
+            per = per[0] if per else 1
+            median = fenced_median_ms(render, n=TIMED_CALLS if per > 1 else 20) / per
+            ms, kernels, copies, syncs, top = profile_render(render, per)
             busy = sum(ms.values())
             print(f"profile {name} {w}x{h}: median {median:.3f} ms/frame, "
                   f"{kernels:g} kernels, device busy {busy:.4f} ms "
@@ -218,7 +242,7 @@ def main(argv) -> int:
         part_kernels(mt, dev, card)
         return 0
     filters = {n: mt.compile_file(str(ROOT / "filters" / "Distorts" / f"{n}.mm"))
-               for n in FILTERS}
+               for n in FILTERS + ("ripple",)}
     mandelbrot = mt.compile_file(str(ROOT / "filters" / "Render" / "mandelbrot.mm"))
     stochastic = {n: mt.compile_file(str(ROOT / "filters" / folder / f"{n}.mm"))
                   for n, folder in (("turbulence", "Noise"), ("voronoi", "Render"),

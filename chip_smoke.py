@@ -79,7 +79,43 @@ Phases, each printing its own lines:
    render_tiled and render_sharded, and rand_walk through render_sharded,
    on (1,4,1) and (1,2,2) meshes of the card against the unsharded card
    render; last, the median 4K render times and B3 alone on rand_walk's
-   loop against the eager loop, with its bound.
+   loop against the eager loop, with its bound;
+12. batch path at 3840x2160 through Filter.render_batch: 8 mandelbrot
+   jobs with a list of param dicts (zoom 1 to 3 on the main cardioid's
+   boundary, frames 0), one B3 and one B2 launch a job and no new build
+   of the loop; twirl over one shared() u8 image at 8 angles with uint8
+   output, one B1 launch a job; BASELINE config 5's traffic
+   (benchmarks/run_configs.py, config 5): default mandelbrot and moire as
+   an 8-frame t-sweep at t = (i + 0.37)/8, one B3 and one B2 launch a
+   mandelbrot frame, none a moire frame; every job equal to its lone card
+   render bit for bit;
+13. animation path (BASELINE config 4, benchmarks/run_configs.py: "4x AA"
+   is RenderOptions(supersample=2), a 2x2 grid of subsamples a pixel):
+   ripple at 1920x1080 through Filter.render_animation(num_frames=120),
+   one B1 launch a subsample of every frame; frames 0, 37 and 119 equal to
+   render(t=..., frame=...) bit for bit, frame 37 against the CPU port,
+   render_frames yielding the same frames;
+14. animated inputs: an 8-frame 1080p u8 stack on the card; origVal(xy)
+   returns each frame exactly, origValXY(x, y, 3) samples frame 3's view
+   through B1 (held against its plain version); a warped per-pixel frame
+   plane goes through the gather route (no kernel; no B1 launch) and is
+   held against B1 on each frame it selects, chosen per pixel, and against
+   the CPU render; NaN, ±inf, ±3e9 select the oracle's frame (0) on every
+   route;
+15. the mesh's frame axis: render_sharded(num_frames=4) of ripple over a
+   4-frame stack on (4,1,1) and (2,2,1) meshes of the card against the
+   lone renders, and the stack through render_tiled on (1,4,1), one B4
+   launch a tile and frame, B4 on an animated block against its plain
+   version.
+
+Every main path (phases 5, 6, 8, 9, 11-15) runs with the four launch
+counts set to 0 just before it and read just after; the kernels line
+gives each kernel's launches by path. Then the timings: phase 10's and
+11's, B3's bound (this run's pixel iterations x the distinct ops of an
+iteration, integer ops at half rate, over the single-op issue rate SMs x
+128 lanes x clocks.max.sm, with the loop's SASS instruction count beside
+it), and the batches' ms a job and the animation's ms a frame beside their
+lone renders.
 
 Kernel times are CUDA events around a run of launches that the card starts
 only after a sleep kernel, so the host has enqueued the run by then and the
@@ -94,6 +130,7 @@ exits non-zero before printing any result. It imports no JAX.
 from __future__ import annotations
 
 import json
+import re
 import shutil
 import statistics
 import subprocess
@@ -156,9 +193,13 @@ BIT_EXACT = ("static_tv", "film_grain", "sparkle", "dissolve", "rand_walk")
 REDUCED = (480, 270)
 LUT_SIZES = (2, 256, 5000)
 LUT_RTOL, LUT_ATOL = 1e-5, 1e-6
-#: H100 SXM peaks (NVIDIA's data sheet): HBM3 bytes/s, fp32 (non-tensor) op/s
+#: H100 SXM peaks (NVIDIA's data sheet): HBM3 bytes/s, fp32 (non-tensor)
+#: op/s with an FMA counted as 2 (B1's operations bound)
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+#: FP32 lanes an SM (4 schedulers, each issuing one 32-lane warp
+#: instruction a clock): single ops (FADD, FMUL, a compare) an SM a clock
+LANES_PER_SM = 128
 #: clock cycles of the sleep before a timed run (~25 ms at 2 GHz): longer
 #: than the host takes to queue one, so the events time back-to-back device
 #: work (without it a 0.05 ms kernel times the host's launch rate)
@@ -271,12 +312,25 @@ def check_close(name, got, want, rtol=RTOL, atol=ATOL) -> float:
     return float(err.max())
 
 
-def bound_ms(n_bytes: float, n_ops: float = 0.0):
+def bound_ms(n_bytes: float, n_ops: float = 0.0, op_rate: float = FP32_OPS_PER_S):
     """The least time the card could take: the larger of the bytes over
-    the HBM rate and the operations over the fp32 rate -> (ms, bound_by)."""
+    the HBM rate and the operations over `op_rate` (default the fp32 rate,
+    an FMA counted as 2) -> (ms, bound_by)."""
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / FP32_OPS_PER_S * 1e3
+    t_ops = n_ops / op_rate * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def single_op_rate() -> tuple:
+    """The card's issue rate of single (not fused) 32-bit operations: SMs
+    x LANES_PER_SM x the SM clock's maximum (nvidia-smi clocks.max.sm) ->
+    (op/s, SMs, MHz). INT32 ops issue to a pipe of half that width."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60)
+    mhz = float(out.stdout.strip().splitlines()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return sms * LANES_PER_SM * mhz * 1e6, sms, mhz
 
 
 class LoopCapture:
@@ -831,13 +885,75 @@ def phase_generative_path(mt, L, WL, dev, filters):
     return counts
 
 
-def time_b3(WL, tracer, render, label: str, card):
+def loop_sass(WL, build, prog, loop) -> str:
+    """The loop's machine code in the generated library: the SASS
+    instructions from the loop's label to its back branch (cuobjdump
+    -sass; the longest backward branch of while_loop_kernel), the branches
+    out of it and its most frequent opcodes. One pass from the label to
+    the back branch is one iteration unless nvcc unrolled the loop, which
+    the exits show (one exit test an iteration)."""
+    lib = build.generated_library(WL.emit_cuda(prog, loop.origin))
+    tool = shutil.which("cuobjdump") or str(Path(build._nvcc()).parent / "cuobjdump")
+    try:
+        dump = subprocess.run([tool, "-sass", str(lib.path)], capture_output=True, text=True,
+                              timeout=120, check=True).stdout
+    except (OSError, subprocess.SubprocessError) as e:
+        return f"SASS not read: {e}"
+    instrs, labels, inside = [], {}, False
+    pending = []
+    for line in dump.splitlines():
+        if "Function :" in line:
+            inside = "while_loop_kernel" in line
+            continue
+        if not inside:
+            continue
+        label = re.match(r"\s*(\.L_x_\d+):", line)
+        if label:
+            pending.append(label.group(1))
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]+)\*/\s+(.*?)\s*;", line)
+        if m:
+            addr = int(m.group(1), 16)
+            for name in pending:
+                labels[name] = addr
+            pending = []
+            instrs.append((addr, m.group(2)))
+
+    def target(text):
+        m = re.search(r"\bBRA\b.*?(?:`\((\.L_x_\d+)\)|(0x[0-9a-f]+))", text)
+        if not m:
+            return None
+        return labels.get(m.group(1)) if m.group(1) else int(m.group(2), 16)
+
+    back = [(target(t), a) for a, t in instrs if target(t) is not None and target(t) <= a]
+    if not back:
+        return f"SASS: no backward branch among {len(instrs)} instructions"
+    lo, hi = max(back, key=lambda b: b[1] - b[0])
+    body = [t for a, t in instrs if lo <= a <= hi]
+    exits = sum(1 for t in body if "EXIT" in t or (
+        target(t) is not None and not lo <= target(t) <= hi))
+    ops = {}
+    for t in body:
+        op = t.split()[1] if t.startswith("@") else t.split()[0]
+        ops[op.split(".")[0]] = ops.get(op.split(".")[0], 0) + 1
+    top = ", ".join(f"{k} {v}" for k, v in sorted(ops.items(), key=lambda kv: -kv[1])[:8])
+    return (f"SASS: {len(body)} instructions from the loop's label to its back branch, "
+            f"{exits} branches out of it; {top}")
+
+
+def time_b3(WL, build, tracer, render, label: str, card, rate: float, sass: dict):
     """B3 alone on the loop that `render()` launches: kernel and eager loop
-    in turns on the captured inputs, identical outputs, and the bound
-    (operations: this run's pixel iterations x ops each, a rand() draw
-    counted as its hash's integer ops; bytes: the carried and dependency
+    in turns on the captured inputs, identical outputs, and the bound.
+    Operations: this run's pixel iterations x the issue slots of one, at
+    `rate` single ops a second (the generated bodies are built with
+    --fmad=false, so every op is one FADD, FMUL, compare or integer
+    instruction): an iteration takes the larger of its distinct ops
+    (Program.n_distinct_ops, a rand() draw counted as its hash's
+    RAND_OPS) and twice its integer ops (a draw's RAND_INT_OPS, which issue
+    to the INT32 pipe, half as wide). Bytes: the carried and dependency
     grids read once, a broadcast one by its distinct values, and the
-    outputs written once). Prints one line, returns the record."""
+    outputs written once. Prints the loop's SASS once per loop (`sass`
+    remembers them) and one line; returns the record."""
     with LoopCapture(tracer) as cap:
         render()
     loop, flat0, mask0, max_iters, got = cap.one(label)
@@ -858,25 +974,35 @@ def time_b3(WL, tracer, render, label: str, card):
             n_bytes += 4 * (a.shape[0] if a.stride(0) else 1) * (a.shape[1] if a.stride(1) else 1)
         else:
             n_bytes += 4
-    n_ops = iters * prog.n_compute_ops()
-    bound, by = bound_ms(n_bytes, n_ops)
-    same = all(torch.equal(a, b) for a, b in zip(WL.while_loop(loop, flat0, mask0, max_iters), want))
     n_rand = sum(op == "rand" for op, _, _ in prog.ops)
+    distinct, n_int = prog.n_distinct_ops(), n_rand * WL.RAND_INT_OPS
+    slots = max(distinct, 2 * n_int)
+    n_ops = iters * slots
+    bound, by = bound_ms(n_bytes, n_ops, rate)
+    same = all(torch.equal(a, b) for a, b in zip(WL.while_loop(loop, flat0, mask0, max_iters), want))
+    source = WL.emit_cuda(prog, loop.origin)
+    if source not in sass:
+        sass[source] = loop_sass(WL, build, prog, loop)
+        print(f"B3 loop at {loop.origin} ({label}): {prog.n_compute_ops()} ops in the op "
+              f"list, {distinct} distinct ({n_rand} rand draws of {WL.RAND_OPS}, "
+              f"{WL.RAND_INT_OPS} of them integer); {sass[source]}")
     print(f"timing B3 {label}: kernel {kernel_ms:.4f} ms, eager "
           f"loop {plain_ms:.4f} ms ({plain_ms / kernel_ms:.1f}x), identical {same}; "
           f"{iters} pixel iterations in the kernel ({iters / (w * h):.2f} per "
           f"pixel, {steps} steps) + {loop.it_base * w * h} unrolled before it; "
-          f"{prog.n_compute_ops()} ops each ({n_rand} rand draws of {WL.RAND_OPS}) = "
-          f"{n_ops / 1e9:.3f} Gop; {n_bytes / 1e6:.0f} MB; bound {bound:.4f} ms ({by}) "
-          f"[{card}]")
+          f"{distinct} distinct ops each ({prog.n_compute_ops()} listed), {n_int} integer, "
+          f"{slots} issue slots = {n_ops / 1e9:.3f} G at {rate / 1e12:.2f}e12 op/s; "
+          f"{n_bytes / 1e6:.0f} MB; bound {bound:.4f} ms ({by}), "
+          f"{100 * bound / kernel_ms:.1f}% of bound [{card}]")
     if not same:
         raise AssertionError(f"timed B3 {label}: output differs from the eager loop")
     return dict(ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by, library_ms=None)
 
 
-def phase_generative_timings(mt, L, WL, tracer, dev, filters, card):
+def phase_generative_timings(mt, L, WL, build, tracer, dev, filters, card, rate, sass):
     """Mandelbrot render medians; B3 and B2 alone at 4K against their plain
-    versions (and B2 against grid_sample), with their bounds."""
+    versions (and B2 against grid_sample), with their bounds (B3's at
+    `rate`, see time_b3)."""
     f = filters["mandelbrot"]
     for (w, h) in SIZES:
         for label, params in (("default", {}), ("zoomed", ZOOMED)):
@@ -885,8 +1011,9 @@ def phase_generative_timings(mt, L, WL, tracer, dev, filters, card):
                   f"{ms:.3f} ms/frame of {TIMED_RENDERS}, {w * h / ms / 1e3:.1f} "
                   f"Mpix/s [{card}]")
     w, h = SIZES[1]
-    records = {label: time_b3(WL, tracer, lambda p=params: f.render(
-        width=w, height=h, params=p, device=dev), f"mandelbrot {w}x{h} {label}", card)
+    records = {label: time_b3(WL, build, tracer, lambda p=params: f.render(
+        width=w, height=h, params=p, device=dev), f"mandelbrot {w}x{h} {label}", card,
+        rate, sass)
         for label, params in (("default", {}), ("zoomed", ZOOMED))}
     # B2 at the render's shape and LUT size: (256, 4) gradient, 4K positions
     pos = torch.from_numpy(np.random.RandomState(8).rand(h, w).astype(np.float32)).to(dev)
@@ -1217,7 +1344,7 @@ def phase_stochastic_meshes(mt, K, B4, WL, dev, st):
                       f"{err:.3e} vs the unsharded card render, {n_px} pixels differ")
 
 
-def phase_stochastic_timings(WL, tracer, dev, st, card):
+def phase_stochastic_timings(WL, build, tracer, dev, st, card, rate, sass):
     """Median fenced 4K renders of the stochastic path, then B3 alone on
     rand_walk's loop -> B3's rand_walk record."""
     w, h = SIZES[1]
@@ -1226,25 +1353,30 @@ def phase_stochastic_timings(WL, tracer, dev, st, card):
         ms = fenced_median_ms(lambda: f.render(*inputs, width=w, height=h, t=0.3, device=dev))
         print(f"timing render {name:12s} {w}x{h}{' u8 in' if inputs else ''}: median "
               f"{ms:.3f} ms/frame of {TIMED_RENDERS}, {w * h / ms / 1e3:.1f} Mpix/s [{card}]")
-    return time_b3(WL, tracer, lambda: st["rand_walk"].render(width=w, height=h, device=dev),
-                   f"rand_walk {w}x{h}", card)
+    return time_b3(WL, build, tracer, lambda: st["rand_walk"].render(width=w, height=h,
+                                                                      device=dev),
+                   f"rand_walk {w}x{h}", card, rate, sass)
 
 
 class KernelCapture:
-    """Records the arguments of every call of `module.name` (a kernel
-    wrapper the renderer calls: runtime.sampling's sample_kernel, B1, or
-    tiled_kernel, B4) while active."""
+    """Records the arguments (`calls`) and results (`results`) of every
+    call of `module.name` (a kernel wrapper the renderer calls:
+    runtime.sampling's sample_kernel, B1, or tiled_kernel, B4) while
+    active."""
 
     def __init__(self, module, name: str):
         self.module, self.name = module, name
         self.calls = []
+        self.results = []
 
     def __enter__(self):
         self.orig = orig = getattr(self.module, self.name)
 
         def spy(*args, **kwargs):
             self.calls.append((args, kwargs))
-            return orig(*args, **kwargs)
+            out = orig(*args, **kwargs)
+            self.results.append(out)
+            return out
 
         setattr(self.module, self.name, spy)
         return self
@@ -1336,6 +1468,361 @@ def phase_tiled_timings(mt, B4, sampling, dev, filters, card):
                 library_ms=lib_ms)
 
 
+#: the param batch: 8 mandelbrot jobs at 4K, zoom 1 to 3, each centred
+#: on a point of the main cardioid's boundary e^(iθ)/2 - e^(2iθ)/4
+BATCH_JOBS = 8
+#: BASELINE config 5 (benchmarks/run_configs.py): default mandelbrot and
+#: moire at 4K, each an 8-frame t-sweep at t = (i + 0.37)/8
+CONFIG5 = ("mandelbrot", "moire")
+CONFIG5_TS = (np.arange(BATCH_JOBS, dtype=np.float32) + np.float32(0.37)) / BATCH_JOBS
+#: twirl's angles in the shared-image batch (inside its declared -10..10)
+TWIRL_ANGLES = tuple(float(a) for a in np.linspace(-8.0, 8.0, BATCH_JOBS))
+#: BASELINE config 4 (benchmarks/run_configs.py): ripple at 1080p with
+#: "4x AA", RenderOptions(supersample=2) (a 2x2 grid of subsamples a
+#: pixel), a 120-frame t-sweep
+ANIMATION_FRAMES = 120
+ANIMATION_SUPERSAMPLE = 2
+#: the animated input's frame count (1080p u8 on the card)
+ANIMATED_FRAMES = 8
+#: frame values whose index the card must select as the oracle does:
+#: NumPy's float32 -> int32 cast gives INT_MIN for NaN, ±inf and |v| >= 2^31
+#: (frame 0 after the clip), where CUDA's conversion saturates
+FRAME_VALUES = (float("nan"), float("inf"), float("-inf"), 3e9, -3e9, 5.4, 7.6, -0.6, 2.5)
+#: frames of the mesh frame-axis sweep
+SWEEP_FRAMES = 4
+#: a warped per-pixel frame selection (the gather route, no kernel)
+PER_PIXEL_WARP = "origValXY(x * 0.9 + 1.3, y * 0.8 - 0.7, if x >= 0 then 2 else 0 end)"
+
+
+def batch_params() -> list:
+    out = []
+    for k in range(BATCH_JOBS):
+        c = np.exp(2j * np.pi * (k + 0.5) / BATCH_JOBS)
+        c = c / 2 - c * c / 4
+        out.append({"zoom": 1.0 + 2.0 * k / (BATCH_JOBS - 1),
+                    "cx": round(float(c.real), 4), "cy": round(float(c.imag), 4)})
+    return out
+
+
+def oracle_frame_index(value: float, n_frames: int) -> int:
+    """The reference oracle's frame index in NumPy: floor(f + 0.5) in
+    float32, cast to int32 (INT_MIN where the value has no int32), clipped
+    to [0, T-1]."""
+    with np.errstate(invalid="ignore"):
+        fi = np.floor(np.float32(value) + np.float32(0.5)).astype(np.int32)
+    return int(np.clip(fi, 0, n_frames - 1))
+
+
+def equal_jobs(out, lone: list) -> int:
+    """How many of the batch's jobs differ from their lone renders."""
+    return sum(0 if torch.equal(out[i], one) else 1 for i, one in enumerate(lone))
+
+
+def phase_batch(mt, K, L, WL, dev, filters):
+    """Filter.render_batch at 3840x2160: the 8 mandelbrot jobs (a list of
+    param dicts, frames 0) launch B3 and B2 once a job and reuse one build
+    of the loop; twirl over one shared() u8 image at 8 angles with uint8
+    output launches B1 once a job; BASELINE config 5's t-sweeps of default
+    mandelbrot (B3 and B2 once a frame) and moire (no kernel). Every job
+    equals its lone card render bit for bit (time_batch times them)."""
+    w, h = SIZES[1]
+    wrappers = (K.sample_image, L.apply_lut, WL.while_loop)
+    mandel, twirl = filters["mandelbrot"], filters["twirl"]
+    params = batch_params()
+    frames = [0.0] * BATCH_JOBS
+    builds, launchers = WL.while_loop.builds, len(WL._LAUNCHERS)
+    before = launch_counts(*wrappers)
+    out = mandel.render_batch(width=w, height=h, params=params, frames=frames, device=dev)
+    torch.cuda.synchronize()
+    counts = tuple(a - b for a, b in zip(launch_counts(*wrappers), before))
+    tag = f"batch mandelbrot {w}x{h} {BATCH_JOBS} jobs"
+    if counts != (0, BATCH_JOBS, BATCH_JOBS):
+        raise AssertionError(f"{tag}: (B1, B2, B3) launches {counts}")
+    if (WL.while_loop.builds, len(WL._LAUNCHERS)) != (builds, launchers):
+        raise AssertionError(f"{tag}: the batch built its loop again")
+    if tuple(out.shape) != (BATCH_JOBS, h, w, 4) or not bool(torch.isfinite(out).all()):
+        raise AssertionError(f"{tag}: bad output {tuple(out.shape)}")
+    lone = [mandel.render(width=w, height=h, params=p, device=dev) for p in params]
+    differ = equal_jobs(out, lone)
+    if differ:
+        raise AssertionError(f"{tag}: {differ} jobs differ from their lone renders")
+    print(f"{tag} (zoom 1..3 on the cardioid's boundary): (B1, B2, B3) launches {counts}, "
+          f"while_loop.builds {builds} before and after; every job equals its lone render "
+          f"bit for bit")
+    _, u8 = seeded_image(w, h, seed=16)
+    img = torch.from_numpy(u8).to(dev)
+    u8_out = mt.RenderOptions(output_dtype="uint8")
+    tparams = [{"angle": a} for a in TWIRL_ANGLES]
+    before = launch_counts(*wrappers)
+    tout = twirl.render_batch(mt.shared(img), params=tparams, frames=frames, options=u8_out,
+                              device=dev)
+    torch.cuda.synchronize()
+    tcounts = tuple(a - b for a, b in zip(launch_counts(*wrappers), before))
+    ttag = f"batch twirl {w}x{h} shared u8 image, {BATCH_JOBS} angles, uint8 out"
+    if tcounts != (BATCH_JOBS, 0, 0):
+        raise AssertionError(f"{ttag}: (B1, B2, B3) launches {tcounts}")
+    if tuple(tout.shape) != (BATCH_JOBS, h, w, 4) or tout.dtype != torch.uint8:
+        raise AssertionError(f"{ttag}: bad output {tuple(tout.shape)} {tout.dtype}")
+    tlone = [twirl.render(img, params=p, options=u8_out, device=dev) for p in tparams]
+    differ = equal_jobs(tout, tlone)
+    if differ:
+        raise AssertionError(f"{ttag}: {differ} jobs differ from their lone renders")
+    print(f"{ttag}: (B1, B2, B3) launches {tcounts}; every job equals its lone render bit "
+          f"for bit")
+    for name in CONFIG5:
+        f = filters[name]
+        before = launch_counts(*wrappers)
+        out = f.render_batch(width=w, height=h, ts=CONFIG5_TS, device=dev)
+        torch.cuda.synchronize()
+        counts = tuple(a - b for a, b in zip(launch_counts(*wrappers), before))
+        tag = f"config 5 {name} {w}x{h}, {BATCH_JOBS}-frame t-sweep"
+        want = (0, BATCH_JOBS, BATCH_JOBS) if name == "mandelbrot" else (0, 0, 0)
+        if counts != want:
+            raise AssertionError(f"{tag}: (B1, B2, B3) launches {counts}, expected {want}")
+        if tuple(out.shape) != (BATCH_JOBS, h, w, 4) or not bool(torch.isfinite(out).all()):
+            raise AssertionError(f"{tag}: bad output {tuple(out.shape)}")
+        lone = [f.render(width=w, height=h, t=float(t), frame=float(i), device=dev)
+                for i, t in enumerate(CONFIG5_TS)]
+        differ = equal_jobs(out, lone)
+        if differ:
+            raise AssertionError(f"{tag}: {differ} frames differ from their lone renders")
+        print(f"{tag} (render_batch, ts = (i + 0.37)/{BATCH_JOBS}): (B1, B2, B3) launches "
+              f"{counts}; every frame equals render(t=ts[i], frame=i) bit for bit")
+
+
+def time_batch(mt, dev, filters, card):
+    """Median fenced render_batch calls of phase_batch's batches beside the
+    lone render of their first job: ms a job, in turns."""
+    w, h = SIZES[1]
+    mandel, twirl = filters["mandelbrot"], filters["twirl"]
+    params = batch_params()
+    frames = [0.0] * BATCH_JOBS
+    img = torch.from_numpy(seeded_image(w, h, seed=16)[1]).to(dev)
+    u8_out = mt.RenderOptions(output_dtype="uint8")
+    tparams = [{"angle": a} for a in TWIRL_ANGLES]
+    for name, batch, one in (
+            ("mandelbrot", lambda: mandel.render_batch(width=w, height=h, params=params,
+                                                       frames=frames, device=dev),
+             lambda: mandel.render(width=w, height=h, params=params[0], device=dev)),
+            ("twirl", lambda: twirl.render_batch(mt.shared(img), params=tparams, frames=frames,
+                                                 options=u8_out, device=dev),
+             lambda: twirl.render(img, params=tparams[0], options=u8_out, device=dev)),
+            *((f"config 5 {n} t-sweep",
+               lambda f=filters[n]: f.render_batch(width=w, height=h, ts=CONFIG5_TS,
+                                                   device=dev),
+               lambda f=filters[n]: f.render(width=w, height=h, t=float(CONFIG5_TS[0]),
+                                             device=dev))
+              for n in CONFIG5)):
+        runs = [fenced_median_ms(one), fenced_median_ms(batch, n=5),
+                fenced_median_ms(batch, n=5), fenced_median_ms(one)]
+        job = (runs[1] + runs[2]) / 2 / BATCH_JOBS
+        print(f"timing batch {name} {w}x{h}: {job:.3f} ms a job ({BATCH_JOBS} jobs a call, "
+              f"median of 5 calls: {runs[1]:.3f} / {runs[2]:.3f} ms), lone render median "
+              f"{runs[0]:.3f} / {runs[3]:.3f} ms (order: lone, batch, batch, lone) [{card}]")
+
+
+def phase_animation(mt, K, dev, filters):
+    """BASELINE config 4: ripple at 1920x1080 with supersample=2 through
+    Filter.render_animation(num_frames=120) on a smooth seeded u8 image on
+    the card: one B1 launch a subsample of every frame; frames 0, 37 and
+    119 equal render(t=..., frame=...) bit for bit, frame 37 matches the
+    port's CPU render (rtol=1e-4, atol=1e-5), render_frames yields the same
+    frames (time_animation times the sweep)."""
+    w, h = SIZES[0]
+    _, u8 = smooth_image(w, h, seed=15)
+    img = torch.from_numpy(u8).to(dev)
+    f = filters["ripple"]
+    opts = mt.RenderOptions(supersample=ANIMATION_SUPERSAMPLE)
+    n = ANIMATION_FRAMES
+    before = K.sample_image.launches
+    out = f.render_animation(img, num_frames=n, options=opts, device=dev)
+    torch.cuda.synchronize()
+    launches = K.sample_image.launches - before
+    tag = f"animation ripple {w}x{h} supersample={ANIMATION_SUPERSAMPLE}, {n} frames"
+    per_frame = ANIMATION_SUPERSAMPLE ** 2
+    if launches != n * per_frame:
+        raise AssertionError(f"{tag}: {launches} B1 launches, expected {n} x {per_frame}")
+    if tuple(out.shape) != (n, h, w, 4) or not bool(torch.isfinite(out).all()):
+        raise AssertionError(f"{tag}: bad output {tuple(out.shape)}")
+    ts = np.arange(n, dtype=np.float32) / n
+    for i in (0, 37, n - 1):
+        lone = f.render(img, t=float(ts[i]), frame=float(i), options=opts, device=dev)
+        if not torch.equal(out[i], lone):
+            raise AssertionError(f"{tag}: frame {i} differs from render(t={ts[i]}, frame={i})")
+    ref = f.render(u8, t=float(ts[37]), frame=37.0, options=opts, device="cpu")
+    err = check_close(f"{tag} frame 37 vs the CPU", out[37].cpu(), ref)
+    n_px = int(((out[37].cpu() - ref).abs() > 0).any(-1).sum())
+    differ = sum(0 if torch.equal(fr, out[i]) else 1
+                 for i, fr in enumerate(f.render_frames(img, num_frames=n, options=opts,
+                                                        device=dev)))
+    if differ:
+        raise AssertionError(f"{tag}: render_frames differs from render_animation at "
+                             f"{differ} frames")
+    print(f"{tag}: {launches} B1 launches ({per_frame} subsamples x {n} frames, one each); "
+          f"frames 0, 37, {n - 1} equal their lone renders bit for bit; frame 37 vs the CPU "
+          f"render max abs err {err:.3e}, {n_px} pixels differ; render_frames yields the "
+          f"same {n} frames")
+
+
+def time_animation(mt, dev, filters, card):
+    """phase_animation's sweep timed: two fenced render_animation calls of
+    ANIMATION_FRAMES frames, ms a frame, beside the lone render's median."""
+    w, h = SIZES[0]
+    img = torch.from_numpy(smooth_image(w, h, seed=15)[1]).to(dev)
+    f = filters["ripple"]
+    opts = mt.RenderOptions(supersample=ANIMATION_SUPERSAMPLE)
+    n = ANIMATION_FRAMES
+    anim = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        f.render_animation(img, num_frames=n, options=opts, device=dev)
+        torch.cuda.synchronize()
+        anim.append((time.perf_counter() - t0) * 1e3 / n)
+    lone_ms = fenced_median_ms(lambda: f.render(img, t=0.3, frame=1.0, options=opts,
+                                                device=dev))
+    print(f"timing animation ripple {w}x{h} supersample={ANIMATION_SUPERSAMPLE}: "
+          f"{anim[0]:.3f} / {anim[1]:.3f} ms a frame (two {n}-frame calls), "
+          f"{w * h / min(anim) / 1e3:.1f} Mpix/s; lone render median {lone_ms:.3f} ms [{card}]")
+
+
+def phase_animated_inputs(mt, K, sampling, dev):
+    """An 8-frame 1920x1080 u8 stack on the card: origVal(xy) with nearest
+    sampling through render_animation returns each frame exactly (one B1
+    launch a frame); origValXY(x, y, 3) selects frame 3 through B1 (a view
+    of the stack, no copy; B1's result held against its plain version); a
+    warped per-pixel frame plane goes through the gather route (no B1) and
+    equals B1 on each frame it selects and the CPU render; the frame values of FRAME_VALUES select the oracle's frame
+    on the Python-float, 0-d tensor and per-pixel routes."""
+    w, h = SIZES[0]
+    T = ANIMATED_FRAMES
+    stack_np = np.stack([seeded_image(w, h, seed=70 + k)[1] for k in range(T)])
+    stack = torch.from_numpy(stack_np).to(dev)
+    want = K.u8_to_float(stack)
+    near = mt.RenderOptions(interpolation="nearest")
+    ident = mt.compile_source("origVal(xy)")
+    before = K.sample_image.launches
+    out = ident.render_animation(stack, num_frames=T, options=near, device=dev)
+    torch.cuda.synchronize()
+    if K.sample_image.launches - before != T or not torch.equal(out, want):
+        raise AssertionError("animated input: origVal(xy) does not return each frame")
+    print(f"animated input {T}x{w}x{h} u8: origVal(xy) nearest through render_animation "
+          f"returns each frame exactly, {T} B1 launches")
+    with KernelCapture(sampling, "sample_kernel") as cap:
+        out = mt.compile_source("origValXY(x, y, 3)").render(stack, options=near, device=dev)
+    torch.cuda.synchronize()
+    (pix, *rest), _ = cap.calls[0]
+    if len(cap.calls) != 1 or pix.data_ptr() != stack[3].data_ptr():
+        raise AssertionError("origValXY(x, y, 3): B1 did not sample frame 3's view")
+    err = check_close("B1 on frame 3 of an animated stack", cap.results[0],
+                      K.sample_image_reference(pix, *rest))
+    if not torch.equal(out, want[3]):
+        raise AssertionError("origValXY(x, y, 3) does not return frame 3")
+    print(f"animated input: origValXY(x, y, 3) through B1 on frame 3's view of the stack "
+          f"(no copy): frame 3 exactly; B1 vs plain max abs err {err:.3e}")
+    worst = err
+    plane = mt.compile_source(PER_PIXEL_WARP)
+    before = K.sample_image.launches
+    out = plane.render(stack, device=dev)
+    torch.cuda.synchronize()
+    if K.sample_image.launches != before:
+        raise AssertionError("per-pixel frame plane: the gather route launched B1")
+    # the independent version: B1 on each selected frame at the warp's
+    # coordinates, chosen per pixel by the plane's selector
+    xs = torch.arange(w, dtype=torch.float32, device=dev) + (0.5 - w / 2)
+    ys = (h / 2 - 0.5) - torch.arange(h, dtype=torch.float32, device=dev)
+    gy, gx = torch.meshgrid(ys, xs, indexing="ij")
+    wx = (gx * 0.9 + 1.3).contiguous()
+    wy = (gy * 0.8 - 0.7).contiguous()
+    opts = mt.RenderOptions()
+    counted = K.sample_image.launches
+    by_frame = {k: K.sample_image(stack[k], wx, wy, opts.interpolation, opts.edge_x,
+                                  opts.edge_y, opts.edge_color).permute(1, 2, 0)
+                for k in (0, 2)}
+    K.sample_image.launches = counted  # comparison launches are not the path's
+    want_plane = torch.where((gx >= 0)[..., None], by_frame[2], by_frame[0]).clamp(0, 1)
+    err = check_close("per-pixel frame plane vs B1 on each frame", out, want_plane)
+    ref = plane.render(stack_np, device="cpu")
+    cpu_err = check_close("per-pixel frame plane vs the CPU", out.cpu(), ref)
+    print(f"animated input: a warped bilinear per-pixel frame plane goes through the gather "
+          f"route (0 B1 launches); vs B1 on frames 0 and 2 chosen per pixel max abs err "
+          f"{err:.3e}, vs the CPU render {cpu_err:.3e}")
+    routes = {"frame=": lambda v: ident.render(stack, frame=v, options=near, device=dev),
+              "origValXY(x, y, t)": lambda v: mt.compile_source("origValXY(x, y, t)").render(
+                  stack, t=v, options=near, device=dev),
+              "origValXY(x, y, t + x * 0)": lambda v: mt.compile_source(
+                  "origValXY(x, y, t + x * 0)").render(stack, t=v, options=near, device=dev)}
+    expected = [oracle_frame_index(v, T) for v in FRAME_VALUES]
+    for route, render in routes.items():
+        got = []
+        for v in FRAME_VALUES:
+            o = render(v)
+            got.append(next((k for k in range(T) if torch.equal(o, want[k])), None))
+        if got != expected:
+            raise AssertionError(f"frame values {FRAME_VALUES} through {route} select {got}, "
+                                 f"the oracle {expected}")
+        print(f"animated input: frame values {list(FRAME_VALUES)} through {route} select "
+              f"frames {got}, as the oracle does")
+    return worst
+
+
+def phase_frame_axis(mt, K, B4, sampling, dev, filters):
+    """The mesh's frame axis: ripple over a 4-frame 1080p u8 stack through
+    render_sharded(num_frames=4) on (4,1,1) and (2,2,1) meshes of the card
+    against the four lone card renders (frame i at t = i/4, sampling input
+    frame i); the same stack through render_tiled on (1,4,1) at each frame
+    against the unsharded render, one B4 launch a tile and frame, and B4's
+    result on an animated block against its plain version."""
+    w, h = SIZES[0]
+    n = SWEEP_FRAMES
+    stack = torch.from_numpy(np.stack([smooth_image(w, h, seed=90 + k)[1]
+                                       for k in range(n)])).to(dev)
+    f = filters["ripple"]
+    ts = np.arange(n, dtype=np.float32) / n
+    lone = [f.render(stack, t=float(ts[i]), frame=float(i), device=dev) for i in range(n)]
+    for shape in ((4, 1, 1), (2, 2, 1)):
+        tiles = shape[1] * shape[2]
+        before = K.sample_image.launches
+        out = f.render_sharded(stack, mesh=card_mesh(mt, dev, shape), num_frames=n)
+        torch.cuda.synchronize()
+        launches = K.sample_image.launches - before
+        tag = f"frame axis: render_sharded ripple {n}x{w}x{h} u8 stack, mesh {shape}"
+        if launches != n * tiles or tuple(out.shape) != (n, h, w, 4):
+            raise AssertionError(f"{tag}: {launches} B1 launches, shape {tuple(out.shape)}")
+        errs, n_px = [], 0
+        for i in range(n):
+            errs.append(check_close(f"{tag} frame {i}", out[i], lone[i]))
+            n_px += int((out[i] != lone[i]).any(-1).sum())
+        print(f"{tag}: {launches} B1 launches ({tiles} a frame), max abs err {max(errs):.3e} "
+              f"vs the lone card renders, {n_px} pixels differ")
+    mesh = card_mesh(mt, dev, (1, 4, 1))
+    before = B4.sample_tiled.launches
+    errs, n_px = [], 0
+    with KernelCapture(sampling, "tiled_kernel") as cap:
+        for i in range(n):
+            out = f.render_tiled(stack, mesh=mesh, t=0.3, frame=float(i))
+            want = f.render(stack, t=0.3, frame=float(i), device=dev)
+            errs.append(check_close(f"render_tiled animated frame {i}", out, want))
+            n_px += int((out != want).any(-1).sum())
+    torch.cuda.synchronize()
+    launches = B4.sample_tiled.launches - before
+    if launches != 4 * n:
+        raise AssertionError(f"animated render_tiled: {launches} B4 launches for 4 tiles x "
+                             f"{n} frames")
+    (ext, *rest), kw = cap.calls[5]
+    got, excess = cap.results[5]
+    want, want_excess = B4.sample_tiled_reference(ext, *rest)
+    err = check_close("B4 on an animated block", got, want)
+    if int(excess) != int(want_excess):
+        raise AssertionError(f"B4 on an animated block: excess {int(excess)} != "
+                             f"{int(want_excess)}")
+    print(f"frame axis: render_tiled ripple {n}x{w}x{h} u8 stack, mesh (1,4,1), frames "
+          f"0..{n - 1}: {launches} B4 launches (one a tile and frame), max abs err "
+          f"{max(errs):.3e} vs the unsharded card render, {n_px} pixels differ; B4 on frame "
+          f"1's block {tuple(ext.shape[:2])} vs plain max abs err {err:.3e}, equal excess")
+    return err
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA GPU available", file=sys.stderr)
@@ -1360,7 +1847,7 @@ def main() -> int:
     filters = {n: mt.compile_file(str(ROOT / "filters" / "Distorts" / f"{n}.mm"))
                for n in FILTERS + ("ripple",)}
     filters.update({n: mt.compile_file(str(ROOT / "filters" / "Render" / f"{n}.mm"))
-                    for n in GENERATIVE})
+                    for n in GENERATIVE + CONFIG5[1:]})
     sin_filter = mt.compile_source(SIN_BODY)
     rand_walk = mt.compile_source(RAND_WALK)
     st = {n: rand_walk if folder is None
@@ -1369,39 +1856,75 @@ def main() -> int:
     loop_filters = [(filters[n], {}) for n in GENERATIVE]
     loop_filters += [(filters["mandelbrot"], ZOOMED), (sin_filter, {}), (rand_walk, {})]
     card = phase_card(mt, build, WL, tracer, loop_filters)
+    rate, sms, mhz = single_op_rate()
+    print(f"single-op issue rate: {sms} SMs x {LANES_PER_SM} lanes x {mhz:.0f} MHz "
+          f"(clocks.max.sm) = {rate / 1e12:.2f}e12 op/s; INT32 half that")
     worst_b1 = phase_kernel_vs_plain(K, dev)
     worst_b2 = phase_lut_vs_plain(L, dev)
     worst_b3, worst_rand = phase_loop_vs_plain(mt, WL, tracer, dev, filters, sin_filter,
                                                rand_walk)
-    b1_launches = phase_distortion_path(mt, K, dev, filters)
-    b2_launches, b3_launches = phase_generative_path(mt, L, WL, dev, filters)
     worst_b4 = phase_tiled_vs_plain(B4, dev)
-    b4_launches = phase_tiled_path(mt, B4, dev, filters)
-    phase_sharded_path(mt, K, L, WL, dev, filters)
+    # each main path with every launch count set to 0 just before it and
+    # read just after (B1, B2, B3, B4)
+    wrappers = (K.sample_image, L.apply_lut, WL.while_loop, B4.sample_tiled)
+    by_path = {}
+
+    def path(name, phase, *args):
+        for wrapper in wrappers:
+            wrapper.launches = 0
+        result = phase(*args)
+        torch.cuda.synchronize()
+        by_path[name] = launch_counts(*wrappers)
+        return result
+
+    path("distortion", phase_distortion_path, mt, K, dev, filters)
+    path("generative", phase_generative_path, mt, L, WL, dev, filters)
+    path("tiled", phase_tiled_path, mt, B4, dev, filters)
+    path("sharded", phase_sharded_path, mt, K, L, WL, dev, filters)
     phase_rand_noise_vs_cpu(dev)
-    b3_rand_launches = phase_stochastic_path(mt, K, L, WL, dev, st)
-    phase_stochastic_meshes(mt, K, B4, WL, dev, st)
+    b3_rand_launches = path("stochastic", phase_stochastic_path, mt, K, L, WL, dev, st)
+    path("stochastic meshes", phase_stochastic_meshes, mt, K, B4, WL, dev, st)
+    path("batch", phase_batch, mt, K, L, WL, dev, filters)
+    path("animation", phase_animation, mt, K, dev, filters)
+    worst_b1 = max(worst_b1, path("animated inputs", phase_animated_inputs, mt, K, sampling,
+                                  dev))
+    worst_b4 = max(worst_b4, path("frame axis", phase_frame_axis, mt, K, B4, sampling, dev,
+                                  filters))
+    names = ("sample_image", "apply_lut", "while_loop", "sample_tiled")
+    launches = {name: {p: c[k] for p, c in by_path.items() if c[k]}
+                for k, name in enumerate(names)}
+    for name, paths in launches.items():
+        if not paths:
+            raise AssertionError(f"{name}: launched on no main path")
+        print(f"launches {name}: {sum(paths.values())} on the main paths, {paths}")
+    sass = {}
     b1 = phase_timings(mt, K, sampling, dev, filters, card)
-    gen = phase_generative_timings(mt, L, WL, tracer, dev, filters, card)
+    gen = phase_generative_timings(mt, L, WL, build, tracer, dev, filters, card, rate, sass)
     b4 = phase_tiled_timings(mt, B4, sampling, dev, filters, card)
-    b3_rand = phase_stochastic_timings(WL, tracer, dev, st, card)
+    b3_rand = phase_stochastic_timings(WL, build, tracer, dev, st, card, rate, sass)
+    time_batch(mt, dev, filters, card)
+    time_animation(mt, dev, filters, card)
     print(f"nvcc builds in this run: {len(build.BUILDS)}, "
           f"{sum(s for _, s in build.BUILDS):.2f} s in all")
     print(f"chip_smoke: {time.perf_counter() - t0:.1f} s")
     print(card)
+
+    def counted(name):
+        return dict(launches=sum(launches[name].values()), launches_by_path=launches[name])
+
     print(json.dumps({"kernels": [
         {"name": "sample_image", "route": "cuda",
          "source": "mathmap_tpu_torch/csrc/sample_image.cu",
          "replaces": "mathmap_tpu/pallas_kernels/sample_kernel.py:741",
-         "launches": b1_launches, "max_abs_err": worst_b1, **b1},
+         **counted("sample_image"), "max_abs_err": worst_b1, **b1},
         {"name": "apply_lut", "route": "cuda",
          "source": "mathmap_tpu_torch/csrc/apply_lut.cu",
          "replaces": "mathmap_tpu/pallas_kernels/sample_kernel.py:1279",
-         "launches": b2_launches, "max_abs_err": worst_b2, **gen["lut"]},
+         **counted("apply_lut"), "max_abs_err": worst_b2, **gen["lut"]},
         {"name": "while_loop", "route": "cuda",
          "source": "mathmap_tpu_torch/csrc/while_loop.cu.tmpl",
          "replaces": "mathmap_tpu/pallas_kernels/while_kernel.py:143",
-         "launches": b3_launches, "max_abs_err": worst_b3, **gen["default"]},
+         **counted("while_loop"), "max_abs_err": worst_b3, **gen["default"]},
         {"name": "while_loop (rand_walk)", "route": "cuda",
          "source": "mathmap_tpu_torch/csrc/while_loop.cu.tmpl",
          "replaces": "mathmap_tpu/pallas_kernels/while_kernel.py:143",
@@ -1409,7 +1932,7 @@ def main() -> int:
         {"name": "sample_tiled", "route": "cuda",
          "source": "mathmap_tpu_torch/csrc/sample_tiled.cu",
          "replaces": "mathmap_tpu/runtime/sampling.py:188",
-         "launches": b4_launches, "max_abs_err": worst_b4, **b4},
+         **counted("sample_tiled"), "max_abs_err": worst_b4, **b4},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

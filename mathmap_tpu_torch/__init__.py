@@ -13,7 +13,10 @@ kernel generated from its body (kernels/while_loop.py), all built by nvcc
 at first use. `Filter.render_sharded` and `Filter.render_tiled` split a
 render over a mesh of devices (`make_mesh`), the latter sampling each
 tile's halo-extended input block through a CUDA kernel of its own
-(csrc/sample_tiled.cu). ROADMAP.md lists what is still to port.
+(csrc/sample_tiled.cu). `Filter.render_batch` renders N jobs (a
+`shared()` input is one image every job samples), `render_animation` and
+`render_frames` a t-sweep, and a 4-D input is an animated (T, H, W, 4)
+stack. ROADMAP.md lists what is still to port.
 
     import mathmap_tpu_torch as mt
     f = mt.compile_file("filters/Distorts/twirl.mm")
@@ -27,7 +30,7 @@ import sys as _sys
 _sys.setrecursionlimit(max(_sys.getrecursionlimit(), 20000))
 
 from . import ops as _ops  # noqa: E402,F401  — populate the builtin registry
-from .api import Filter, compile_file, compile_source  # noqa: E402
+from .api import Filter, compile_file, compile_source, shared  # noqa: E402
 from .parallel.mesh import make_mesh  # noqa: E402
 from .runtime.options import RenderOptions  # noqa: E402
 from .utils.errors import (  # noqa: E402
@@ -38,8 +41,12 @@ from .utils.errors import (  # noqa: E402
     MMTypeError,
 )
 
+compile = compile_source  # noqa: A001 — the reference's alias
+
 __all__ = [
     "Filter",
+    "shared",
+    "compile",
     "compile_source",
     "compile_file",
     "make_mesh",

@@ -135,14 +135,14 @@ def _gather(pixels):
     return gather
 
 
-def sample_image_reference(pixels, x, y, interpolation: str, edge_x: str,
-                           edge_y: str, edge_color) -> torch.Tensor:
-    """The plain PyTorch sampler (the port of the reference's oracle path
-    `runtime/sampling._sample_xla`) -> (4, H, W) float32, on the device of
-    its inputs."""
-    h, w = int(pixels.shape[0]), int(pixels.shape[1])
-    gather = _gather(pixels)
-    col = [torch.tensor(float(c), dtype=torch.float32, device=pixels.device)
+def interpolate(gather, x, y, w: int, h: int, interpolation: str, edge_x: str,
+                edge_y: str, edge_color, device) -> list:
+    """The plain sampler's arithmetic (the reference's oracle path
+    `runtime/sampling._sample_xla`) on a frame of (w, h) pixels read
+    through `gather` -> 4 float32 channel grids: world coordinates to
+    pixel centres, the edge behavior per integer tap, then nearest,
+    bilinear or Catmull-Rom bicubic taps (dx inner, dy outer)."""
+    col = [torch.tensor(float(c), dtype=torch.float32, device=device)
            for c in edge_color]
     px, py = world_to_pixel(x, y, w, h)
 
@@ -152,7 +152,7 @@ def sample_image_reference(pixels, x, y, interpolation: str, edge_x: str,
     if interpolation == "nearest":
         ix = torch.floor(px + 0.5).to(torch.int32)
         iy = torch.floor(py + 0.5).to(torch.int32)
-        return torch.stack(tap(ix, iy))
+        return tap(ix, iy)
 
     x0f = torch.floor(px)
     y0f = torch.floor(py)
@@ -171,9 +171,8 @@ def sample_image_reference(pixels, x, y, interpolation: str, edge_x: str,
             top = c00[ch] + fx * (c10[ch] - c00[ch])
             bot = c01[ch] + fx * (c11[ch] - c01[ch])
             out.append(top + fy * (bot - top))
-        return torch.stack(out)
+        return out
 
-    # bicubic: 4x4 Catmull-Rom, dx inner, dy outer
     wx = _catmull_rom_weights(fx)
     wy = _catmull_rom_weights(fy)
     out = [None] * 4
@@ -189,7 +188,16 @@ def sample_image_reference(pixels, x, y, interpolation: str, edge_x: str,
         for ch in range(4):
             term = wgt_y * row[ch]
             out[ch] = term if out[ch] is None else out[ch] + term
-    return torch.stack(out)
+    return out
+
+
+def sample_image_reference(pixels, x, y, interpolation: str, edge_x: str,
+                           edge_y: str, edge_color) -> torch.Tensor:
+    """The plain PyTorch sampler -> (4, H, W) float32, on the device of
+    its inputs."""
+    h, w = int(pixels.shape[0]), int(pixels.shape[1])
+    return torch.stack(interpolate(_gather(pixels), x, y, w, h, interpolation, edge_x,
+                                   edge_y, edge_color, pixels.device))
 
 
 def _check(pixels, x, y, interpolation, edge_x, edge_y, edge_color):

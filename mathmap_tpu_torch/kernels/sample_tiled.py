@@ -33,8 +33,7 @@ import functools
 import torch
 
 from . import build
-from .sample_image import (EDGES, INTERPOLATIONS, MAX_SOURCE_PIXELS,
-                           _catmull_rom_weights, _tap, world_to_pixel)
+from .sample_image import EDGES, INTERPOLATIONS, MAX_SOURCE_PIXELS, interpolate
 
 #: the excess of a sampler no tap reached (the reference's initial value)
 NO_EXCESS = -(2 ** 30)
@@ -90,49 +89,8 @@ def sample_tiled_reference(ext, x, y, gh: int, gw: int, row_base: int,
         out = torch.empty((4, *x.shape), dtype=torch.float32, device=ext.device)
         return out, excess[0]
     gather = _tiled_gather(ext, gh, gw, row_base, col_base, col_sharded, excess)
-    col = [torch.tensor(float(c), dtype=torch.float32, device=ext.device)
-           for c in edge_color]
-    px, py = world_to_pixel(x, y, gw, gh)
-
-    def tap(ix, iy):
-        return _tap(gather, ix, iy, gw, gh, edge_x, edge_y, col)
-
-    if interpolation == "nearest":
-        out = torch.stack(tap(torch.floor(px + 0.5).to(torch.int32),
-                              torch.floor(py + 0.5).to(torch.int32)))
-    else:
-        x0f = torch.floor(px)
-        y0f = torch.floor(py)
-        fx = px - x0f
-        fy = py - y0f
-        x0 = x0f.to(torch.int32)
-        y0 = y0f.to(torch.int32)
-        if interpolation == "bilinear":
-            c00 = tap(x0, y0)
-            c10 = tap(x0 + 1, y0)
-            c01 = tap(x0, y0 + 1)
-            c11 = tap(x0 + 1, y0 + 1)
-            chans = []
-            for ch in range(4):
-                top = c00[ch] + fx * (c10[ch] - c00[ch])
-                bot = c01[ch] + fx * (c11[ch] - c01[ch])
-                chans.append(top + fy * (bot - top))
-        else:
-            # bicubic: 4x4 Catmull-Rom, dx inner, dy outer
-            wx = _catmull_rom_weights(fx)
-            wy = _catmull_rom_weights(fy)
-            chans = [None] * 4
-            for dy in range(-1, 3):
-                row = [None] * 4
-                for dx in range(-1, 3):
-                    c = tap(x0 + dx, y0 + dy)
-                    for ch in range(4):
-                        term = wx[dx + 1] * c[ch]
-                        row[ch] = term if row[ch] is None else row[ch] + term
-                for ch in range(4):
-                    term = wy[dy + 1] * row[ch]
-                    chans[ch] = term if chans[ch] is None else chans[ch] + term
-        out = torch.stack(chans)
+    out = torch.stack(interpolate(gather, x, y, gw, gh, interpolation, edge_x, edge_y,
+                                  edge_color, ext.device))
     return out, torch.stack(excess).max().to(torch.int32)
 
 

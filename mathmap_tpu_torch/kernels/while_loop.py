@@ -211,6 +211,12 @@ ITERATION = object()
 #: integer and float ops of one `rand` op in the kernel (mm_rand and the
 #: salt's add), counted as operations in the kernel's bound
 RAND_OPS = 15
+#: of those, the integer ops (xor, shift, multiply, add of the hash), which
+#: issue to the INT32 pipe, half as wide as the FP32 one
+RAND_INT_OPS = 13
+#: ops whose operands commute bit for bit (IEEE + and x; comparisons for
+#: equality; logic)
+_COMMUTATIVE = {"add", "mul", "eq", "ne", "and", "or", "xor"}
 
 
 class Program:
@@ -282,6 +288,74 @@ class Program:
         """Operations a pixel iteration, a rand() draw counted as RAND_OPS."""
         return sum(RAND_OPS if op == "rand" else 1
                    for op, _, _ in self.ops if op not in ("in", "const"))
+
+    def n_distinct_ops(self) -> int:
+        """Operations a pixel iteration once every op that recomputes a
+        value is merged into the one that first computes it, as a compiler
+        keeps one copy: the same op on the same operands (a commutative
+        op's in either order); a bool turned to float and compared != 0,
+        which is the bool; an op on the carried inputs that the previous
+        iteration computed on its outputs (the condition's z*z is the next
+        body's); ops that read no carried value and no draw, which run once
+        before the loop; and ops whose value nothing uses. A rand() draw
+        counts RAND_OPS; each draw is its own."""
+        rep = {}  # op index -> the operand that holds its value
+        first = {}  # (op, operands) -> the op index that computes it
+        carry = {}  # op index of an ("in", ("carry", k)) op -> k
+
+        def key(op, args):
+            return (op, tuple(sorted(args)) if op in _COMMUTATIVE else args)
+
+        for i, (op, operands, _) in enumerate(self.ops):
+            if op in ("in", "const"):
+                rep[i] = ("v", i)
+                if op == "in" and operands[0][0] == "carry":
+                    carry[i] = operands[0][1]
+                continue
+            args = tuple(rep[o[1]] if o[0] == "v" else o for o in operands)
+            if (op == "ne" and args[1] == ("s", 0.0) and args[0][0] == "v"
+                    and self.ops[args[0][1]][0] == "to_float"):
+                rep[i] = rep[self.ops[args[0][1]][1][0][1]]
+                continue
+            k = key(op, args)
+            if op != "rand" and k in first:
+                rep[i] = ("v", first[k])
+                continue
+            first[k] = i
+            rep[i] = ("v", i)
+
+        def value(o):
+            return rep[o[1]] if o[0] == "v" else o
+
+        outputs = [value(o) for o in self.outputs]
+        # the value each op takes in the next iteration, where the previous
+        # one computed it: carried inputs become this iteration's outputs
+        image = {i: outputs[k] for i, k in carry.items()}
+        carried = set()
+        for k, i in first.items():
+            op, args = k[0], self.ops[i][1]
+            args = tuple(value(o) for o in args)
+            if op == "rand" or not any(a[0] == "v" and a[1] in image for a in args):
+                continue
+            nxt = first.get(key(op, tuple(image.get(a[1], a) if a[0] == "v" else a
+                                          for a in args)))
+            if nxt is not None and nxt != i:
+                image[i] = ("v", nxt)
+                carried.add(i)
+        varying = set(carry)
+        for i in sorted(first.values()):
+            op, operands, _ = self.ops[i]
+            if op == "rand" or any(value(o)[1] in varying for o in operands if o[0] == "v"):
+                varying.add(i)
+        live, todo = set(), [o for o in (*outputs, value(self.cond)) if o[0] == "v"]
+        while todo:
+            i = todo.pop()[1]
+            if i in live or self.ops[i][0] in ("in", "const"):
+                continue
+            live.add(i)
+            todo += [value(o) for o in self.ops[i][1] if o[0] == "v"]
+        return sum(RAND_OPS if self.ops[i][0] == "rand" else 1
+                   for i in (live & varying) - carried)
 
 
 def _program_of(args) -> Program:

@@ -1,8 +1,10 @@
 """Image-sampling builtins: origVal and origValXY (the port of
 `mathmap_tpu/ops/image_ops.py`). `origVal(xy)` samples the first input at
-world coordinates; `origValXY(x, y[, frame])` is the two-scalar form. The
-inputs of this package are single-frame, so a frame index clamps to the
-one frame and is ignored (animated inputs: ROADMAP A4)."""
+world coordinates; `origValXY(x, y[, frame])` is the two-scalar form, whose
+frame index selects the frame of an ANIMATED (T, H, W, 4) input (animation
+in -> animation out; indices round and clamp; a single-frame input clamps
+every index to its one frame). Without it, an animated input is sampled at
+the render's current frame."""
 
 from __future__ import annotations
 
@@ -33,7 +35,14 @@ def _orig_val_xy(ev, args, span):
     x = ev.grid(args[0].scalar(span))
     y = ev.grid(args[1].scalar(span))
     img = _first_input(ev, span)
-    frame = args[2].scalar(span) if len(args) == 3 else None
+    frame = None
+    if len(args) == 3:
+        # a literal frame stays a Python float: selecting its frame then
+        # needs no device sync; a scalar expression is a 0-d tensor and a
+        # per-pixel one a grid (runtime/sampling.py)
+        frame = args[2].scalar(span)
+        if args[2].const is not None:
+            frame = float(args[2].const[0])
     return TupleValue("rgba", tuple(img.sample(ev, x, y, frame=frame)))
 
 

@@ -9,16 +9,19 @@ package runs this as one `shard_map` program with `ppermute`; here one
 process drives every tile: a tile's tensors live on its device, and the
 halo exchange is a slice of the neighbour's block moved with
 `.to(device, non_blocking=True)` (a copy within HBM when both tiles are on
-one card, a peer copy across cards).
+one card, a peer copy across cards). An animated input's frames are all
+split and exchanged alike, so a tile samples the block of the frame it
+selects.
 
 Correctness contract: the filter's source displacement must be bounded by
 `halo` rows (and cols, when column-sharded). Three layers, as in the
 reference:
   - halo="auto" infers the bound from the filter AST (parallel/bounds.py)
     and sizes the halo;
-  - check=True (default) measures, per sampler call outside loops, how far
-    past the block any tap reached and raises MMRuntimeError on a
-    violation instead of clamping silently (one device sync per render);
+  - check=True (default) measures, per sampler call outside a while
+    loop's steps (a loop's probe is measured), how far past the block any
+    tap reached and raises MMRuntimeError on a violation instead of
+    clamping silently (one device sync per render);
   - out-of-halo taps clamp into the block when check=False.
 """
 
@@ -33,7 +36,7 @@ from ..runtime.tracer import RenderContext
 from ..runtime.value import TiledInput
 from ..utils.errors import MMRuntimeError
 from .bounds import infer_displacement_bound
-from .mesh import COL_AXIS, ROW_AXIS, assemble, axis_size, tile_devices
+from .mesh import COL_AXIS, ROW_AXIS, assemble, axis_size
 
 
 def exchange_halo(blocks: list, halo: int, axis: int = 0) -> list:
@@ -123,9 +126,11 @@ def render_frame_tiled(mesh, program_filters, fdef, width: int, height: int,
 
     inputs: (H, W, 4) float32 or uint8 tensors, one per image parameter,
     each of the output's geometry (one halo serves all: the displacement
-    bound covers every sample). halo: int (rows; cols too when
-    column-sharded) or (rows, cols)."""
-    devices = tile_devices(mesh)
+    bound covers every sample); an animated (T, H, W, 4) input shards and
+    exchanges every frame alike. halo: int (rows; cols too when
+    column-sharded) or (rows, cols). The tiles are those of the mesh's
+    first frame slice."""
+    devices = mesh.devices[0]
     ny, nx = axis_size(mesh, ROW_AXIS), axis_size(mesh, COL_AXIS)
     if height % ny:
         raise MMRuntimeError(f"height ({height}) must be divisible by mesh rows ({ny})")
@@ -143,25 +148,28 @@ def render_frame_tiled(mesh, program_filters, fdef, width: int, height: int,
         halo_x = 0
 
     # per input: convert to float32 on the tile's device, exchange rows,
-    # paint, then exchange columns and paint (the reference's order)
+    # paint, then exchange columns and paint (the reference's order); an
+    # animated block's row and column axes follow its frame axis
     blocks_per_input = []
     for a in inputs:
-        blocks = [float_inputs([a[r * tile_h:(r + 1) * tile_h, c * tile_w:(c + 1) * tile_w]
+        ax0 = a.dim() - 3
+        blocks = [float_inputs([a[..., r * tile_h:(r + 1) * tile_h,
+                                  c * tile_w:(c + 1) * tile_w, :]
                                 .to(devices[r, c], non_blocking=True) for c in range(nx)])
                   for r in range(ny)]
         for c in range(nx):
-            col = exchange_halo([blocks[r][c] for r in range(ny)], halo_y, axis=0)
+            col = exchange_halo([blocks[r][c] for r in range(ny)], halo_y, axis=ax0)
             for r in range(ny):
                 blocks[r][c] = col[r]
                 if halo_y and opts.edge_y in ("color", "reflect"):
-                    _paint_edge_halo(blocks[r][c], r, ny, halo_y, 0, opts.edge_y,
+                    _paint_edge_halo(blocks[r][c], r, ny, halo_y, ax0, opts.edge_y,
                                      opts.edge_color)
         if nx > 1:
             for r in range(ny):
-                blocks[r] = exchange_halo(blocks[r], halo_x, axis=1)
+                blocks[r] = exchange_halo(blocks[r], halo_x, axis=ax0 + 1)
                 if halo_x and opts.edge_x in ("color", "reflect"):
                     for c in range(nx):
-                        _paint_edge_halo(blocks[r][c], c, nx, halo_x, 1, opts.edge_x,
+                        _paint_edge_halo(blocks[r][c], c, nx, halo_x, ax0 + 1, opts.edge_x,
                                          opts.edge_color)
         blocks_per_input.append([[b.contiguous() for b in row] for row in blocks])
 
@@ -201,13 +209,12 @@ class TiledRenderer:
     """The input-sharded renderer of one configuration.
 
     halo: int, (rows, cols), or "auto" (static displacement inference).
-    check=True raises MMRuntimeError when any sample outside a loop reached
-    beyond the halo. (`region` and supersample_scheme="corners" cannot
-    reach it: RenderOptions refuses them, ROADMAP A4.)"""
+    check=True raises MMRuntimeError when any sample outside a loop's steps
+    reached beyond the halo. (`region` and supersample_scheme="corners"
+    cannot reach it: RenderOptions refuses them, ROADMAP A4c.)"""
 
     def __init__(self, mesh, program_filters, fdef, width: int, height: int,
                  opts, halo, params=None, check: bool = True):
-        tile_devices(mesh)
         self.params = dict(params or {})
         validate_params(fdef, self.params, opts.static_params)
         if halo == "auto":

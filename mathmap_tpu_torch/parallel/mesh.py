@@ -8,7 +8,9 @@ device may appear more than once (a 4-tile mesh of one card runs the
 multi-device path on one GPU; the CPU tests build the reference's (1,8,1)
 and (1,2,4) meshes from "cpu" entries). Axis names:
 
-    "f" — frame batch (not ported: ROADMAP A4)
+    "f" — frame batch: a multi-frame render_sharded splits its frames
+          over it in contiguous blocks; a one-frame render uses the
+          first frame slice
     "y" — grid rows
     "x" — grid cols
 """
@@ -17,8 +19,6 @@ from __future__ import annotations
 
 import numpy as np
 import torch
-
-from ..ops.registry import not_ported
 
 FRAME_AXIS = "f"
 ROW_AXIS = "y"
@@ -79,16 +79,8 @@ def axis_size(mesh: Mesh, name: str) -> int:
     return mesh.shape.get(name, 1)
 
 
-def tile_devices(mesh: Mesh) -> np.ndarray:
-    """The (rows, cols) devices of the mesh's one frame slice; a frame axis
-    of more than one device is not ported (ROADMAP A4)."""
-    if axis_size(mesh, FRAME_AXIS) != 1:
-        raise not_ported("a mesh frame axis of more than one device", "ROADMAP A4")
-    return mesh.devices[0]
-
-
-def assemble(tiles: list, device: torch.device) -> torch.Tensor:
+def assemble(tiles: list, device: torch.device, out=None) -> torch.Tensor:
     """(rows, cols) nested lists of (tile_h, tile_w, C) tiles -> the whole
-    (H, W, C) frame on `device`."""
+    (H, W, C) frame on `device`, written into `out` when given."""
     return torch.cat([torch.cat([t.to(device, non_blocking=True) for t in row], dim=1)
-                      for row in tiles], dim=0)
+                      for row in tiles], dim=0, out=out)

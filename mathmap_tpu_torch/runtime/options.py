@@ -5,8 +5,8 @@ one set of options drives both packages (convert.options_from_reference).
 Fields fall in three groups on this card:
 
 - implemented: interpolation, edge_x, edge_y, edge_color, supersample
-  (grid scheme), output_dtype, static_params, seed (rand()'s draws), and
-  the loop options
+  (grid scheme), output_dtype, static_params, seed (rand()'s draws),
+  periodic (the t of an animation's frames), and the loop options
   max_loop_iters, while_unroll, while_static_unroll and pallas_while,
   which maps onto this package's while-loop kernel switch (kernel B3):
   'off' runs every loop as the masked eager loop, 'auto' runs every
@@ -17,10 +17,9 @@ Fields fall in three groups on this card:
 - accepted and validated, but steering only TPU machinery, so they have
   no effect here: sampler, pallas_tiers, pallas_per_tile,
   pallas_precision, sweep_unroll;
-- steering a part of the system that is not ported yet: periodic
-  (animation, ROADMAP A4), which no render reaches today.
-  `region` and `supersample_scheme="corners"` raise NotImplementedError
-  here when set to a non-default value (ROADMAP A4).
+- steering a part of the system that is not ported yet: `region` and
+  `supersample_scheme="corners"` raise NotImplementedError here when set
+  to a non-default value (ROADMAP A4c).
 """
 
 from __future__ import annotations
@@ -40,12 +39,12 @@ class RenderOptions:
     edge_color: tuple = (0.0, 0.0, 0.0, 0.0)
     #: supersampling antialiasing: 1 = off, s = s×s subpixel grid.
     supersample: int = 1
-    #: 'grid' only; 'corners' raises NotImplementedError (ROADMAP A4).
+    #: 'grid' only; 'corners' raises NotImplementedError (ROADMAP A4c).
     supersample_scheme: str = "grid"
     #: 'float32': (H, W, 4) in [0, 1]; 'uint8': packed on the device with
     #: the round-to-nearest 8-bit rule (runtime.render.pack_uint8).
     output_dtype: str = "float32"
-    #: (x, y, w, h) sub-rectangle render; not ported (ROADMAP A4).
+    #: (x, y, w, h) sub-rectangle render; not ported (ROADMAP A4c).
     region: tuple | None = None
     #: per-pixel `while` trip-count cap.
     max_loop_iters: int = 10000
@@ -56,7 +55,8 @@ class RenderOptions:
     while_unroll: int = 4
     #: static-trip-count while unroll budget (steps).
     while_static_unroll: int = 64
-    #: animation time convention (ROADMAP A4).
+    #: animation time convention: frame i of N is at t = i/N when periodic,
+    #: else i/(N-1) (render_animation, render_frames, render_sharded).
     periodic: bool = True
     #: rand()'s seed: every draw hashes it (ops/rand.py).
     seed: int = 0
@@ -149,7 +149,7 @@ class RenderOptions:
         # value still reports as a ValueError like the reference's
         if self.region is not None:
             raise NotImplementedError(
-                "RenderOptions.region is not ported yet (ROADMAP A4)")
+                "RenderOptions.region is not ported yet (ROADMAP A4c)")
         if self.supersample_scheme == "corners":
             raise NotImplementedError(
-                "supersample_scheme='corners' is not ported yet (ROADMAP A4)")
+                "supersample_scheme='corners' is not ported yet (ROADMAP A4c)")

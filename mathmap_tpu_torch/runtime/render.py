@@ -5,11 +5,13 @@ One render evaluates the filter once over the whole (H, W) grid per
 subsample (runtime.tracer), averages the s×s grid subsamples, clips to
 [0, 1] and optionally packs to uint8 on the device. PyTorch runs eagerly,
 so there is nothing to compile or cache: `render` takes the whole
-configuration on every call.
+configuration on every call, and a batch of jobs or an animation's frames
+is one loop of such renders (`iter_jobs`).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..kernels.sample_image import u8_to_float
@@ -80,17 +82,19 @@ def build_env(ctx: RenderContext, fdef: A.FilterDef, uservals: dict):
     return env
 
 
-def pack_uint8(rgba: torch.Tensor) -> torch.Tensor:
+def pack_uint8(rgba: torch.Tensor, out: torch.Tensor | None = None) -> torch.Tensor:
     """Device-side 8-bit packing, the reference's rule: clip to [0,1],
     ·255 + 0.5, floor. The explicit floor makes the float->int convert
-    exact."""
-    x = torch.clamp(rgba, 0.0, 1.0) * 255.0
-    return torch.floor(x + 0.5).to(torch.uint8)
+    exact. `out`: a uint8 tensor to cast into."""
+    x = torch.floor(torch.clamp(rgba, 0.0, 1.0) * 255.0 + 0.5)
+    return x.to(torch.uint8) if out is None else out.copy_(x)
 
 
-def render_frame(ctx: RenderContext, fdef: A.FilterDef, uservals: dict):
+def render_frame(ctx: RenderContext, fdef: A.FilterDef, uservals: dict,
+                 out: torch.Tensor | None = None):
     """Render one frame, or one tile of it -> ctx.shape + (4,) float32 in
-    [0,1] (uint8 when opts.output_dtype='uint8')."""
+    [0,1] (uint8 when opts.output_dtype='uint8'), written into `out` when
+    given."""
     s = ctx.opts.supersample
     acc = None
     for dx, dy in subpixel_offsets(s):
@@ -101,11 +105,10 @@ def render_frame(ctx: RenderContext, fdef: A.FilterDef, uservals: dict):
         acc = list(comps) if acc is None else [a + c for a, c in zip(acc, comps)]
     inv = 1.0 / (s * s)
     rgba = torch.stack([a * inv for a in acc], dim=-1)
-    # clamp to displayable range (the reference clamps when packing 8-bit)
-    out = torch.clamp(rgba, 0.0, 1.0)
     if ctx.opts.output_dtype == "uint8":
-        return pack_uint8(out)
-    return out
+        return pack_uint8(rgba, out)
+    # clamp to displayable range (the reference clamps when packing 8-bit)
+    return torch.clamp(rgba, 0.0, 1.0, out=out)
 
 
 def validate_params(fdef: A.FilterDef, params: dict, static_names) -> None:
@@ -133,9 +136,11 @@ def validate_params(fdef: A.FilterDef, params: dict, static_names) -> None:
 
 def render(program_filters: dict, fdef: A.FilterDef, width: int, height: int,
            opts, device: torch.device, inputs, params: dict, t: float = 0.0,
-           frame: float = 0.0) -> torch.Tensor:
+           frame: float = 0.0, out: torch.Tensor | None = None) -> torch.Tensor:
     """Render one frame of `fdef` on `device`. `inputs`: (H, W, 4) float32
-    or uint8 tensors on the device, one per image parameter in order."""
+    or uint8 tensors on the device, or animated (T, H, W, 4) stacks of
+    them, one per image parameter in order. `out`: an (H, W, 4) tensor of
+    the output dtype to write the frame into."""
     validate_params(fdef, params, opts.static_params)
     ctx = RenderContext(
         device=device, width=width, height=height, opts=opts,
@@ -143,10 +148,50 @@ def render(program_filters: dict, fdef: A.FilterDef, width: int, height: int,
         inputs=[InputImage(pixels=a, name=f"in{i}")
                 for i, a in enumerate(inputs)],
     )
-    return render_frame(ctx, fdef, user_values(ctx, fdef, params))
+    return render_frame(ctx, fdef, user_values(ctx, fdef, params), out)
 
 
 def user_values(ctx: RenderContext, fdef: A.FilterDef, params: dict) -> dict:
     """The caller's param values as TupleValues on ctx's device."""
     return {p.name: convert_userval(ctx, p, params[p.name])
             for p in fdef.params if p.name in params}
+
+
+def animation_ts(num_frames: int, periodic: bool) -> np.ndarray:
+    """The t of each frame of an animation, float32 as the reference
+    computes them: frame i of N at i/N when `periodic`, else i/(N-1)."""
+    denom = num_frames if periodic else max(num_frames - 1, 1)
+    return np.arange(num_frames, dtype=np.float32) / denom
+
+
+def iter_jobs(program_filters: dict, fdef: A.FilterDef, width: int, height: int,
+              opts, device: torch.device, inputs: list, shared_mask, params, ts, frames,
+              out: torch.Tensor | None = None):
+    """Yield N independent renders in order, each an (H, W, 4) tensor on
+    `device` (uint8 with opts.output_dtype='uint8'). `inputs`: per input,
+    one tensor on the device: a shared one (shared_mask True), which every
+    job samples as it is, or an (N, H, W, 4) stack whose slice i job i
+    samples. `params`: one dict for every job, or a list of N dicts. Job i
+    renders at t = ts[i] with its `frame` internal frames[i], each job the
+    same sequence of operations as its lone `render`, so equal to it bit
+    for bit on one device. With `out`, an (N, H, W, 4) tensor, job i is
+    written into out[i] and that view is yielded."""
+    for i in range(len(ts)):
+        ins = [a if shared else a[i] for a, shared in zip(inputs, shared_mask)]
+        job_params = params[i] if isinstance(params, (list, tuple)) else params
+        yield render(program_filters, fdef, width, height, opts, device, ins, job_params,
+                     t=float(ts[i]), frame=float(frames[i]),
+                     out=None if out is None else out[i])
+
+
+def render_jobs(program_filters: dict, fdef: A.FilterDef, width: int, height: int,
+                opts, device: torch.device, inputs: list, shared_mask, params,
+                ts, frames) -> torch.Tensor:
+    """`iter_jobs` run into one preallocated output -> (N, H, W, 4) on
+    `device`: each job's last operation writes its slice."""
+    dtype = torch.uint8 if opts.output_dtype == "uint8" else torch.float32
+    out = torch.empty((len(ts), height, width, 4), dtype=dtype, device=device)
+    for _ in iter_jobs(program_filters, fdef, width, height, opts, device, inputs,
+                       shared_mask, params, ts, frames, out):
+        pass
+    return out

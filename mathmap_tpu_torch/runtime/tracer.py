@@ -89,9 +89,9 @@ class RenderContext:
     #: filter-inlining depth (recursive filters would inline forever)
     inline_depth: int = 0
     max_inline_depth: int = 32
-    #: >0 while a while loop is evaluated (probe, unroll, kernel route,
-    #: masked loop): the tiled renderer's halo check skips samples there,
-    #: as the reference's does
+    #: >0 while a while loop's steps are evaluated (unroll, kernel route,
+    #: masked loop; not its probe): the tiled renderer's halo check skips
+    #: samples there, as the reference's does
     loop_depth: int = 0
     #: this tile's (rows, cols) when the grid is split over a mesh
     #: (parallel/); None = the whole (height, width) frame. The internals
@@ -439,14 +439,15 @@ class Evaluator:
                 # the coordinate, not zero (the if-phi merge's rule)
                 iv = self._internal(n)
                 probe_env[n] = iv if iv is not None else TupleValue(NIL, (self.lit(0.0),))
-        with self._in_loop():
-            if node.post:
-                # do-while: the body runs before the first condition
-                probe.eval(node.body)
-                probe.eval(node.cond)
-            else:
-                probe.eval(node.cond)
-                probe.eval(node.body)
+        # at loop depth 0, as the reference's probe runs: the tiled
+        # renderer's halo check measures its samples
+        if node.post:
+            # do-while: the body runs before the first condition
+            probe.eval(node.body)
+            probe.eval(node.cond)
+        else:
+            probe.eval(node.cond)
+            probe.eval(node.body)
         self.ctx.rand_counter, self.ctx.rand_loop_nonce = counter_entry, nonce_entry
 
         shape = self.ctx.shape

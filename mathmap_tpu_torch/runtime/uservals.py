@@ -1,8 +1,7 @@
 """User values (filter parameters): defaults and Python-value conversion
 (the port of `mathmap_tpu/runtime/uservals.py`) for float, int, bool,
-color, curve and gradient params. Image params bound by value come with the
-rest of the renderer (ROADMAP A4) — positional input images are bound by
-render.build_env.
+color, curve, gradient and image params. Positional input images are bound
+by render.build_env; an image param may also be bound by value.
 """
 
 from __future__ import annotations
@@ -11,10 +10,10 @@ import numpy as np
 import torch
 
 from ..lang.astnodes import Param
-from ..ops.registry import not_ported
 from ..typesys.tags import NIL
 from ..utils.errors import MMRuntimeError, MMTypeError
-from .value import Curve, Gradient, TupleValue, curve_value, gradient_value
+from .value import (Curve, Gradient, InputImage, TupleValue, curve_value, gradient_value,
+                    image_value)
 
 
 def _tuple(ctx, tag: str, values, const=None) -> TupleValue:
@@ -76,7 +75,7 @@ def convert_userval(ctx, p: Param, value) -> TupleValue:
     elif p.kind == "gradient":
         return gradient_value(_gradient(ctx, p, value))
     elif p.kind == "image":
-        raise not_ported("image parameters bound by value", "ROADMAP A4")
+        return image_value(_image(ctx, p, value))
     else:
         raise MMTypeError(f"unknown userval kind {p.kind!r}", p.span)
     static = p.name in ctx.opts.static_params
@@ -116,3 +115,22 @@ def _gradient(ctx, p: Param, value) -> Gradient:
     if lut.shape[1] == 3:
         lut = torch.cat([lut, torch.ones((lut.shape[0], 1), dtype=torch.float32)], dim=1)
     return Gradient(lut=lut.to(ctx.device).contiguous())
+
+
+def _image(ctx, p: Param, value) -> InputImage:
+    """An InputImage, or an (H, W, 4) or animated (T, H, W, 4) array or
+    tensor -> an InputImage on the render device. A uint8 image stays
+    uint8: the sampler converts each tap by /255, the reference's rule for
+    a u8 image param, so it never feeds 0-255 values to the filter; any
+    other dtype becomes float32."""
+    if isinstance(value, InputImage):
+        return InputImage(pixels=value.pixels.to(ctx.device), name=value.name)
+    pix = value.detach() if isinstance(value, torch.Tensor) else torch.from_numpy(
+        np.ascontiguousarray(value))
+    if pix.dtype != torch.uint8:
+        pix = pix.to(torch.float32)
+    if pix.dim() not in (3, 4) or pix.shape[-1] != 4:
+        raise MMTypeError(
+            f"image userval {p.name!r} needs an (H,W,4) or animated "
+            f"(T,H,W,4) array", p.span)
+    return InputImage(pixels=pix.to(ctx.device).contiguous(), name=p.name)

@@ -116,7 +116,7 @@ def test_params_pass_through_validated():
     assert isinstance(out["b"], float)
 
 
-@pytest.mark.parametrize("value", [np.zeros((4, 4, 4)), "red", (0.1, 0.2), lambda x: x])
+@pytest.mark.parametrize("value", [np.zeros((4, 4, 5)), "red", (0.1, 0.2), lambda x: x])
 def test_unported_param_values_raise(value):
     with pytest.raises(TypeError):
         params_from_reference({"p": value})

@@ -6,7 +6,7 @@ reference's NumPy oracle (`interpret=True`, rtol=1e-4, atol=1e-5); the
 (the rand() and noise entries among them; tests/test_torch_rand.py and
 test_torch_noise.py hold those against the oracle at 64x48); and every
 entry or feature the port does not have yet raising NotImplementedError
-with its ROADMAP item."""
+with its ROADMAP item (and those once refused, against the oracle)."""
 
 import hashlib
 import json
@@ -260,14 +260,30 @@ def test_unported_options_raise(opts):
 
 @pytest.mark.parametrize("entry,item", [("render_batch", "A4"), ("render_animation", "A4")])
 def test_unported_entry_points_raise(entry, item):
-    """(render_sharded and render_tiled are ported: tests/test_torch_shard.py
-    holds what of them still raises.)"""
-    port, _ = _pair("twirl")
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        getattr(port, entry)(_image(20, 16, 0, "f32"))
+    """Once refused (ROADMAP A4): render_batch and render_animation of
+    twirl render each job or frame as the oracle's lone render at its t
+    and frame (tests/test_torch_batch.py and test_torch_animation.py hold
+    the rest)."""
+    port, ref = _pair("twirl")
+    img = _image(20, 16, 0, "f32")
+    if entry == "render_batch":
+        ts = np.float32([0.1, 0.35, 0.6])
+        got = port.render_batch(np.stack([img] * 3), ts=ts, device="cpu")
+    else:
+        ts = np.arange(3, dtype=np.float32) / 3
+        got = port.render_animation(img, num_frames=3, device="cpu")
+    assert got.shape == (3, 16, 20, 4)
+    for i in range(3):
+        want = ref.render(img, t=float(ts[i]), frame=float(i), interpret=True)
+        np.testing.assert_allclose(got[i].numpy(), want, rtol=RTOL, atol=ATOL,
+                                   err_msg=f"{entry} (ROADMAP {item}) job {i}")
 
 
 def test_animated_input_raises():
-    port, _ = _pair("twirl")
-    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
-        port.render(np.zeros((2, 16, 20, 4), np.float32), device="cpu")
+    """Once refused (ROADMAP A4): an animated (T, H, W, 4) input renders,
+    sampled at the render's frame, as the oracle does."""
+    port, ref = _pair("twirl")
+    stack = np.random.RandomState(3).rand(2, 16, 20, 4).astype(np.float32)
+    got = port.render(stack, frame=1.0, device="cpu")
+    want = ref.render(stack, frame=1.0, interpret=True)
+    np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)

@@ -10,8 +10,9 @@ on CPU meshes, plus the mesh and the refusals.
   library entry the port renders whose displacement the static bound sizes
   (the sweep of tests/test_halo.py::test_library_filters_tiled_auto_halo_
   match_plain, over the whole library);
-- a frame batch, a frame axis, `region` and animated inputs raise, naming
-  their ROADMAP item; the default mesh needs a GPU.
+- a frame batch, a frame axis and animated inputs (once refused) against
+  the JAX package's; `region` raises, naming its ROADMAP item; the default
+  mesh needs a GPU.
 """
 
 import os
@@ -160,16 +161,27 @@ def test_the_sweep_covers_most_of_the_library():
 
 @pytest.mark.parametrize("entry", ["render_sharded", "render_tiled"])
 def test_a_frame_axis_is_not_ported(entry):
-    f = mt.compile_source("origVal(xy)")
-    mesh = mt.make_mesh(2, 2, 1, devices=["cpu"] * 4)
-    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
-        getattr(f, entry)(_image(1, 16, 8), mesh=mesh, **({"halo": 1} if entry == "render_tiled" else {}))
+    """Once refused (ROADMAP A4): a one-frame render on a mesh with a frame
+    axis of 2 renders over the first frame slice's tiles, as the JAX
+    package's does on a (2,2,1) mesh of its virtual devices."""
+    img = _image(1, 16, 8)
+    kw = {"halo": 1} if entry == "render_tiled" else {}
+    want = getattr(mm.compile("origVal(xy)"), entry)(
+        img, mesh=ref_make_mesh(2, 2, 1, devices=jax.devices()[:4]), **kw)
+    got = getattr(mt.compile_source("origVal(xy)"), entry)(img, mesh=port_mesh((2, 2, 1)), **kw)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL, atol=ATOL)
 
 
 def test_a_frame_batch_is_not_ported():
-    f = mt.compile_source("grayColor(t)")
-    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
-        f.render_sharded(width=8, height=8, num_frames=2, mesh=port_mesh((1, 2, 1)))
+    """Once refused (ROADMAP A4): a frame batch (num_frames > 1) renders,
+    frame i at t = i/F, as the JAX package's does on its virtual devices."""
+    src = "filter g () grayColor(t + frame / 4) end"
+    want = mm.compile(src).render_sharded(
+        width=8, height=8, num_frames=2, mesh=ref_make_mesh(2, 1, 1, devices=jax.devices()[:2]))
+    got = mt.compile_source(src).render_sharded(
+        width=8, height=8, num_frames=2, mesh=port_mesh((2, 1, 1)))
+    assert got.shape == (2, 8, 8, 4)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL, atol=ATOL)
 
 
 @pytest.mark.parametrize("entry", ["render_sharded", "render_tiled"])
@@ -182,9 +194,15 @@ def test_region_is_not_ported(entry):
 
 @pytest.mark.parametrize("entry", ["render_sharded", "render_tiled"])
 def test_animated_inputs_are_not_ported(entry):
-    f = mt.compile_source("origVal(xy)")
-    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
-        getattr(f, entry)(np.zeros((2, 16, 8, 4), np.float32), mesh=port_mesh((1, 2, 1)))
+    """Once refused (ROADMAP A4): an animated (T, H, W, 4) input renders
+    its current frame on a mesh, as the JAX package's does."""
+    stack = np.random.RandomState(2).rand(2, 16, 8, 4).astype(np.float32)
+    kw = {"halo": 1} if entry == "render_tiled" else {}
+    want = getattr(mm.compile("origVal(xy)"), entry)(
+        stack, frame=1.0, mesh=ref_make_mesh(1, 2, 1, devices=jax.devices()[:2]), **kw)
+    got = getattr(mt.compile_source("origVal(xy)"), entry)(
+        stack, frame=1.0, mesh=port_mesh((1, 2, 1)), **kw)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL, atol=ATOL)
 
 
 def test_the_default_mesh_needs_a_gpu():

@@ -198,15 +198,30 @@ def test_tiled_render_equals_the_unsharded_render_and_runs_no_kernel_on_the_cpu(
 
 
 def test_a_render_with_a_loop_sample_past_the_halo_is_not_checked():
-    """Samples inside a while loop are not measured (the reference's
-    loop_depth gate): check=True renders, and clamps like check=False."""
+    """Only a loop's steps go unmeasured (the reference's loop_depth gate).
+    Its probe, which evaluates the condition and the body once to find the
+    carried names, runs at depth 0 in both packages, so a probe tap past
+    the halo raises, in the reference on its 8 virtual devices and in the
+    port on a CPU mesh of the same shape."""
     src = ("s = 0; i = 0; while i < 2 do "
            "s = s + red(origVal(xy + xy:[0, 6])); i = i + 1 end; grayColor(s / 2)")
-    f = mt.compile_source(src)
-    mesh = port_mesh((1, 8, 1))
-    a = f.render_tiled(_image(9), halo=2, mesh=mesh)
-    b = f.render_tiled(_image(9), halo=2, mesh=mesh, check=False)
-    assert torch.equal(a, b)
+    want, got = _render_both(src, 2, {}, {}, [_image(9)], (1, 8, 1))
+    assert isinstance(want, mm.MMRuntimeError), want
+    assert isinstance(got, mt.MMRuntimeError), got
+    assert "bounded-displacement" in str(want) and "bounded-displacement" in str(got)
+
+
+def test_a_loop_sample_past_the_halo_after_the_probe_is_not_checked():
+    """The probe's tap (i = 0) lies inside the halo; later iterations reach
+    6 rows past it unmeasured: both packages render, the port's check=True
+    render equals its check=False render, and both match the reference."""
+    src = ("s = 0; i = 0; while i < 2 do "
+           "s = s + red(origVal(xy + xy:[0, i * 6])); i = i + 1 end; grayColor(s / 2)")
+    want, got = _render_both(src, 2, {}, {}, [_image(9)], (1, 8, 1))
+    _assert_parity(want, got)
+    unchecked = mt.compile_source(src).render_tiled(_image(9), halo=2, mesh=port_mesh((1, 8, 1)),
+                                                    check=False)
+    assert torch.equal(got, unchecked)
 
 
 def test_tiled_inputs_must_share_the_output_geometry():
