@@ -20,7 +20,11 @@ Three parts, each printing one line per case (the first two by default):
    config 4's frames (ripple at 1080p, supersample=2 as
    benchmarks/run_configs.py renders "4x AA", through render_animation, 8
    frames a call) and chip_smoke's param batch (8 mandelbrot jobs at 4K
-   through render_batch), per frame or job. The
+   through render_batch), per frame or job; the library slice at 4K:
+   quat_julia (a vector loop through B3), sharpen (gaussian_blur, then B1
+   twice), gamma_spiral (complex gamma) and the composition dream_pond
+   (pond, chromatic_aberration, bleach_bypass), each compiled by
+   default_db(). The
    median of 20 fenced renders (5 calls of a sweep or batch, as
    chip_smoke.py times them), then torch.profiler over 5 renders (calls):
    device kernels per render, device busy ms per render and its share of
@@ -58,6 +62,8 @@ from chip_smoke import (ANIMATION_SUPERSAMPLE, BATCH_JOBS, FILTERS, RAND_WALK, R
                         seeded_image, smooth_image, time_b1, time_b1_fields)
 
 PROFILED_RENDERS = 5
+#: the library slice's profiled renders (4K)
+LIBRARY_PROFILED = ("quat_julia", "sharpen", "gamma_spiral", "dream_pond")
 #: frames a profiled render_animation call renders, and the timed calls of
 #: a multi-frame case
 ANIMATION_CALL = 8
@@ -106,9 +112,10 @@ def profile_render(render, per: int = 1):
             syncs / n, [(k[:70], v / n / 1e3) for k, v in top])
 
 
-def part_profile(mt, filters, mandelbrot, stochastic, eager_loop, dev, card):
+def part_profile(mt, filters, mandelbrot, stochastic, library, eager_loop, dev, card):
     """`eager_loop`: RenderOptions that run mandelbrot's loop as the masked
     eager loop (pallas_while="off"), for the syncs the kernel removes;
+    `library`: name -> default_db() Filter of the library slice's 4K rows;
     `stochastic`: turbulence (four noise calls), voronoi (18), static_tv
     (one rand() draw) and rand_walk (a loop that draws, through B3),
     profiled at 4K. The
@@ -147,6 +154,9 @@ def part_profile(mt, filters, mandelbrot, stochastic, eager_loop, dev, card):
             cases += [(name, lambda f=stochastic[name]: f.render(width=w, height=h, device=dev))
                       for name in ("turbulence", "voronoi", "rand_walk")]
             cases.append(("static_tv", lambda: stochastic["static_tv"].render(img, device=dev)))
+            cases += [(name, lambda f=f: f.render(*[img] * len(f.image_params), width=w,
+                                                  height=h, t=0.3, device=dev))
+                      for name, f in library.items()]
             cases.append(("pond tiled (1,2,2)",
                           lambda: pond.render_tiled(img, mesh=mesh(1, 2, 2))))
             cases.append(("pond sharded (1,4,1)",
@@ -248,8 +258,10 @@ def main(argv) -> int:
                   for n, folder in (("turbulence", "Noise"), ("voronoi", "Render"),
                                     ("static_tv", "Noise"))}
     stochastic["rand_walk"] = mt.compile_source(RAND_WALK)
-    part_profile(mt, filters, mandelbrot, stochastic, mt.RenderOptions(pallas_while="off"),
-                 dev, card)
+    db = mt.default_db()
+    library = {n: db.compile(n) for n in LIBRARY_PROFILED}
+    part_profile(mt, filters, mandelbrot, stochastic, library,
+                 mt.RenderOptions(pallas_while="off"), dev, card)
     part_coords(filters, dev, card)
     return 0
 

@@ -106,16 +106,30 @@ Phases, each printing its own lines:
    4-frame stack on (4,1,1) and (2,2,1) meshes of the card against the
    lone renders, and the stack through render_tiled on (1,4,1), one B4
    launch a tile and frame, B4 on an animated block against its plain
-   version.
+   version;
+16. library path: the six entries that needed the vector, matrix,
+   quaternion and special builtins or gaussian_blur (affine, rotate,
+   sharpen, gamma_spiral, elliptic_rings, quat_julia) and the 22
+   compositions of filters/Compositions, each compiled by the port's
+   default_db(): at 480x270 on smooth u8 images against the port's CPU
+   render (rtol=1e-4, atol=1e-5; a composition may have under 2% of its
+   pixels beyond, tests/test_library.py's gallery bound for pixels on a
+   discontinuity), with the (B1, B2, B3) launches equal to
+   the CPU render's wrapper calls; then at 3840x2160 with the same
+   launches; quat_julia's vector loop through B3 (the kernel route, no
+   build after phase 1), its carried grids and iteration counts identical
+   to the eager loop's on the card.
 
-Every main path (phases 5, 6, 8, 9, 11-15) runs with the four launch
+Every main path (phases 5, 6, 8, 9, 11-16) runs with the four launch
 counts set to 0 just before it and read just after; the kernels line
 gives each kernel's launches by path. Then the timings: phase 10's and
 11's, B3's bound (this run's pixel iterations x the distinct ops of an
 iteration, integer ops at half rate, over the single-op issue rate SMs x
 128 lanes x clocks.max.sm, with the loop's SASS instruction count beside
-it), and the batches' ms a job and the animation's ms a frame beside their
-lone renders.
+it), the batches' ms a job and the animation's ms a frame beside their
+lone renders, the library slice's 4K render medians, B3 alone on
+quat_julia's loop, and gaussian_blur's 4K route beside F.conv2d computing
+the same blur with TF32 off.
 
 Kernel times are CUDA events around a run of launches that the card starts
 only after a sleep kernel, so the host has enqueued the run by then and the
@@ -1823,6 +1837,176 @@ def phase_frame_axis(mt, K, B4, sampling, dev, filters):
     return err
 
 
+#: the library slice's entries that waited on the vector, matrix,
+#: quaternion and special builtins (ROADMAP A7) and gaussian_blur (A2)
+LIBRARY_ENTRIES = ("affine", "rotate", "sharpen", "gamma_spiral", "elliptic_rings",
+                   "quat_julia")
+#: gaussian_blur's stddev in the timed 4K blur (sharpen's)
+BLUR_SIGMA = 1.5
+#: a composition's pixels that may lie beyond RTOL, ATOL of the CPU
+#: render: tests/test_library.py::test_composition_gallery_renders's bound
+#: (2% of pixels beyond 2e-4) for a pixel on a discontinuity, where a warp
+#: coordinate an ulp away (the card's libm) crosses it: psycho_fold's
+#: solarize branches at 0.4, which is the u8 level 102/255 exactly
+GALLERY_FRACTION = 0.02
+
+
+def library_filters(mt) -> dict:
+    """name -> Filter from the port's default_db(): LIBRARY_ENTRIES, then
+    the compositions (filters/Compositions/*.mmc) in name order."""
+    db = mt.default_db()
+    if db.errors:
+        raise AssertionError(f"default_db(): {db.errors}")
+    names = LIBRARY_ENTRIES + tuple(sorted(db.categories["Compositions"]))
+    return {n: db.compile(n) for n in names}
+
+
+def library_inputs(f, w: int, h: int, dev, seed: int) -> list:
+    """Smooth seeded u8 images on `dev`, one per image parameter of `f`
+    (smooth_image: the card is held against the CPU)."""
+    return [torch.from_numpy(smooth_image(w, h, seed=seed + i)[1]).to(dev)
+            for i in range(len(f.image_params))]
+
+
+def kernel_calls(sampling, color_ops, tracer, render) -> tuple:
+    """(B1, B2, B3) wrapper calls of `render()`: on the CPU, the calls that
+    the card turns into launches."""
+    caps = (KernelCapture(sampling, "sample_kernel"), KernelCapture(color_ops, "apply_lut"),
+            KernelCapture(tracer, "loop_kernel"))
+    with caps[0], caps[1], caps[2]:
+        render()
+    return tuple(len(c.calls) for c in caps)
+
+
+def phase_library_path(mt, K, L, WL, build, sampling, color_ops, tracer, dev, lib):
+    """The library slice through default_db().compile(name): at REDUCED
+    size each entry's (B1, B2, B3) calls on the CPU, then the card's render
+    of the same inputs with those launches, within RTOL, ATOL of the CPU
+    render (pixels beyond counted; a composition may have fewer than
+    GALLERY_FRACTION of them; all failures listed at once); then each
+    at 3840x2160 on the card with the same launches and finite output of
+    the frame's shape. quat_julia: its loop takes the kernel route with no
+    new nvcc build (phase 1 built it) and its carried grids, the iteration
+    counts among them, equal the eager loop's on the same card tensors.
+    Returns quat_julia's 4K B3 launches and its kernel's max abs err against
+    the eager loop."""
+    wrappers = (K.sample_image, L.apply_lut, WL.while_loop)
+    builds = len(build.BUILDS)
+    failures, expected = [], {}
+    w, h = REDUCED
+    for name, f in lib.items():
+        inputs = library_inputs(f, w, h, "cpu", seed=70)
+        size = dict(width=w, height=h, t=0.3)
+        want = None
+
+        def cpu():
+            nonlocal want
+            want = f.render(*inputs, device="cpu", **size)
+
+        expected[name] = kernel_calls(sampling, color_ops, tracer, cpu)
+        before = launch_counts(*wrappers)
+        got = f.render(*(a.to(dev) for a in inputs), device=dev, **size)
+        torch.cuda.synchronize()
+        counts = tuple(a - b for a, b in zip(launch_counts(*wrappers), before))
+        got = got.cpu()
+        beyond = (got - want).abs() > ATOL + RTOL * want.abs()
+        n_px, n_beyond = int((got != want).any(-1).sum()), int(beyond.any(-1).sum())
+        err = float((got - want).abs().max())
+        tag = f"library {name:16s} {w}x{h} card vs CPU"
+        print(f"{tag}: (B1, B2, B3) launches {counts}, CPU calls {expected[name]}; max abs "
+              f"err {err:.3e}, {n_px} pixels differ, {n_beyond} beyond rtol={RTOL}, "
+              f"atol={ATOL}")
+        if counts != expected[name]:
+            failures.append(f"{tag}: launches {counts}, expected {expected[name]}")
+        allowed = 0 if name in LIBRARY_ENTRIES else GALLERY_FRACTION * w * h
+        if n_beyond > allowed:
+            failures.append(f"{tag}: {n_beyond} pixels beyond tolerance ({allowed:g} "
+                            f"allowed), max abs err {err:.3e}")
+    w, h = SIZES[1]
+    qj_launches, qj_err = 0, None
+    for name, f in lib.items():
+        inputs = library_inputs(f, w, h, dev, seed=80)
+        tracer.TRACE_LOOP_PATHS.clear()
+        before = launch_counts(*wrappers)
+        with LoopCapture(tracer) as cap:
+            out = f.render(*inputs, width=w, height=h, t=0.3, device=dev)
+        torch.cuda.synchronize()
+        counts = tuple(a - b for a, b in zip(launch_counts(*wrappers), before))
+        tag = f"library {name:16s} {w}x{h}"
+        if counts != expected[name]:
+            failures.append(f"{tag}: (B1, B2, B3) launches {counts}, expected {expected[name]}")
+        if tuple(out.shape) != (h, w, 4) or not bool(torch.isfinite(out).all()):
+            failures.append(f"{tag}: bad or non-finite output {tuple(out.shape)}")
+        routes = [r for r, _ in tracer.TRACE_LOOP_PATHS]
+        line = f"{tag}: (B1, B2, B3) launches {counts}, loop routes {routes}"
+        if name == "quat_julia":
+            qj_launches = counts[2]
+            loop, flat0, mask0, max_iters, got = cap.one(name)
+            want, steps, iters = loop_reference(WL, loop, flat0, mask0, max_iters)
+            torch.cuda.synchronize()
+            differ = sum(int((a != b).sum()) for a, b in zip(got, want))
+            qj_err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+            line += (f"; B3 vs the eager loop: {len(flat0)} carried grids, {iters} pixel "
+                     f"iterations in {steps} steps, {differ} values differ, max abs err "
+                     f"{qj_err:.3e}")
+            if routes != ["kernel"] or differ:
+                failures.append(f"{tag}: routes {routes}, {differ} carried values differ "
+                                f"from the eager loop (kernel route, identical required)")
+        print(line)
+    if len(build.BUILDS) != builds:
+        failures.append(f"library path: {len(build.BUILDS) - builds} nvcc builds after "
+                        f"phase 1, none expected")
+    if failures:
+        raise AssertionError("library path:\n  " + "\n  ".join(failures))
+    print(f"library path: {len(lib)} entries ({len(LIBRARY_ENTRIES)} .mm, "
+          f"{len(lib) - len(LIBRARY_ENTRIES)} compositions) at {REDUCED[0]}x{REDUCED[1]} "
+          f"against the CPU and at {w}x{h}; no nvcc build after phase 1")
+    return qj_launches, qj_err
+
+
+def time_gaussian_blur(NF, dev, card):
+    """gaussian_blur's route at 4K (u8 source, BLUR_SIGMA) beside F.conv2d
+    computing the same separable blur, zero padding and mask
+    renormalisation with TF32 off (cuDNN's default on Hopper is TF32);
+    the bound moves the u8 image in and the float32 blur out once."""
+    import torch.nn.functional as F
+
+    w, h = SIZES[1]
+    u8 = torch.from_numpy(seeded_image(w, h, seed=17)[1]).to(dev)
+    sigma, r = NF.blur_radius(BLUR_SIGMA)
+    k = torch.tensor(NF.gauss_kernel(sigma, r), device=dev)
+
+    def conv():
+        img = (u8.to(torch.float32) / torch.tensor(255.0, device=dev)).permute(2, 0, 1)
+        both = torch.cat([img, torch.ones_like(img[:1])])[:, None]
+        both = F.conv2d(F.conv2d(both, k.view(1, 1, 1, -1), padding=(0, r)),
+                        k.view(1, 1, -1, 1), padding=(r, 0))[:, 0]
+        return (both[:4] / both[4:]).permute(1, 2, 0)
+
+    route = lambda: NF.gaussian_blur_pixels(u8, BLUR_SIGMA)  # noqa: E731
+    route_ms, conv_ms = turns(conv, route, 5, 5)
+    diff = float((route() - conv()).abs().max())
+    n_bytes = u8.numel() + 4 * u8.numel()
+    # a multiply and an add a tap (an FMA, 2 ops at FP32_OPS_PER_S): the 4
+    # channels in both passes and the mask's y pass; then 4 divisions
+    n_ops = h * w * ((4 * 2 + 1) * 2 * (2 * r + 1) + 4)
+    bound, by = bound_ms(n_bytes, n_ops)
+    print(f"timing gaussian_blur {w}x{h} u8 sigma={BLUR_SIGMA} (radius {r}): shifted-slice "
+          f"route {route_ms:.4f} ms, F.conv2d (TF32 off) {conv_ms:.4f} ms, max abs diff "
+          f"{diff:.2e}; bound {bound:.4f} ms ({by}, {n_bytes / 1e6:.0f} MB); no TPU kernel "
+          f"[{card}]")
+
+
+def time_library(lib, dev, card):
+    """Median fenced 4K renders of the library slice."""
+    w, h = SIZES[1]
+    for name, f in lib.items():
+        inputs = library_inputs(f, w, h, dev, seed=80)
+        ms = fenced_median_ms(lambda: f.render(*inputs, width=w, height=h, t=0.3, device=dev))
+        print(f"timing render {name:16s} {w}x{h}{' u8 in' if inputs else ''}: median "
+              f"{ms:.3f} ms/frame of {TIMED_RENDERS}, {w * h / ms / 1e3:.1f} Mpix/s [{card}]")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA GPU available", file=sys.stderr)
@@ -1838,6 +2022,8 @@ def main() -> int:
     from mathmap_tpu_torch.kernels import sample_image as K
     from mathmap_tpu_torch.kernels import sample_tiled as B4
     from mathmap_tpu_torch.kernels import while_loop as WL
+    from mathmap_tpu_torch.ops import color_ops
+    from mathmap_tpu_torch.runtime import native_filters as NF
     from mathmap_tpu_torch.runtime import sampling, tracer
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1854,7 +2040,9 @@ def main() -> int:
           else mt.compile_file(str(ROOT / "filters" / folder / f"{n}.mm"))
           for n, (folder, _) in STOCHASTIC.items()}
     loop_filters = [(filters[n], {}) for n in GENERATIVE]
-    loop_filters += [(filters["mandelbrot"], ZOOMED), (sin_filter, {}), (rand_walk, {})]
+    lib = library_filters(mt)
+    loop_filters += [(filters["mandelbrot"], ZOOMED), (sin_filter, {}), (rand_walk, {}),
+                     (lib["quat_julia"], {})]
     card = phase_card(mt, build, WL, tracer, loop_filters)
     rate, sms, mhz = single_op_rate()
     print(f"single-op issue rate: {sms} SMs x {LANES_PER_SM} lanes x {mhz:.0f} MHz "
@@ -1890,6 +2078,8 @@ def main() -> int:
                                   dev))
     worst_b4 = max(worst_b4, path("frame axis", phase_frame_axis, mt, K, B4, sampling, dev,
                                   filters))
+    b3_qj_launches, worst_qj = path("library", phase_library_path, mt, K, L, WL, build, sampling,
+                          color_ops, tracer, dev, lib)
     names = ("sample_image", "apply_lut", "while_loop", "sample_tiled")
     launches = {name: {p: c[k] for p, c in by_path.items() if c[k]}
                 for k, name in enumerate(names)}
@@ -1904,6 +2094,11 @@ def main() -> int:
     b3_rand = phase_stochastic_timings(WL, build, tracer, dev, st, card, rate, sass)
     time_batch(mt, dev, filters, card)
     time_animation(mt, dev, filters, card)
+    time_library(lib, dev, card)
+    b3_qj = time_b3(WL, build, tracer, lambda: lib["quat_julia"].render(
+        width=SIZES[1][0], height=SIZES[1][1], device=dev), f"quat_julia {SIZES[1][0]}x"
+        f"{SIZES[1][1]}", card, rate, sass)
+    time_gaussian_blur(NF, dev, card)
     print(f"nvcc builds in this run: {len(build.BUILDS)}, "
           f"{sum(s for _, s in build.BUILDS):.2f} s in all")
     print(f"chip_smoke: {time.perf_counter() - t0:.1f} s")
@@ -1929,6 +2124,10 @@ def main() -> int:
          "source": "mathmap_tpu_torch/csrc/while_loop.cu.tmpl",
          "replaces": "mathmap_tpu/pallas_kernels/while_kernel.py:143",
          "launches": b3_rand_launches, "max_abs_err": worst_rand, **b3_rand},
+        {"name": "while_loop (quat_julia)", "route": "cuda",
+         "source": "mathmap_tpu_torch/csrc/while_loop.cu.tmpl",
+         "replaces": "mathmap_tpu/pallas_kernels/while_kernel.py:143",
+         "launches": b3_qj_launches, "max_abs_err": worst_qj, **b3_qj},
         {"name": "sample_tiled", "route": "cuda",
          "source": "mathmap_tpu_torch/csrc/sample_tiled.cu",
          "replaces": "mathmap_tpu/runtime/sampling.py:188",

@@ -16,11 +16,16 @@ tile's halo-extended input block through a CUDA kernel of its own
 (csrc/sample_tiled.cu). `Filter.render_batch` renders N jobs (a
 `shared()` input is one image every job samples), `render_animation` and
 `render_frames` a t-sweep, and a 4-D input is an animated (T, H, W, 4)
-stack. ROADMAP.md lists what is still to port.
+stack. The vector, matrix, quaternion and special builtins and
+`gaussian_blur` are there, and `default_db()` is the filter library of
+filters/ (the `.mm` sources and the `.mmc` compositions of the composer,
+designer/), each entry compiled with the whole library in scope.
+ROADMAP.md lists what is still to port.
 
     import mathmap_tpu_torch as mt
     f = mt.compile_file("filters/Distorts/twirl.mm")
     out = f.render(image, device="cuda")     # (H, W, 4) float32 tensor
+    g = mt.default_db().compile("dream_pond")  # a composition
 """
 
 import sys as _sys
@@ -31,6 +36,7 @@ _sys.setrecursionlimit(max(_sys.getrecursionlimit(), 20000))
 
 from . import ops as _ops  # noqa: E402,F401  — populate the builtin registry
 from .api import Filter, compile_file, compile_source, shared  # noqa: E402
+from .expression_db import ExpressionDB, default_db  # noqa: E402
 from .parallel.mesh import make_mesh  # noqa: E402
 from .runtime.options import RenderOptions  # noqa: E402
 from .utils.errors import (  # noqa: E402
@@ -46,6 +52,8 @@ compile = compile_source  # noqa: A001 — the reference's alias
 __all__ = [
     "Filter",
     "shared",
+    "ExpressionDB",
+    "default_db",
     "compile",
     "compile_source",
     "compile_file",

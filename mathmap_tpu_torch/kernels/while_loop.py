@@ -48,10 +48,11 @@ from ..ops.rand import COUNTER, M32, draw_salt, rand_uniform
 from . import build
 
 #: builtins a kernel body may call: the reference's SAFE_CALLS
-#: (while_kernel.py) minus what this package does not have yet (the vector
-#: builtins of ROADMAP A7). The reference's other exclusions (the
-#: internals `a`/`ra` and the `ri:` overloads that reach atan2/sinh/cosh)
-#: were limits of the TPU's Mosaic compiler; they do not apply here.
+#: (while_kernel.py). Its other exclusions (the internals `a`/`ra` and the
+#: `ri:` overloads that reach atan2/sinh/cosh) were limits of the TPU's
+#: Mosaic compiler; they do not apply here. The special functions (gamma,
+#: lgamma, beta, ellK, ellE, Jacobi) stay off it, as in the reference,
+#: where a specials-dense body ran slower in its engine than outside.
 SAFE_CALLS = frozenset({
     "__add", "__sub", "__mul", "__div", "__mod", "__pow", "__eq", "__ne",
     "__lt", "__gt", "__le", "__ge", "__and", "__or", "__xor", "__neg",
@@ -64,7 +65,7 @@ SAFE_CALLS = frozenset({
     "rgbColor", "rgbaColor", "grayColor", "grayaColor",
     "red", "green", "blue", "alpha", "gray",
     "toXY", "toHSVA", "toRGBA",
-    "conj", "scale",
+    "conj", "length", "dotp", "crossp", "normalize", "scale",
 })
 
 #: internals that are kernel scalar arguments rather than baked literals

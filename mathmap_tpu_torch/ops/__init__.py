@@ -10,7 +10,10 @@ from . import color_ops  # noqa: F401  (colors, HSVA, toXY/toRA)
 from . import complex_ops  # noqa: F401  (ri: algebra + overload dispatch)
 from . import image_ops  # noqa: F401  (origVal family)
 from . import math_ops  # noqa: F401  (arithmetic, trig, logic, rand)
+from . import native_ops  # noqa: F401  (gaussian_blur)
 from . import noise  # noqa: F401  (Perlin noise)
+from . import special_ops  # noqa: F401  (gamma, elliptic, Jacobi)
+from . import vector_ops  # noqa: F401  (vectors, matrices, quaternions)
 from .registry import broadcast_pair, builtin, need_args, result_tag
 
 

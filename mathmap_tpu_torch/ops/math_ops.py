@@ -2,9 +2,10 @@
 torch tensors (the port of `mathmap_tpu/ops/math_ops.py`).
 
 Operator tokens are routed here as builtins named `__add`, `__mul`, ...;
-`__mul` and `__div` dispatch complex (`ri:`) operands to complex_ops.
-Matrix, quaternion and hypercomplex products are not ported yet
-(ROADMAP A7).
+`__mul` dispatches complex (`ri:`) operands to complex_ops and matrix
+(`m2x2:`/`m3x3:`), quaternion (`quat:`/`cquat:`) and hypercomplex
+(`hyper:`) operands to vector_ops, in the reference's order
+(`_special_pair_kind`); `__div` dispatches a complex denominator.
 """
 
 from __future__ import annotations
@@ -23,9 +24,9 @@ from .registry import (
     ew1,
     ew2,
     need_args,
-    not_ported,
     result_tag,
 )
+from .vector_ops import matrix_mul, quat_mul
 
 # ---------------------------------------------------------------------------
 # helpers
@@ -60,9 +61,10 @@ def _mul(ev, args, span):
         from .complex_ops import c_mul
 
         return c_mul(a, b)
-    if (a.tag == b.tag and a.tag in ("quat", "cquat", "hyper")) \
-            or a.tag in ("m2x2", "m3x3") or b.tag in ("m2x2", "m3x3"):
-        raise not_ported(f"'*' on {a.tag}:/{b.tag}: operands", "ROADMAP A7")
+    if a.tag == b.tag and a.tag in ("quat", "cquat", "hyper"):
+        return quat_mul(a, b, a.tag)
+    if a.tag in ("m2x2", "m3x3") or b.tag in ("m2x2", "m3x3"):
+        return matrix_mul(ev, a, b, span)
     pairs = broadcast_pair(a, b, span, "*")
     return TupleValue(result_tag(a, b), tuple(x * y for x, y in pairs))
 

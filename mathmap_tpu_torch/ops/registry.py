@@ -30,15 +30,7 @@ DISPLAY_NAMES = {
 
 #: builtins of the JAX package that this package does not have yet, with
 #: the ROADMAP item that ports them; calling one raises NotImplementedError
-NOT_PORTED = {
-    **dict.fromkeys(("gaussian-blur", "gaussianBlur", "gaussian_blur"),
-                    "ROADMAP A2"),
-    **dict.fromkeys((
-        "beta", "crossp", "det", "dotp", "ellE", "ellK", "ell_int_Ecomp",
-        "ell_int_Kcomp", "ell_jac_cn", "ell_jac_dn", "ell_jac_sn", "gamma",
-        "jac_cn", "jac_dn", "jac_sn", "length", "lgamma", "normalize",
-        "solve"), "ROADMAP A7"),
-}
+NOT_PORTED: dict = {}
 
 
 def display(name: str) -> str:

@@ -105,6 +105,9 @@ class RenderContext:
     #: loops begun at this level so far; offsets a loop's counters, so two
     #: loops in sequence draw different streams
     rand_loop_nonce: int = 0
+    #: (id(source pixels), stddev) -> (source pixels, blurred InputImage):
+    #: gaussian_blur's per-render cache (runtime/native_filters.py)
+    native_cache: dict = field(default_factory=dict)
 
     @property
     def shape(self):

@@ -53,6 +53,15 @@ class TupleValue:
     def retag(self, tag: str) -> "TupleValue":
         return TupleValue(tag, self.arrays, self.payload, self.const)
 
+    def static_scalar(self) -> float | None:
+        """The host-side value of a length-1 tuple, if it has one: a
+        literal, a param default, a param named in static_params, or what
+        folds from them. A passed param's tensor has none, as a traced
+        value has none on the reference's jit path."""
+        if self.const is not None and len(self.const) == 1:
+            return self.const[0]
+        return None
+
     def scalar(self, span=None):
         """The single component of a length-1 tuple."""
         if self.payload is not None or len(self.arrays) != 1:

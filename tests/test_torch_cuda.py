@@ -3,7 +3,8 @@ generated while loop, B4 tiled sampler) against their plain PyTorch
 versions, and renders on the GPU (unsharded, tiled and sharded over a mesh
 of the one card) against the port's CPU renders and the unsharded card
 render; rand()'s hash and Perlin noise on the card against the CPU, bit for
-bit, and B3 loops that draw.
+bit, and B3 loops that draw; quat_julia's vector loop through B3, and
+gaussian_blur on the card equal to the CPU bit for bit.
 
 They carry the `cuda` marker and skip without a GPU. This file imports only
 torch, numpy and the port, so it also runs on a GPU machine without jax:
@@ -188,7 +189,8 @@ def _loop_calls(f, **kw):
     return calls
 
 
-@pytest.mark.parametrize("name", ["mandelbrot", "julia", "burning_ship", "tricorn", "biomorph"])
+@pytest.mark.parametrize("name", ["mandelbrot", "julia", "burning_ship", "tricorn", "biomorph",
+                                  "quat_julia"])
 def test_cuda_loop_kernel_matches_the_eager_loop(cuda, name):
     """Identical carried grids (escape counts included): --fmad=false and
     the eager ops' order make the kernel round like the eager loop."""
@@ -247,6 +249,18 @@ GENERATOR_BODIES = {
     "if": "if p > q then v = p * 2 else v = q - 1 end",
     "tuples": ("k = clamp(c * 2 - [0.1, 0.2, 0.3, 0.4], 0, 1) + min(c, 0.5) + max(c, q);"
                "v = k[0] + k[3] + abs(xy) + abs(z * 2) + (c == c) + (c != k)"),
+    "length": "v = length(c) + length(xy) + length([p, q, 0.5])",
+    "dotp": "v = dotp(c, c) + dotp(xy, [p, q])",
+    "crossp": "w = crossp([p, q, 0.5], v3:[q, 1, p]); v = w[0] + w[1] * w[2]",
+    # floor(p) is 0 for p in [0, 1): a zero vector takes normalize's where
+    "normalize": "w = normalize([p, q, 0.5]) + normalize([q, p, 1] * floor(p)); v = w[0] + w[2]",
+    "quat_products": ("h = hyper:[p, q, 0.2, 0.1] * hyper:[q, p, 0.3, p];"
+                      "k = quat:[p, q, 1, 0] * quat:[q, 0.5, p, 1];"
+                      "m = cquat:[p, 1, q, 0] * cquat:[q, p, 1, 0.5];"
+                      "v = h[0] + h[3] + k[1] + k[2] + m[2] + m[3]"),
+    "matrix_products": ("m = m2x2:[p, q, 0.5, 1] * m2x2:[q, 1, p, 2]; w = m * xy;"
+                        "n = m3x3:[p, q, 1, 0, 1, p, q, 0, 1] * 2; u = n * [p, q, 1];"
+                        "v = w[0] + m[3] + u[1] + (n * n)[4]"),
 }
 
 
@@ -433,3 +447,16 @@ def test_cuda_stochastic_render_matches_the_cpu(cuda, name):
     if name in ("static_tv", "dissolve"):
         assert torch.equal(got.cpu(), want)
     torch.testing.assert_close(got.cpu(), want, rtol=RTOL, atol=ATOL)
+
+
+def test_cuda_gaussian_blur_equals_the_cpu(cuda):
+    """The shifted-slice blur is IEEE multiplies and adds in one order, so
+    the card's blur is the CPU's bit for bit (u8 and f32 sources)."""
+    from mathmap_tpu_torch.runtime.native_filters import gaussian_blur_pixels
+
+    rs = np.random.RandomState(5)
+    for pix in (torch.from_numpy(rs.rand(HI, WI, 4).astype(np.float32)),
+                torch.from_numpy(rs.randint(0, 256, (HI, WI, 4)).astype(np.uint8))):
+        for sigma in (0.7, 1.5, 4.0):
+            got = gaussian_blur_pixels(pix.to(cuda), sigma)
+            assert torch.equal(got.cpu(), gaussian_blur_pixels(pix, sigma))

@@ -1,6 +1,9 @@
 """Each builtin the port has, on seeded inputs, against the reference builtin
 on the NumPy backend (an oracle Evaluator). Both sides compute elementwise
-float32, so the tolerance is rtol=1e-5, atol=1e-6."""
+float32, so the tolerance is rtol=1e-5, atol=1e-6 (the oracle's gamma,
+lgamma and beta finish in float64, ops/special_ops.py; the port's float32
+stays inside the same tolerance). gaussian_blur returns an image: its
+pixels are compared."""
 
 import zlib
 
@@ -36,6 +39,20 @@ HSVA = ("hsva", 4, 0.0, 1.0)
 XY = ("xy", 2, -3.0, 3.0)
 RA = ("ra", 2, 0.0, 6.0)
 V3 = ("nil", 3, -2.0, 2.0)
+V2 = ("v2", 2, -2.0, 2.0)
+V3T = ("v3", 3, -2.0, 2.0)
+M2 = ("m2x2", 4, -2.0, 2.0)
+M3 = ("m3x3", 9, -2.0, 2.0)
+QUAT = ("quat", 4, -1.5, 1.5)
+CQUAT = ("cquat", 4, -1.5, 1.5)
+HYPER = ("hyper", 4, -1.5, 1.5)
+GAMMA_ARG = ("nil", 1, 0.05, 6.0)
+REFLECTED = ("nil", 1, -2.95, 0.45)
+UNIT_S = ("nil", 1, -0.95, 0.95, "s")
+#: "c": a 0-d scalar that carries its host-side const, as a literal does
+SIGMA = ("nil", 1, 0.4, 2.5, "c")
+#: an (H, W, 4) float32 image in [0, 1]
+IMAGE = ("image", 1, 0.0, 1.0)
 
 CASES = [
     ("__add", (U, U)), ("__add", (V3, S)), ("__sub", (U, V3)),
@@ -68,6 +85,24 @@ CASES = [
     ("toRGBA", (HSVA,)), ("toRA", (XY,)), ("toXY", (RA,)),
     ("rand", (S, S)), ("rand", (U, U)), ("noise", (V3,)), ("noise", (U, U, S)),
     ("noise", (("nil", 3, -300.0, 300.0),)),
+    # vectors, matrices, quaternions (ops/vector_ops.py)
+    ("dotp", (V3, V3)), ("dotp", (QUAT, RGBA)), ("crossp", (V3, V3T)),
+    ("normalize", (V3T,)), ("normalize", (("xy", 2, -1.0, 1.0, "q"),)),
+    ("length", (V3,)), ("length", (RGBA,)), ("det", (M2,)), ("det", (M3,)),
+    ("solve", (M2, V2)), ("solve", (M3, V3)), ("__mul", (M2, M2)),
+    ("__mul", (M2, XY)), ("__mul", (M3, M3)), ("__mul", (M3, V3T)),
+    ("__mul", (S, M2)), ("__mul", (M3, U)), ("__mul", (QUAT, QUAT)),
+    ("__mul", (CQUAT, CQUAT)), ("__mul", (HYPER, HYPER)),
+    # special functions (ops/special_ops.py)
+    ("gamma", (GAMMA_ARG,)), ("gamma", (REFLECTED,)), ("gamma", (("ri", 2, 0.6, 2.5),)),
+    ("lgamma", (("nil", 1, 0.05, 40.0),)), ("lgamma", (REFLECTED,)),
+    ("beta", (GAMMA_ARG, POS)), ("ellK", (UNIT,)), ("ell_int_Kcomp", (UNIT,)),
+    ("ellE", (UNIT,)), ("ell_int_Ecomp", (UNIT,)), ("ell_jac_sn", (U, UNIT)),
+    ("ell_jac_cn", (U, UNIT)), ("ell_jac_dn", (U, UNIT)), ("jac_sn", (POS, UNIT_S)),
+    ("jac_cn", (POS, UNIT_S)), ("jac_dn", (POS, UNIT_S)),
+    # whole-image filters (runtime/native_filters.py)
+    ("gaussian_blur", (IMAGE, SIGMA)), ("gaussian-blur", (IMAGE, SIGMA)),
+    ("gaussianBlur", (IMAGE, SIGMA)),
 ]
 
 
@@ -75,8 +110,10 @@ def _make(spec, rs):
     tag, n, lo, hi = spec[:4]
     mode = spec[4] if len(spec) > 4 else None
     comps = []
+    if tag == "image":
+        return tag, [rs.uniform(lo, hi, (H, W, 4)).astype(np.float32)]
     for _ in range(n):
-        if mode == "s":
+        if mode in ("s", "c"):
             a = np.float32(rs.uniform(lo, hi))
             comps.append(np.asarray(a, np.float32))
             continue
@@ -97,17 +134,31 @@ def _evaluators():
     return (RT.Evaluator(ref_ctx, x, x, {}), PT.Evaluator(port_ctx, xt, xt, {}))
 
 
+def _values(spec, tag, comps):
+    """(reference TupleValue, port TupleValue) of one generated argument."""
+    if tag == "image":
+        return (RV.image_value(RV.InputImage(pixels=comps[0])),
+                PV.image_value(PV.InputImage(pixels=torch.from_numpy(comps[0]))))
+    const = tuple(float(c) for c in comps) if spec[4:] == ("c",) else None
+    return (RV.TupleValue(tag, tuple(comps), const=const),
+            PV.TupleValue(tag, tuple(torch.from_numpy(np.array(a)) for a in comps),
+                          const=const))
+
+
 @pytest.mark.parametrize(
     "name,specs", CASES,
     ids=[f"{n}-{i}" for i, (n, _) in enumerate(CASES)])
 def test_builtin_matches_reference(name, specs):
     rs = np.random.RandomState(zlib.crc32(repr((name, specs)).encode()))
-    args = [_make(s, rs) for s in specs]
+    args = [_values(s, *_make(s, rs)) for s in specs]
     ref_ev, port_ev = _evaluators()
-    ref = RR.lookup(name)(ref_ev, [RV.TupleValue(t, tuple(c)) for t, c in args], None)
-    got = PR.lookup(name)(port_ev, [PV.TupleValue(t, tuple(torch.from_numpy(np.array(a)) for a in c))
-                                    for t, c in args], None)
+    ref = RR.lookup(name)(ref_ev, [r for r, _ in args], None)
+    got = PR.lookup(name)(port_ev, [p for _, p in args], None)
     assert got.tag == ref.tag
+    if ref.is_opaque:
+        # an image result: its pixels
+        ref, got = (RV.TupleValue("rgba", (ref.payload.pixels,)),
+                    PV.TupleValue("rgba", (got.payload.pixels,)))
     assert len(got.arrays) == len(ref.arrays)
     for g, r in zip(got.arrays, ref.arrays):
         g = g.numpy()

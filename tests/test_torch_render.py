@@ -2,11 +2,12 @@
 pond) and the generative slice (mandelbrot, the escape-time fractals and
 the other entries that curves, gradients and loops unblock) against the
 reference's NumPy oracle (`interpret=True`, rtol=1e-4, atol=1e-5); the
-8-bit goldens of every library .mm entry the port renders, bit for bit
-(the rand() and noise entries among them; tests/test_torch_rand.py and
-test_torch_noise.py hold those against the oracle at 64x48); and every
-entry or feature the port does not have yet raising NotImplementedError
-with its ROADMAP item (and those once refused, against the oracle)."""
+8-bit goldens of every library .mm entry and of the 22 .mmc compositions
+of the port's default_db(), bit for bit (the rand() and noise entries
+among them; tests/test_torch_rand.py and test_torch_noise.py hold those
+against the oracle at 64x48); and every feature the port does not have
+yet raising NotImplementedError with its ROADMAP item (and those once
+refused, against the oracle)."""
 
 import hashlib
 import json
@@ -133,18 +134,15 @@ def _library():
 
 
 LIBRARY = _library()
-#: library entries the port cannot render yet, with the ROADMAP item each
-#: one's NotImplementedError names
-NOT_RENDERED = {
-    **dict.fromkeys(("affine", "elliptic_rings", "gamma_spiral", "quat_julia",
-                     "rotate"), "ROADMAP A7"),
-    "sharpen": "ROADMAP A2",
-}
 #: entries whose angle `a` (atan2) and trig an ulp of torch's CPU libm
 #: used to flip by one 8-bit level (ROADMAP C1, closed): the CPU route now
 #: computes them with numpy's float32 ufuncs, the oracle's own (ops/libm.py)
 LIBM_ULP = ("rose_curve",)
-RENDERED = sorted(set(LIBRARY) - set(NOT_RENDERED))
+RENDERED = sorted(LIBRARY)
+#: the .mmc compositions of filters/Compositions, by the name default_db()
+#: gives each
+COMPOSITIONS = sorted(os.path.splitext(n)[0] for n in os.listdir(
+    os.path.join(ROOT, "filters", "Compositions")) if n.endswith(".mmc"))
 
 
 def _library_filter(name):
@@ -156,10 +154,10 @@ def _library_filter(name):
     return f
 
 
-def _goldens_render(name):
+def _goldens_render(name, f=None):
     """The uint8 render at the goldens geometry (tests/make_goldens.py):
     20x16, t=0.3, image inputs seeded 11+i, color params alternating."""
-    f = _library_filter(name)
+    f = f or _library_filter(name)
     inputs = [_image(20, 16, seed=11 + i, dtype="f32")
               for i, p in enumerate(p for p in f.fdef.params if p.kind == "image")]
     params = {p.name: (0.8, 0.3, 0.1, 1.0) if i % 2 else (0.1, 0.4, 0.9, 1.0)
@@ -172,7 +170,8 @@ def test_library_entries_are_the_goldens_entries():
     with open(os.path.join(ROOT, "tests", "goldens.json")) as fh:
         goldens = json.load(fh)
     assert set(LIBRARY) <= set(goldens) and len(LIBRARY) == 155
-    assert set(NOT_RENDERED) | set(LIBM_ULP) <= set(LIBRARY)
+    assert set(LIBM_ULP) <= set(LIBRARY)
+    assert len(COMPOSITIONS) == 22 and set(COMPOSITIONS) == set(goldens) - set(LIBRARY)
 
 
 @pytest.mark.parametrize("name", RENDERED)
@@ -200,10 +199,36 @@ def test_uint8_output_within_one_level_of_the_oracle(name):
     assert diff.max() == 0
 
 
-@pytest.mark.parametrize("name", sorted(NOT_RENDERED))
+#: the entries once refused, for the ROADMAP item each one waited on
+ONCE_UNRENDERED = {
+    **dict.fromkeys(("affine", "elliptic_rings", "gamma_spiral", "quat_julia",
+                     "rotate"), "ROADMAP A7"),
+    "sharpen": "ROADMAP A2",
+}
+
+
+@pytest.mark.parametrize("name", sorted(ONCE_UNRENDERED))
 def test_unrendered_entries_raise_naming_their_item(name):
-    with pytest.raises(NotImplementedError, match=NOT_RENDERED[name]):
-        _goldens_render(name)
+    """Once refused with NotImplementedError naming ONCE_UNRENDERED's item:
+    each entry now renders at 64x48 like the oracle (float output)."""
+    path, _program, _fdef = LIBRARY[name]
+    f = _library_filter(name)
+    n_img = sum(1 for p in f.fdef.params if p.kind == "image")
+    inputs = [_image(64, 48, seed=21 + i, dtype="f32") for i in range(n_img)]
+    want = mm.compile_file(path, main=name).render(*inputs, width=64, height=48, t=0.3,
+                                                   interpret=True)
+    got = f.render(*inputs, width=64, height=48, t=0.3, device="cpu")
+    np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("name", COMPOSITIONS)
+def test_composition_uint8_output_matches_goldens(name):
+    """A composition compiled by the port's default_db() (the composer's
+    source, every library filter in scope) reproduces its golden."""
+    with open(os.path.join(ROOT, "tests", "goldens.json")) as fh:
+        goldens = json.load(fh)
+    out = _goldens_render(name, mt.default_db().compile(name))
+    assert hashlib.sha256(out.numpy().tobytes()).hexdigest() == goldens[name]
 
 
 def test_uint8_output_is_the_packed_float_output():
@@ -237,18 +262,20 @@ def test_unknown_param_name_raises():
         port.render(_image(20, 16, 0, "f32"), params={"angel": 2.0}, device="cpu")
 
 
-NOT_PORTED = {
-    "quaternion": ("q = quat:[1, 2, 3, 4] * quat:[1, 0, 0, 0]; rgbaColor(q[0], q[1], q[2], 1)",
-                   {}, "ROADMAP A7"),
+#: language features once refused, held to the oracle
+ONCE_REFUSED = {
+    "quaternion": "q = quat:[1, 2, 3, 4] * quat:[1, 0, 0, 0]; rgbaColor(q[0], q[1], q[2], 1)",
 }
 
 
-@pytest.mark.parametrize("what", sorted(NOT_PORTED))
+@pytest.mark.parametrize("what", sorted(ONCE_REFUSED))
 def test_unported_language_features_raise(what):
-    src, params, item = NOT_PORTED[what]
-    f = mt.compile_source(src)
-    with pytest.raises(NotImplementedError, match=item):
-        f.render(_image(20, 16, 0, "f32"), params=params, device="cpu")
+    """Once refused (ROADMAP A7): renders like the oracle."""
+    src = ONCE_REFUSED[what]
+    img = _image(20, 16, 0, "f32")
+    got = mt.compile_source(src).render(img, device="cpu")
+    want = mm.compile(src).render(img, interpret=True)
+    np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
 
 
 @pytest.mark.parametrize("opts", [dict(region=(0, 0, 4, 4)),

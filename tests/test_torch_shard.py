@@ -112,9 +112,6 @@ def _library():
 
 LIBRARY = _library()
 SWEEP_SIZE = 128
-#: the library entries the port does not render yet (tests/test_torch_render.py)
-NOT_RENDERED = {"affine", "elliptic_rings", "gamma_spiral", "quat_julia", "rotate",
-                "sharpen"}
 
 
 def _library_filter(name):
@@ -125,10 +122,10 @@ def _library_filter(name):
 
 
 def _sweep_entries():
-    """The rendered entries whose auto halo fits a 2-row mesh's 64-row tiles
+    """The entries whose auto halo fits a 2-row mesh's 64-row tiles
     at 128x128, and the count of those the bound refuses."""
     fits, refused = [], 0
-    for name in sorted(set(LIBRARY) - NOT_RENDERED):
+    for name in sorted(LIBRARY):
         f = _library_filter(name)
         try:
             halo = auto_halo(f.filters, f.fdef, SWEEP_SIZE, SWEEP_SIZE, mt.RenderOptions(),
@@ -156,7 +153,7 @@ def test_library_entry_renders_tiled_like_unsharded(name):
 
 
 def test_the_sweep_covers_most_of_the_library():
-    assert len(SWEEP) >= 80 and len(SWEEP) + SWEEP_REFUSED <= len(LIBRARY) - len(NOT_RENDERED)
+    assert len(SWEEP) >= 80 and len(SWEEP) + SWEEP_REFUSED <= len(LIBRARY)
 
 
 @pytest.mark.parametrize("entry", ["render_sharded", "render_tiled"])

@@ -204,6 +204,7 @@ LIBRARY_ROUTES = {
     "Render/lissajous": {"unroll"},
     "Render/mandelbrot": {"kernel"},
     "Render/newton": {"unroll"},
+    "Render/quat_julia": {"kernel"},
     "Render/sierpinski": {"unroll"},
     "Render/tricorn": {"unroll", "kernel"},
 }
@@ -331,6 +332,7 @@ FRACTAL_PARAMS = {
     "burning_ship": {"maxiter": 40, "zoom": 1.5},
     "tricorn": {"maxiter": 40, "zoom": 1.3},
     "biomorph": {"maxiter": 40, "cre": 0.3},
+    "quat_julia": {"maxiter": 40, "cw": -0.2, "cx2": 0.6},
 }
 
 
