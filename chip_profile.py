@@ -24,7 +24,9 @@ Three parts, each printing one line per case (the first two by default):
    quat_julia (a vector loop through B3), sharpen (gaussian_blur, then B1
    twice), gamma_spiral (complex gamma) and the composition dream_pond
    (pond, chromatic_aberration, bleach_bypass), each compiled by
-   default_db(). The
+   default_db(); the front-end slice: ripple at 1080p under
+   supersample=2 with supersample_scheme='corners', and twirl at 4K over
+   chip_smoke's REGION (an unaligned 28% selection). The
    median of 20 fenced renders (5 calls of a sweep or batch, as
    chip_smoke.py times them), then torch.profiler over 5 renders (calls):
    device kernels per render, device busy ms per render and its share of
@@ -57,8 +59,8 @@ from pathlib import Path
 
 import torch
 
-from chip_smoke import (ANIMATION_SUPERSAMPLE, BATCH_JOBS, FILTERS, RAND_WALK, ROOT, SIZES,
-                        batch_params, card_line, fenced_median_ms, phase_tiled_timings,
+from chip_smoke import (ANIMATION_SUPERSAMPLE, BATCH_JOBS, FILTERS, RAND_WALK, REGION, ROOT,
+                        SIZES, batch_params, card_line, fenced_median_ms, phase_tiled_timings,
                         seeded_image, smooth_image, time_b1, time_b1_fields)
 
 PROFILED_RENDERS = 5
@@ -127,6 +129,7 @@ def part_profile(mt, filters, mandelbrot, stochastic, library, eager_loop, dev, 
         return mt.make_mesh(*shape, devices=[dev] * (shape[1] * shape[2]))
 
     aa = mt.RenderOptions(supersample=ANIMATION_SUPERSAMPLE)
+    corners = mt.RenderOptions(supersample=2, supersample_scheme="corners")
     batch = batch_params()
 
     for (w, h) in SIZES:
@@ -135,6 +138,8 @@ def part_profile(mt, filters, mandelbrot, stochastic, library, eager_loop, dev, 
         cases = [(name, lambda f=filters[name]: f.render(img, device=dev))
                  for name in FILTERS]
         if (w, h) == SIZES[0]:
+            cases.append(("ripple corners supersample=2", lambda: filters["ripple"].render(
+                img, options=corners, device=dev)))
             cases.append((f"ripple animation supersample={ANIMATION_SUPERSAMPLE}, per frame "
                           f"of {ANIMATION_CALL}",
                           lambda: filters["ripple"].render_animation(
@@ -157,6 +162,8 @@ def part_profile(mt, filters, mandelbrot, stochastic, library, eager_loop, dev, 
             cases += [(name, lambda f=f: f.render(*[img] * len(f.image_params), width=w,
                                                   height=h, t=0.3, device=dev))
                       for name, f in library.items()]
+            cases.append((f"twirl region {REGION}", lambda: filters["twirl"].render(
+                img, options=mt.RenderOptions(region=REGION), device=dev)))
             cases.append(("pond tiled (1,2,2)",
                           lambda: pond.render_tiled(img, mesh=mesh(1, 2, 2))))
             cases.append(("pond sharded (1,4,1)",

@@ -119,8 +119,29 @@ Phases, each printing its own lines:
    launches; quat_julia's vector loop through B3 (the kernel route, no
    build after phase 1), its carried grids and iteration counts identical
    to the eager loop's on the card.
+17. region path (RenderOptions.region, an unaligned 28% selection of
+   3840x2160): fisheye and twirl (u8 in, float32 and uint8 out; one B1
+   launch), mandelbrot (B3, B2), static_tv (rand()) and rand_walk (rand()
+   in B3), each equal to the card's full render cropped bit for bit; pond
+   through render_tiled on a (1,4,1) mesh of cuda:0, one B4 launch a tile
+   that meets the selection, the unsharded region render inside (uint8
+   within 1 LSB) and input 0 outside bit for bit;
+18. corners path (supersample=2, supersample_scheme='corners'): ripple at
+   1920x1080, two B1 launches a frame (the (h+1, w+1) corner grid, then
+   the centres); at 480x270 against the CPU port, and a region of it equal
+   to the crop bit for bit;
+19. CLI path: cli.main in-process over a 1920x1080 PNG (one frame,
+   --frames 3, --input-dir, --param-sweep, --tiled --region), every PNG
+   equal to the API's render packed to uint8 on the card, bit for bit; one
+   `python -m mathmap_tpu_torch` subprocess and its wall time;
+20. serve path: RenderService on the card behind the HTTP server on
+   127.0.0.1, 16 concurrent /render requests of twirl 1920x1080 at 16
+   angles over one u8 PNG, every reply equal to its lone render bit for
+   bit; batch histogram, p50/p99 latency and requests/s;
+21. selftest path: run_selftest() on cuda:0 (its ten path classes against
+   the CPU route) returns 0.
 
-Every main path (phases 5, 6, 8, 9, 11-16) runs with the four launch
+Every main path (phases 5, 6, 8, 9, 11-21) runs with the four launch
 counts set to 0 just before it and read just after; the kernels line
 gives each kernel's launches by path. Then the timings: phase 10's and
 11's, B3's bound (this run's pixel iterations x the distinct ops of an
@@ -129,7 +150,10 @@ iteration, integer ops at half rate, over the single-op issue rate SMs x
 it), the batches' ms a job and the animation's ms a frame beside their
 lone renders, the library slice's 4K render medians, B3 alone on
 quat_julia's loop, and gaussian_blur's 4K route beside F.conv2d computing
-the same blur with TF32 off.
+the same blur with TF32 off; region against full (twirl and mandelbrot at
+4K), a corners frame against a plain and a grid supersample=2 frame
+(ripple 1080p), and a CLI frame split into PNG decode, render and PNG
+encode.
 
 Kernel times are CUDA events around a run of launches that the card starts
 only after a sleep kernel, so the host has enqueued the run by then and the
@@ -149,6 +173,8 @@ import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -2007,6 +2033,353 @@ def time_library(lib, dev, card):
               f"{ms:.3f} ms/frame of {TIMED_RENDERS}, {w * h / ms / 1e3:.1f} Mpix/s [{card}]")
 
 
+#: the front-end slice (region, corners, CLI, service, --selftest): an
+#: unaligned 4K selection (x, y, w, h), 28.1% of the frame
+REGION = (517, 263, 1931, 1207)
+#: the tiled region's mesh of cuda:0 and its pond halo
+REGION_MESH = (1, 4, 1)
+#: the service phase's concurrent /render requests (twirl 1080p, one u8
+#: image, one angle each)
+SERVE_REQUESTS = 16
+SELFTEST_LOOP = ("filter selftest_loop () i = 0; z = ri:[x / 64, y / 64]; c = z;"
+                 " while abs(z) < 2 && i < 12 do z = z * z + c; i = i + 1 end;"
+                 " grayColor(i / 12) end")
+
+
+def crop(full, region):
+    x, y, w, h = region
+    return full[y:y + h, x:x + w]
+
+
+def region_mask(h: int, w: int, region, dev):
+    mask = torch.zeros(h, w, 1, dtype=torch.bool, device=dev)
+    x, y, rw, rh = region
+    mask[y:y + rh, x:x + rw] = True
+    return mask
+
+
+def phase_region(mt, K, L, WL, B4, dev, filters, st):
+    """Region renders at 3840x2160 on the card, each against the card's full
+    render cropped, bit for bit, with the full render's kernels launched on
+    the region's grid: fisheye and twirl (u8 in; float32 and uint8 out; B1),
+    mandelbrot (B3, B2), static_tv (rand(), B1) and rand_walk (rand() in B3);
+    then pond's tiled region on a (1,4,1) mesh of cuda:0 (u8 in, float32 and
+    uint8 out): inside, the unsharded region render (rtol=1e-4, atol=1e-5;
+    uint8 within 1 LSB), outside, input 0 bit for bit (uint8 out: its bytes;
+    float32 out: u8/255); one B4 launch a tile that meets the region."""
+    w, h = SIZES[1]
+    _, u8 = smooth_image(w, h, seed=21)
+    img = torch.from_numpy(u8).to(dev)
+    wrappers = (K.sample_image, L.apply_lut, WL.while_loop)
+    cases = [(name, [img], {}, out) for name in ("fisheye", "twirl")
+             for out in ("float32", "uint8")]
+    cases += [("mandelbrot", [], {}, "float32"), ("mandelbrot", [], {}, "uint8"),
+              ("static_tv", [img], {}, "float32"), ("rand_walk", [], {}, "float32")]
+    for name, ins, params, out_dtype in cases:
+        f = filters.get(name) or st[name]
+        full = f.render(*ins, width=w, height=h, params=params, device=dev,
+                        options=mt.RenderOptions(output_dtype=out_dtype))
+        before = launch_counts(*wrappers)
+        got = f.render(*ins, width=w, height=h, params=params, device=dev,
+                       options=mt.RenderOptions(output_dtype=out_dtype, region=REGION))
+        torch.cuda.synchronize()
+        launched = tuple(a - b for a, b in zip(launch_counts(*wrappers), before))
+        want = {"mandelbrot": (0, 1, 1), "rand_walk": (0, 0, 1)}.get(name, (1, 0, 0))
+        tag = f"region {name} {w}x{h} {REGION} {out_dtype} out"
+        if launched != want:
+            raise AssertionError(f"{tag}: (B1, B2, B3) launches {launched}, expected {want}")
+        if tuple(got.shape) != (REGION[3], REGION[2], 4):
+            raise AssertionError(f"{tag}: shape {tuple(got.shape)}")
+        if not torch.equal(got, crop(full, REGION)):
+            n = int((got != crop(full, REGION)).any(-1).sum())
+            raise AssertionError(f"{tag}: {n} pixels differ from the full render's crop")
+        print(f"{tag}: equal to the full render's crop bit for bit; (B1, B2, B3) "
+              f"launches {launched}")
+    f = filters["pond"]
+    mesh = card_mesh(mt, dev, REGION_MESH)
+    mask = region_mask(h, w, REGION, dev)
+    for out_dtype in ("float32", "uint8"):
+        o = mt.RenderOptions(region=REGION, output_dtype=out_dtype)
+        before = B4.sample_tiled.launches
+        got = f.render_tiled(img, mesh=mesh, options=o)
+        torch.cuda.synchronize()
+        tiles = B4.sample_tiled.launches - before
+        lone = f.render(img, options=o, device=dev)
+        tag = f"region pond tiled {REGION_MESH} {w}x{h} {REGION} {out_dtype} out"
+        th = h // REGION_MESH[1]
+        meets = sum(1 for r in range(REGION_MESH[1])
+                    if r * th < REGION[1] + REGION[3] and REGION[1] < (r + 1) * th)
+        if tiles != meets:
+            raise AssertionError(f"{tag}: {tiles} B4 launches, expected {meets}")
+        bg = img if out_dtype == "uint8" else K.u8_to_float(img)
+        if not torch.equal(torch.where(mask, bg, got), bg):
+            raise AssertionError(f"{tag}: a pixel outside the selection is not input 0's")
+        inside = crop(got, REGION)
+        if out_dtype == "uint8":
+            err = int((inside.int() - lone.int()).abs().max())
+            if err > 1:
+                raise AssertionError(f"{tag}: {err} LSB from the unsharded region render")
+        else:
+            err = check_close(tag, inside, lone)
+        print(f"{tag}: {tiles} B4 launches (the tiles that meet the selection); inside "
+              f"max err {err} vs the unsharded region render; outside input 0 bit for bit")
+
+
+def phase_corners(mt, K, dev, filters):
+    """supersample=2 under supersample_scheme='corners': ripple at 1920x1080
+    on a smooth u8 image, two B1 launches a frame (the (h+1, w+1) corner
+    grid, then the centres), finite; at 480x270 against the port's CPU
+    render (rtol=1e-4, atol=1e-5), and the same with a region inside it
+    equal to its full render's crop bit for bit."""
+    f = filters["ripple"]
+    o = mt.RenderOptions(supersample=2, supersample_scheme="corners")
+    w, h = SIZES[0]
+    img = torch.from_numpy(smooth_image(w, h, seed=15)[1]).to(dev)
+    before = K.sample_image.launches
+    out = f.render(img, options=o, device=dev)
+    torch.cuda.synchronize()
+    if K.sample_image.launches - before != 2:
+        raise AssertionError(f"corners ripple {w}x{h}: {K.sample_image.launches - before} "
+                             f"B1 launches, expected 2")
+    if tuple(out.shape) != (h, w, 4) or not bool(torch.isfinite(out).all()):
+        raise AssertionError(f"corners ripple {w}x{h}: bad output")
+    rw, rh = REDUCED
+    _, small = smooth_image(rw, rh, seed=15)
+    got = f.render(torch.from_numpy(small).to(dev), options=o, device=dev)
+    err = check_close(f"corners ripple {rw}x{rh} vs the CPU", got.cpu(),
+                      f.render(small, options=o, device="cpu"))
+    reg = (rw // 13, rh // 13, rw * 5 // 8, rh * 4 // 7)  # unaligned, inside
+    sub = f.render(torch.from_numpy(small).to(dev), device=dev, options=mt.RenderOptions(
+        supersample=2, supersample_scheme="corners", region=reg))
+    if not torch.equal(sub, crop(got, reg)):
+        raise AssertionError(f"corners ripple {rw}x{rh} region {reg}: not the crop")
+    print(f"corners ripple {w}x{h} supersample=2: 2 B1 launches, finite; {rw}x{rh} vs the "
+          f"CPU render max abs err {err:.3e}; region {reg} equal to the crop bit for bit")
+
+
+def _cli_png(path) -> torch.Tensor:
+    from mathmap_tpu_torch.imgio.images import read_animation
+
+    return torch.from_numpy(read_animation(str(path), as_uint8=True)[0])
+
+
+def phase_cli(mt, K, B4, dev, work: Path):
+    """cli.main in-process on the card over a 1920x1080 PNG (smooth, u8),
+    each written PNG equal to the API's render of the decoded input packed
+    to uint8 on the card, bit for bit: one twirl frame; ripple --frames 3
+    (frame i at t = i/3); --input-dir over 3 images (--batch-size 2, frame
+    0); --param-sweep angle=1:5 over 3 frames (frame i); pond --tiled
+    --region (the (1,1,1) mesh of the one card, the selection in place).
+    Then one `python -m mathmap_tpu_torch` subprocess, its wall time
+    printed."""
+    from mathmap_tpu_torch import cli
+    from mathmap_tpu_torch.imgio.images import read_image, write_image
+
+    w, h = SIZES[0]
+    src = work / "in.png"
+    write_image(str(src), smooth_image(w, h, seed=23)[1])
+    inp = read_image(str(src))
+    u8 = mt.RenderOptions(output_dtype="uint8")
+    twirl = str(ROOT / "filters" / "Distorts" / "twirl.mm")
+    ripple = str(ROOT / "filters" / "Distorts" / "ripple.mm")
+    pond = str(ROOT / "filters" / "Distorts" / "pond.mm")
+    f_tw, f_rip, f_pond = (mt.compile_file(p) for p in (twirl, ripple, pond))
+
+    def same(tag, path, want):
+        got = _cli_png(path)
+        if not torch.equal(got, want.cpu()):
+            n = int((got != want.cpu()).any(-1).sum())
+            raise AssertionError(f"cli {tag}: {n} pixels differ from the API's u8 render")
+
+    def run(argv):
+        t0 = time.perf_counter()
+        rc = cli.main(argv)
+        if rc != 0:
+            raise AssertionError(f"cli {argv}: exit {rc}")
+        return (time.perf_counter() - t0) * 1e3
+
+    ms = run([twirl, str(src), str(work / "tw.png"), "--param", "angle=4"])
+    same("one frame", work / "tw.png", f_tw.render(inp, params={"angle": 4}, options=u8,
+                                                   device=dev))
+    print(f"cli twirl {w}x{h} PNG in and out: {ms:.1f} ms in cli.main, equal to the API's u8 "
+          f"render bit for bit")
+    run([ripple, str(src), str(work / "rip.png"), "--frames", "3"])
+    for i, t in enumerate(np.arange(3, dtype=np.float32) / 3):
+        same(f"--frames 3 frame {i}", work / f"rip_{i:04d}.png",
+             f_rip.render(inp, t=float(t), frame=float(i), options=u8, device=dev))
+    ind = work / "ins"
+    ind.mkdir()
+    for k in range(3):
+        write_image(str(ind / f"img{k}.png"), smooth_image(w, h, seed=30 + k)[1])
+    run([twirl, str(work / "outs"), "--input-dir", str(ind), "--batch-size", "2"])
+    for k in range(3):
+        same(f"--input-dir img{k}", work / "outs" / f"img{k}.png",
+             f_tw.render(read_image(str(ind / f"img{k}.png")), options=u8, device=dev))
+    run([twirl, str(src), str(work / "sw.png"), "--param-sweep", "angle=1:5", "--frames", "3"])
+    for i, a in enumerate((1.0, 3.0, 5.0)):
+        same(f"--param-sweep step {i}", work / f"sw_{i:04d}.png",
+             f_tw.render(inp, frame=float(i), params={"angle": a}, options=u8, device=dev))
+    reg = (w // 6 + 1, h // 9 + 3, w // 2 - 7, h // 2 + 5)  # unaligned
+    before = B4.sample_tiled.launches
+    run([pond, str(src), str(work / "tr.png"), "--tiled", "--region",
+         f"{reg[0]},{reg[1]},{reg[2]}x{reg[3]}"])
+    if B4.sample_tiled.launches == before:
+        raise AssertionError("cli --tiled --region: no B4 launch")
+    same("--tiled --region", work / "tr.png", f_pond.render_tiled(
+        inp, mesh=mt.make_mesh(), options=mt.RenderOptions(region=reg, output_dtype="uint8")))
+    print("cli --frames 3, --input-dir (3 images, --batch-size 2), --param-sweep (3 steps), "
+          "--tiled --region: every PNG equal to the API's u8 render bit for bit")
+    env = {"PATH": "/usr/bin:/bin:/usr/local/bin", "PYTHONPATH": str(ROOT),
+           "HOME": str(work), "TMPDIR": str(work)}
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "mathmap_tpu_torch", twirl, str(src),
+                           str(work / "sub.png"), "--param", "angle=4", "-v"],
+                          capture_output=True, text=True, env=env, cwd=str(ROOT), timeout=300)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"python -m mathmap_tpu_torch: exit {proc.returncode}: "
+                             f"{proc.stderr[-2000:]}")
+    same("subprocess", work / "sub.png", f_tw.render(inp, params={"angle": 4}, options=u8,
+                                                     device=dev))
+    print(f"cli subprocess `python -m mathmap_tpu_torch` twirl {w}x{h}: {wall:.2f} s wall "
+          f"(interpreter, torch import, kernel library load, render); its -v: "
+          + " | ".join(proc.stderr.strip().splitlines()))
+
+
+def time_cli_frame(mt, dev, work: Path, card):
+    """A CLI frame of twirl 1920x1080 split into its parts, each the median
+    of 5: decode (read_image of the PNG), render (float32 input uploaded and
+    rendered, output copied to the host, fenced), encode (write_image); and
+    cli.main over the whole frame."""
+    from mathmap_tpu_torch import cli
+    from mathmap_tpu_torch.imgio.images import read_image, write_image
+
+    src, out = work / "in.png", work / "t.png"
+    twirl = str(ROOT / "filters" / "Distorts" / "twirl.mm")
+    f = mt.compile_file(twirl)
+
+    def med(call):
+        times = []
+        for _ in range(6):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            call()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times[1:])
+
+    inp = read_image(str(src))
+    frame = f.render(inp, params={"angle": 4}, device=dev).cpu()
+    decode = med(lambda: read_image(str(src)))
+    render = med(lambda: f.render(inp, params={"angle": 4}, device=dev).cpu())
+    encode = med(lambda: write_image(str(out), frame))
+    whole = med(lambda: cli.main([twirl, str(src), str(out), "--param", "angle=4"]))
+    print(f"timing cli frame twirl {SIZES[0][0]}x{SIZES[0][1]} PNG: decode {decode:.2f} ms, "
+          f"render {render:.2f} ms (upload, render, readback), encode {encode:.2f} ms; "
+          f"cli.main {whole:.2f} ms [{card}]")
+
+
+def phase_serve(mt, K, dev, card):
+    """RenderService on cuda:0 (its defaults: window 4 ms, max_batch 32)
+    behind the HTTP server on 127.0.0.1: one warmup, then SERVE_REQUESTS
+    concurrent /render requests of twirl 1920x1080 at as many angles over one
+    u8 PNG; every reply (a PNG) equal to its lone render on the card, bit
+    for bit; the batch histogram, p50/p99 latency and requests/s printed."""
+    import base64
+    import urllib.request
+    from http.server import ThreadingHTTPServer
+
+    from mathmap_tpu_torch.imgio.png import decode_png, encode_png
+    from mathmap_tpu_torch.serve import RenderService, make_handler
+
+    w, h = SIZES[0]
+    _, u8 = smooth_image(w, h, seed=25)
+    body = base64.b64encode(encode_png(u8)).decode()
+    angles = [float(a) for a in np.linspace(-7.5, 7.5, SERVE_REQUESTS)]
+    svc = RenderService(device=dev)
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(svc))
+    server = threading.Thread(target=httpd.serve_forever, daemon=True)
+    server.start()
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+
+    def post(req):
+        r = urllib.request.Request(base + "/render", json.dumps(req).encode(),
+                                   headers={"Content-Type": "application/json"})
+        t0 = time.perf_counter()
+        with urllib.request.urlopen(r, timeout=300) as resp:
+            data = resp.read()
+        return data, (time.perf_counter() - t0) * 1e3
+
+    try:
+        svc.warmup("twirl", w, h, batch_sizes=(1,))
+        launches = K.sample_image.launches
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(SERVE_REQUESTS) as pool:
+            replies = list(pool.map(post, [
+                {"filter": "twirl", "width": w, "height": h, "params": {"angle": a},
+                 "inputs": [body], "binary": True} for a in angles]))
+        wall = time.perf_counter() - t0
+        stats = svc.snapshot()
+        launches = K.sample_image.launches - launches
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        svc.shutdown()
+    f = mt.default_db().compile("twirl")
+    img = torch.from_numpy(u8).to(dev)
+    for a, (data, _) in zip(angles, replies):
+        lone = f.render(img, params={"angle": a}, device=dev,
+                        options=mt.RenderOptions(output_dtype="uint8")).cpu().numpy()
+        if not np.array_equal(decode_png(data), lone):
+            raise AssertionError(f"serve twirl angle={a}: reply differs from its lone render")
+    if launches != SERVE_REQUESTS:
+        raise AssertionError(f"serve: {launches} B1 launches for {SERVE_REQUESTS} requests")
+    lat = np.array([ms for _, ms in replies])
+    print(f"serve {SERVE_REQUESTS} concurrent /render twirl {w}x{h} (u8 PNG in and out): "
+          f"every reply equal to its lone render bit for bit; {launches} B1 launches; "
+          f"batch_hist {stats['batch_hist']}, {stats['dispatches']} dispatches; latency p50 "
+          f"{np.percentile(lat, 50):.1f} ms, p99 {np.percentile(lat, 99):.1f} ms; "
+          f"{SERVE_REQUESTS / wall:.2f} requests/s ({wall * 1e3:.1f} ms wall) [{card}]")
+
+
+def phase_selftest(mt, dev):
+    from mathmap_tpu_torch.selftest import run_selftest
+
+    failures = run_selftest(device=dev)
+    if failures:
+        raise AssertionError(f"selftest: {failures} failure(s)")
+
+
+def time_region_corners(mt, dev, filters, st, card):
+    """Region against full (twirl u8 and mandelbrot at 4K), and a corners
+    frame against a plain and a grid supersample=2 frame (ripple 1080p):
+    fenced medians of 20 renders."""
+    w, h = SIZES[1]
+    img = torch.from_numpy(smooth_image(w, h, seed=21)[1]).to(dev)
+    frac = REGION[2] * REGION[3] / (w * h)
+    for name, ins in (("twirl", [img]), ("mandelbrot", [])):
+        f = filters[name]
+        full = fenced_median_ms(lambda: f.render(*ins, width=w, height=h, device=dev))
+        reg = fenced_median_ms(lambda: f.render(*ins, width=w, height=h, device=dev,
+                                                options=mt.RenderOptions(region=REGION)))
+        print(f"timing region {name} {w}x{h} {REGION} ({100 * frac:.1f}% of the frame): "
+              f"{reg:.3f} ms against the full render's {full:.3f} ms ({reg / full:.3f}x) "
+              f"[{card}]")
+    w, h = SIZES[0]
+    img = torch.from_numpy(smooth_image(w, h, seed=15)[1]).to(dev)
+    f = filters["ripple"]
+    times = {label: fenced_median_ms(lambda o=o: f.render(img, options=o, device=dev))
+             for label, o in (("plain", mt.RenderOptions()),
+                              ("corners ss2", mt.RenderOptions(
+                                  supersample=2, supersample_scheme="corners")),
+                              ("grid ss2", mt.RenderOptions(supersample=2)))}
+    plain = times["plain"]
+    print(f"timing ripple {w}x{h}: plain {plain:.3f} ms, corners supersample=2 "
+          f"{times['corners ss2']:.3f} ms ({times['corners ss2'] / plain:.2f}x), grid "
+          f"supersample=2 {times['grid ss2']:.3f} ms ({times['grid ss2'] / plain:.2f}x) "
+          f"[{card}]")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA GPU available", file=sys.stderr)
@@ -2080,25 +2453,36 @@ def main() -> int:
                                   filters))
     b3_qj_launches, worst_qj = path("library", phase_library_path, mt, K, L, WL, build, sampling,
                           color_ops, tracer, dev, lib)
-    names = ("sample_image", "apply_lut", "while_loop", "sample_tiled")
-    launches = {name: {p: c[k] for p, c in by_path.items() if c[k]}
-                for k, name in enumerate(names)}
-    for name, paths in launches.items():
-        if not paths:
-            raise AssertionError(f"{name}: launched on no main path")
-        print(f"launches {name}: {sum(paths.values())} on the main paths, {paths}")
-    sass = {}
-    b1 = phase_timings(mt, K, sampling, dev, filters, card)
-    gen = phase_generative_timings(mt, L, WL, build, tracer, dev, filters, card, rate, sass)
-    b4 = phase_tiled_timings(mt, B4, sampling, dev, filters, card)
-    b3_rand = phase_stochastic_timings(WL, build, tracer, dev, st, card, rate, sass)
-    time_batch(mt, dev, filters, card)
-    time_animation(mt, dev, filters, card)
-    time_library(lib, dev, card)
-    b3_qj = time_b3(WL, build, tracer, lambda: lib["quat_julia"].render(
-        width=SIZES[1][0], height=SIZES[1][1], device=dev), f"quat_julia {SIZES[1][0]}x"
-        f"{SIZES[1][1]}", card, rate, sass)
-    time_gaussian_blur(NF, dev, card)
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
+    try:
+        path("region", phase_region, mt, K, L, WL, B4, dev, filters, st)
+        path("corners", phase_corners, mt, K, dev, filters)
+        path("cli", phase_cli, mt, K, B4, dev, work)
+        path("serve", phase_serve, mt, K, dev, card)
+        path("selftest", phase_selftest, mt, dev)
+        names = ("sample_image", "apply_lut", "while_loop", "sample_tiled")
+        launches = {name: {p: c[k] for p, c in by_path.items() if c[k]}
+                    for k, name in enumerate(names)}
+        for name, paths in launches.items():
+            if not paths:
+                raise AssertionError(f"{name}: launched on no main path")
+            print(f"launches {name}: {sum(paths.values())} on the main paths, {paths}")
+        sass = {}
+        b1 = phase_timings(mt, K, sampling, dev, filters, card)
+        gen = phase_generative_timings(mt, L, WL, build, tracer, dev, filters, card, rate, sass)
+        b4 = phase_tiled_timings(mt, B4, sampling, dev, filters, card)
+        b3_rand = phase_stochastic_timings(WL, build, tracer, dev, st, card, rate, sass)
+        time_batch(mt, dev, filters, card)
+        time_animation(mt, dev, filters, card)
+        time_library(lib, dev, card)
+        b3_qj = time_b3(WL, build, tracer, lambda: lib["quat_julia"].render(
+            width=SIZES[1][0], height=SIZES[1][1], device=dev), f"quat_julia {SIZES[1][0]}x"
+            f"{SIZES[1][1]}", card, rate, sass)
+        time_gaussian_blur(NF, dev, card)
+        time_region_corners(mt, dev, filters, st, card)
+        time_cli_frame(mt, dev, work, card)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     print(f"nvcc builds in this run: {len(build.BUILDS)}, "
           f"{sum(s for _, s in build.BUILDS):.2f} s in all")
     print(f"chip_smoke: {time.perf_counter() - t0:.1f} s")

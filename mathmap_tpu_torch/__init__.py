@@ -20,7 +20,11 @@ stack. The vector, matrix, quaternion and special builtins and
 `gaussian_blur` are there, and `default_db()` is the filter library of
 filters/ (the `.mm` sources and the `.mmc` compositions of the composer,
 designer/), each entry compiled with the whole library in scope.
-ROADMAP.md lists what is still to port.
+`RenderOptions.region` renders a selection and
+`supersample_scheme="corners"` the corner-grid antialiasing. The front
+ends are the CLI (`python -m mathmap_tpu_torch`, with `--selftest`) and
+the render service (`python -m mathmap_tpu_torch.serve`), over the
+package's own image I/O (imgio/). ROADMAP.md lists what is still to port.
 
     import mathmap_tpu_torch as mt
     f = mt.compile_file("filters/Distorts/twirl.mm")

@@ -7,12 +7,15 @@ elementwise torch ops, with origVal going through the hand-written CUDA
 sampler on the GPU (kernels/sample_image.py). `render_batch()` renders N
 independent jobs, `render_animation()` and `render_frames()` a t-sweep;
 `render_sharded()` and `render_tiled()` split the grid (and a sweep's
-frames) over a mesh of devices (parallel/). Nothing falls back to the CPU:
+frames) over a mesh of devices (parallel/); `RenderOptions.region` renders a
+selection. Nothing falls back to the CPU:
 asking for "cuda", or for the default mesh, on a machine without a GPU
 raises.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
@@ -33,6 +36,22 @@ def resolve_device(device) -> torch.device:
             f"device {str(device)!r} requested but no CUDA GPU is available "
             f"(pass device='cpu' for the plain PyTorch path)")
     return dev
+
+
+def platform_device() -> torch.device:
+    """The front ends' device (CLI, --selftest, the service): the current
+    CUDA device, or the CPU when MMTPU_PLATFORM=cpu, the reference's own
+    switch. Any other value raises, and so does a machine without a GPU
+    when the variable is unset: nothing renders on the CPU unasked."""
+    plat = os.environ.get("MMTPU_PLATFORM", "")
+    if plat == "cpu":
+        return torch.device("cpu")
+    if plat:
+        raise ValueError(f"MMTPU_PLATFORM must be 'cpu' or unset, got {plat!r}")
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA GPU is available (set MMTPU_PLATFORM=cpu to "
+                           "render on the CPU)")
+    return torch.device("cuda", torch.cuda.current_device())
 
 
 def _stage_input(a, device: torch.device) -> torch.Tensor:
@@ -121,7 +140,9 @@ class Filter:
                options: RenderOptions | None = None, params: dict | None = None,
                device="cuda") -> torch.Tensor:
         """Render one frame -> (H, W, 4) tensor on `device`: float32 in
-        [0, 1], or uint8 with options.output_dtype='uint8'.
+        [0, 1], or uint8 with options.output_dtype='uint8'. With
+        options.region = (x, y, w, h) only that selection is evaluated, with
+        the full canvas's coordinates -> (h, w, 4), the full render's crop.
 
         inputs: (H, W, C) numpy arrays or (H, W, 4) float32/uint8 tensors,
         bound to the filter's image parameters in order; a 4-D one is an
@@ -232,7 +253,8 @@ class Filter:
         in contiguous blocks -> (F, H, W, 4) there. 4-D inputs are ANIMATED
         (T, H, W, 4) stacks. `mesh=None` puts every visible GPU on the row
         axis (and raises without one; a CPU mesh is
-        make_mesh(devices=["cpu"] * n))."""
+        make_mesh(devices=["cpu"] * n)). options.region raises ValueError:
+        render() gives the crop, render_tiled() the selection in place."""
         from .parallel.mesh import make_mesh
         from .parallel.shard import render_frame_sharded, render_frames_sharded
 
@@ -267,7 +289,10 @@ class Filter:
         `halo`: "auto" infers the bound from the filter's AST
         (parallel/bounds.py), and check=True turns a violated bound into an
         MMRuntimeError instead of a silent clamp. `mesh=None` puts every
-        visible GPU on the row axis."""
+        visible GPU on the row axis. With options.region the output is the
+        full canvas: the selection rendered in place, every other pixel
+        input 0's current frame (in the output dtype; u8 in and out pass
+        the input bytes through)."""
         from .parallel.halo import TiledRenderer
         from .parallel.mesh import make_mesh
 

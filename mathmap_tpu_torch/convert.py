@@ -20,9 +20,8 @@ _FIELDS = frozenset(f.name for f in dataclasses.fields(RenderOptions))
 
 def options_from_reference(opts) -> RenderOptions:
     """A reference `RenderOptions` (any dataclass with its fields) -> this
-    package's RenderOptions. A field this package does not know raises
-    ValueError; `region` and the 'corners' scheme raise NotImplementedError
-    (RenderOptions.__post_init__)."""
+    package's RenderOptions, `region` and the 'corners' scheme included. A
+    field this package does not know raises ValueError."""
     names = [f.name for f in dataclasses.fields(opts)]
     unknown = sorted(set(names) - _FIELDS)
     if unknown:

@@ -13,6 +13,15 @@ one card, a peer copy across cards). An animated input's frames are all
 split and exchanged alike, so a tile samples the block of the frame it
 selects.
 
+With `RenderOptions.region` (a GIMP selection of a drawable too large to
+replicate) the output is the FULL canvas: each tile evaluates only its
+exact overlap with the selection, at the overlap's global offset (tiles
+without one evaluate nothing), and every other pixel passes through from
+input 0's current frame. The reference evaluates a uniform clamped window
+on every device instead, because `shard_map` needs one shape everywhere;
+its wider window can trip the halo check on pixels outside the selection,
+where this one renders.
+
 Correctness contract: the filter's source displacement must be bounded by
 `halo` rows (and cols, when column-sharded). Three layers, as in the
 reference:
@@ -31,9 +40,11 @@ import math
 
 import torch
 
-from ..runtime.render import float_inputs, render_frame, user_values, validate_params
+from ..kernels.sample_image import u8_to_float
+from ..runtime.render import (float_inputs, pack_uint8, render_frame, resolve_region,
+                              user_values, validate_params)
 from ..runtime.tracer import RenderContext
-from ..runtime.value import TiledInput
+from ..runtime.value import InputImage, TiledInput
 from ..utils.errors import MMRuntimeError
 from .bounds import infer_displacement_bound
 from .mesh import COL_AXIS, ROW_AXIS, assemble, axis_size
@@ -116,6 +127,28 @@ def auto_halo(program_filters, fdef, width: int, height: int,
     return int(math.ceil(dy)) + margin, int(math.ceil(dx)) + margin
 
 
+def _overlap(region, r0: int, c0: int, tile_h: int, tile_w: int):
+    """The (row, col, rows, cols) of a tile's overlap with `region`, in
+    global pixels, or None when they do not meet."""
+    x, y, w, h = region
+    top, left = max(y, r0), max(x, c0)
+    bottom, right = min(y + h, r0 + tile_h), min(x + w, c0 + tile_w)
+    if top >= bottom or left >= right:
+        return None
+    return top, left, bottom - top, right - left
+
+
+def _background(a: torch.Tensor, opts, frame: float, rows: slice, cols: slice, device):
+    """A region render's pass-through: input 0's current frame over one
+    tile, in the output dtype, as a fresh tensor on `device`. u8 in and u8
+    out copy the input bytes; otherwise the float values are packed, or
+    u8 is converted, by the render's own rules."""
+    block = InputImage(pixels=a).frame_pixels(frame)[rows, cols].to(device)
+    if opts.output_dtype == "uint8":
+        return block.clone() if block.dtype == torch.uint8 else pack_uint8(block)
+    return u8_to_float(block) if block.dtype == torch.uint8 else block.clone()
+
+
 def render_frame_tiled(mesh, program_filters, fdef, width: int, height: int,
                        opts, inputs: list, halo, params: dict, t: float = 0.0,
                        frame: float = 0.0, check: bool = True):
@@ -129,7 +162,9 @@ def render_frame_tiled(mesh, program_filters, fdef, width: int, height: int,
     bound covers every sample); an animated (T, H, W, 4) input shards and
     exchanges every frame alike. halo: int (rows; cols too when
     column-sharded) or (rows, cols). The tiles are those of the mesh's
-    first frame slice."""
+    first frame slice. With opts.region, the frame is the full canvas with
+    the selection rendered in place and input 0's current frame elsewhere
+    (see the module docstring)."""
     devices = mesh.devices[0]
     ny, nx = axis_size(mesh, ROW_AXIS), axis_size(mesh, COL_AXIS)
     if height % ny:
@@ -146,6 +181,11 @@ def render_frame_tiled(mesh, program_filters, fdef, width: int, height: int,
         raise MMRuntimeError(f"halo ({halo_x}) larger than tile width ({tile_w})")
     if nx == 1:
         halo_x = 0
+    region = resolve_region(opts, width, height)
+    if region is not None and not inputs:
+        raise MMRuntimeError(
+            "region on the tiled path needs at least one input: input 0 "
+            "is the drawable whose unselected pixels pass through")
 
     # per input: convert to float32 on the tile's device, exchange rows,
     # paint, then exchange columns and paint (the reference's order); an
@@ -179,11 +219,20 @@ def render_frame_tiled(mesh, program_filters, fdef, width: int, height: int,
     for r in range(ny):
         row = []
         for c in range(nx):
+            r0, c0 = r * tile_h, c * tile_w
+            grid = (r0, c0, tile_h, tile_w)
+            if region is not None:
+                bg = _background(inputs[0], opts, frame, slice(r0, r0 + tile_h),
+                                 slice(c0, c0 + tile_w), devices[r, c])
+                grid = _overlap(region, r0, c0, tile_h, tile_w)
+                if grid is None:
+                    row.append(bg)
+                    continue
+            gy, gx, gh, gw = grid
             ctx = RenderContext(
                 device=devices[r, c], width=width, height=height, opts=opts,
                 filters=program_filters, t=float(t), frame=float(frame),
-                grid_shape=(tile_h, tile_w),
-                row_offset=r * tile_h, col_offset=c * tile_w)
+                grid_shape=(gh, gw), row_offset=gy, col_offset=gx)
 
             def hook(e, ctx=ctx):
                 # samples inside while loops are not checked, as in the
@@ -194,12 +243,16 @@ def render_frame_tiled(mesh, program_filters, fdef, width: int, height: int,
             ctx.inputs = [TiledInput(
                 pixels=ext[r][c], name=f"in{k}",
                 global_height=height, global_width=width if nx > 1 else 0,
-                row_base=r * tile_h - halo_y,
-                col_base=c * tile_w - halo_x if nx > 1 else 0,
+                row_base=r0 - halo_y,
+                col_base=c0 - halo_x if nx > 1 else 0,
                 halo_y=halo_y, halo_x=halo_x,
                 violation_hook=hook if check else None)
                 for k, ext in enumerate(blocks_per_input)]
-            row.append(render_frame(ctx, fdef, user_values(ctx, fdef, params)))
+            out = render_frame(ctx, fdef, user_values(ctx, fdef, params))
+            if region is not None:
+                bg[gy - r0:gy - r0 + gh, gx - c0:gx - c0 + gw] = out
+                out = bg
+            row.append(out)
         tiles.append(row)
     worst = torch.stack(excess).max() if excess else None
     return assemble(tiles, first), worst
@@ -210,13 +263,19 @@ class TiledRenderer:
 
     halo: int, (rows, cols), or "auto" (static displacement inference).
     check=True raises MMRuntimeError when any sample outside a loop's steps
-    reached beyond the halo. (`region` and supersample_scheme="corners"
-    cannot reach it: RenderOptions refuses them, ROADMAP A4c.)"""
+    reached beyond the halo. opts.region renders the selection in place on
+    the full canvas; supersample_scheme="corners" is refused, as in the
+    reference (its corner row and column would need their own halo)."""
 
     def __init__(self, mesh, program_filters, fdef, width: int, height: int,
                  opts, halo, params=None, check: bool = True):
         self.params = dict(params or {})
         validate_params(fdef, self.params, opts.static_params)
+        resolve_region(opts, width, height)
+        if opts.supersample > 1 and opts.supersample_scheme == "corners":
+            raise ValueError(
+                "supersample_scheme='corners' is not supported by the "
+                "tiled (input-sharded) renderer; use 'grid'")
         if halo == "auto":
             halo = auto_halo(program_filters, fdef, width, height, opts,
                              self.params, ny=axis_size(mesh, ROW_AXIS),

@@ -55,7 +55,15 @@ def _render_tiles(devices, replicas: dict, program_filters, fdef, width: int, he
     return assemble(tiles, devices[0, 0] if out is None else out.device, out=out)
 
 
-def _check_grid(mesh, width: int, height: int):
+def _check_grid(mesh, opts, width: int, height: int):
+    if opts.region is not None:
+        # a region render IS a tile of the canvas: render it unsharded, or
+        # in place on the input-sharded path
+        raise ValueError(
+            "options.region is not supported by render_sharded; "
+            "use render() for the region crop, or render_tiled() for "
+            "the sharded-drawable selection semantics (the region "
+            "rendered in place on the full canvas)")
     _check_divisible(height, axis_size(mesh, ROW_AXIS), "height")
     _check_divisible(width, axis_size(mesh, COL_AXIS), "width")
 
@@ -69,7 +77,7 @@ def render_frame_sharded(mesh, program_filters, fdef, width: int, height: int,
     every tile's device (once per distinct device); `params`: the caller's
     param values."""
     validate_params(fdef, params, opts.static_params)
-    _check_grid(mesh, width, height)
+    _check_grid(mesh, opts, width, height)
     return _render_tiles(mesh.devices[0], {}, program_filters, fdef, width, height,
                          opts, inputs, params, t, frame)
 
@@ -82,7 +90,7 @@ def render_frames_sharded(mesh, program_filters, fdef, width: int, height: int,
     4) on the mesh's first device. The frame count must divide by the
     frame axis."""
     validate_params(fdef, params, opts.static_params)
-    _check_grid(mesh, width, height)
+    _check_grid(mesh, opts, width, height)
     n = len(ts)
     nf = axis_size(mesh, FRAME_AXIS)
     _check_divisible(n, nf, "num_frames")

@@ -2,11 +2,13 @@
 package's `mathmap_tpu.runtime.options.RenderOptions`, field for field, so
 one set of options drives both packages (convert.options_from_reference).
 
-Fields fall in three groups on this card:
+Fields fall in two groups on this card:
 
 - implemented: interpolation, edge_x, edge_y, edge_color, supersample
-  (grid scheme), output_dtype, static_params, seed (rand()'s draws),
-  periodic (the t of an animation's frames), and the loop options
+  and supersample_scheme (the s×s grid, or the shared corner grid plus
+  the pixel centres), output_dtype, region (a sub-rectangle evaluated
+  with the full canvas's coordinates), static_params, seed (rand()'s
+  draws), periodic (the t of an animation's frames), and the loop options
   max_loop_iters, while_unroll, while_static_unroll and pallas_while,
   which maps onto this package's while-loop kernel switch (kernel B3):
   'off' runs every loop as the masked eager loop, 'auto' runs every
@@ -16,10 +18,7 @@ Fields fall in three groups on this card:
   static unroll;
 - accepted and validated, but steering only TPU machinery, so they have
   no effect here: sampler, pallas_tiers, pallas_per_tile,
-  pallas_precision, sweep_unroll;
-- steering a part of the system that is not ported yet: `region` and
-  `supersample_scheme="corners"` raise NotImplementedError here when set
-  to a non-default value (ROADMAP A4c).
+  pallas_precision, sweep_unroll.
 """
 
 from __future__ import annotations
@@ -39,12 +38,14 @@ class RenderOptions:
     edge_color: tuple = (0.0, 0.0, 0.0, 0.0)
     #: supersampling antialiasing: 1 = off, s = s×s subpixel grid.
     supersample: int = 1
-    #: 'grid' only; 'corners' raises NotImplementedError (ROADMAP A4c).
+    #: 'grid' (s×s subpixels) or 'corners' (one (h+1, w+1) corner grid plus
+    #: the centres, five samples a pixel; used when supersample > 1).
     supersample_scheme: str = "grid"
     #: 'float32': (H, W, 4) in [0, 1]; 'uint8': packed on the device with
     #: the round-to-nearest 8-bit rule (runtime.render.pack_uint8).
     output_dtype: str = "float32"
-    #: (x, y, w, h) sub-rectangle render; not ported (ROADMAP A4c).
+    #: (x, y, w, h) sub-rectangle render: only the (h, w) grid is evaluated,
+    #: while x/y/W/H/R and input sampling keep the full canvas.
     region: tuple | None = None
     #: per-pixel `while` trip-count cap.
     max_loop_iters: int = 10000
@@ -145,11 +146,3 @@ class RenderOptions:
             raise ValueError("pallas_per_tile must be 'auto', 'on' or 'off'")
         if self.pallas_precision not in ("bf16", "f32"):
             raise ValueError("pallas_precision must be 'bf16' or 'f32'")
-        # the slice's unported options, checked after validation so a bad
-        # value still reports as a ValueError like the reference's
-        if self.region is not None:
-            raise NotImplementedError(
-                "RenderOptions.region is not ported yet (ROADMAP A4c)")
-        if self.supersample_scheme == "corners":
-            raise NotImplementedError(
-                "supersample_scheme='corners' is not ported yet (ROADMAP A4c)")

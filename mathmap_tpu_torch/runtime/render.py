@@ -2,14 +2,20 @@
 `mathmap_tpu/runtime/render.py`).
 
 One render evaluates the filter once over the whole (H, W) grid per
-subsample (runtime.tracer), averages the s×s grid subsamples, clips to
-[0, 1] and optionally packs to uint8 on the device. PyTorch runs eagerly,
+subsample (runtime.tracer), averages the s×s grid subsamples (or, under
+supersample_scheme='corners', the four corners and the centre of each
+pixel), clips to [0, 1] and optionally packs to uint8 on the device. A
+region render evaluates only the region's (h, w) grid at its offset, with
+the full canvas's coordinates, so it is the full render's crop bit for
+bit. PyTorch runs eagerly,
 so there is nothing to compile or cache: `render` takes the whole
 configuration on every call, and a batch of jobs or an animation's frames
 is one loop of such renders (`iter_jobs`).
 """
 
 from __future__ import annotations
+
+from dataclasses import replace
 
 import numpy as np
 import torch
@@ -44,6 +50,34 @@ def coordinate_grids(ctx: RenderContext, dx: float = 0.0, dy: float = 0.0):
     x = torch.broadcast_to(xs[None, :], (h, w))
     y = torch.broadcast_to(ys[:, None], (h, w))
     return x, y
+
+
+def resolve_region(opts, width: int, height: int):
+    """Validate opts.region against the canvas -> (x, y, w, h) or None.
+    GIMP-selection semantics: only the sub-rectangle is evaluated, but
+    x/y/W/H/R and input sampling use the FULL canvas."""
+    reg = opts.region
+    if reg is None:
+        return None
+    x, y, w, h = reg
+    if x + w > width or y + h > height:
+        raise ValueError(f"region {reg} exceeds the {width}x{height} canvas")
+    return reg
+
+
+def region_fields(region) -> dict:
+    """RenderContext fields that evaluate only `region`'s grid: its shape
+    at its global offset (the fields a mesh tile uses)."""
+    if region is None:
+        return {}
+    x, y, w, h = region
+    return dict(grid_shape=(h, w), row_offset=y, col_offset=x)
+
+
+def output_shape(opts, width: int, height: int) -> tuple:
+    """(rows, cols) of a frame's output: the region's, else the canvas's."""
+    region = resolve_region(opts, width, height)
+    return (height, width) if region is None else (region[3], region[2])
 
 
 def float_inputs(arrays):
@@ -90,21 +124,49 @@ def pack_uint8(rgba: torch.Tensor, out: torch.Tensor | None = None) -> torch.Ten
     return x.to(torch.uint8) if out is None else out.copy_(x)
 
 
+def _eval_rgba(ctx: RenderContext, fdef: A.FilterDef, uservals: dict,
+               dx: float = 0.0, dy: float = 0.0) -> list:
+    """One unclipped evaluation of the filter over ctx's grid at subpixel
+    offset (dx, dy) -> its 4 channel grids."""
+    x, y = coordinate_grids(ctx, dx, dy)
+    env = build_env(ctx, fdef, uservals)
+    ev = Evaluator(ctx, x, y, env)
+    return coerce_rgba(ev, ev.eval(fdef.body), fdef)
+
+
+def _corners_rgba(ctx: RenderContext, fdef: A.FilterDef, uservals: dict) -> torch.Tensor:
+    """The corner-grid scheme: ONE evaluation on the (h+1, w+1) grid of
+    pixel corners (offset (-0.5, -0.5), each interior corner shared by four
+    pixels), then the centres; the five samples of a pixel weigh 1/5 each,
+    added in the reference's order. W/H and world coordinates keep the
+    real frame; only the evaluation grid grows. The rand counter and the
+    loop nonce carry from the corner evaluation into the centre one, so
+    the two draw distinct streams."""
+    h, w = ctx.shape
+    sub = replace(ctx, grid_shape=(h + 1, w + 1))
+    corner = torch.stack(_eval_rgba(sub, fdef, uservals, -0.5, -0.5), dim=-1)
+    ctx.rand_counter = sub.rand_counter
+    ctx.rand_loop_nonce = sub.rand_loop_nonce
+    center = torch.stack(_eval_rgba(ctx, fdef, uservals), dim=-1)
+    return (corner[:-1, :-1] + corner[:-1, 1:] + corner[1:, :-1]
+            + corner[1:, 1:] + center) * 0.2
+
+
 def render_frame(ctx: RenderContext, fdef: A.FilterDef, uservals: dict,
                  out: torch.Tensor | None = None):
-    """Render one frame, or one tile of it -> ctx.shape + (4,) float32 in
-    [0,1] (uint8 when opts.output_dtype='uint8'), written into `out` when
-    given."""
+    """Render one frame, one tile of it or one region of it -> ctx.shape +
+    (4,) float32 in [0,1] (uint8 when opts.output_dtype='uint8'), written
+    into `out` when given."""
     s = ctx.opts.supersample
-    acc = None
-    for dx, dy in subpixel_offsets(s):
-        x, y = coordinate_grids(ctx, dx, dy)
-        env = build_env(ctx, fdef, uservals)
-        ev = Evaluator(ctx, x, y, env)
-        comps = coerce_rgba(ev, ev.eval(fdef.body), fdef)
-        acc = list(comps) if acc is None else [a + c for a, c in zip(acc, comps)]
-    inv = 1.0 / (s * s)
-    rgba = torch.stack([a * inv for a in acc], dim=-1)
+    if s > 1 and ctx.opts.supersample_scheme == "corners":
+        rgba = _corners_rgba(ctx, fdef, uservals)
+    else:
+        acc = None
+        for dx, dy in subpixel_offsets(s):
+            comps = _eval_rgba(ctx, fdef, uservals, dx, dy)
+            acc = list(comps) if acc is None else [a + c for a, c in zip(acc, comps)]
+        inv = 1.0 / (s * s)
+        rgba = torch.stack([a * inv for a in acc], dim=-1)
     if ctx.opts.output_dtype == "uint8":
         return pack_uint8(rgba, out)
     # clamp to displayable range (the reference clamps when packing 8-bit)
@@ -137,16 +199,18 @@ def validate_params(fdef: A.FilterDef, params: dict, static_names) -> None:
 def render(program_filters: dict, fdef: A.FilterDef, width: int, height: int,
            opts, device: torch.device, inputs, params: dict, t: float = 0.0,
            frame: float = 0.0, out: torch.Tensor | None = None) -> torch.Tensor:
-    """Render one frame of `fdef` on `device`. `inputs`: (H, W, 4) float32
-    or uint8 tensors on the device, or animated (T, H, W, 4) stacks of
-    them, one per image parameter in order. `out`: an (H, W, 4) tensor of
-    the output dtype to write the frame into."""
+    """Render one frame of `fdef` on `device` -> (H, W, 4), or (h, w, 4)
+    when opts.region is set. `inputs`: (H, W, 4) float32 or uint8 tensors
+    on the device, or animated (T, H, W, 4) stacks of them, one per image
+    parameter in order. `out`: a tensor of the output's shape and dtype to
+    write the frame into."""
     validate_params(fdef, params, opts.static_params)
     ctx = RenderContext(
         device=device, width=width, height=height, opts=opts,
         filters=program_filters, t=float(t), frame=float(frame),
         inputs=[InputImage(pixels=a, name=f"in{i}")
                 for i, a in enumerate(inputs)],
+        **region_fields(resolve_region(opts, width, height)),
     )
     return render_frame(ctx, fdef, user_values(ctx, fdef, params), out)
 
@@ -168,14 +232,15 @@ def iter_jobs(program_filters: dict, fdef: A.FilterDef, width: int, height: int,
               opts, device: torch.device, inputs: list, shared_mask, params, ts, frames,
               out: torch.Tensor | None = None):
     """Yield N independent renders in order, each an (H, W, 4) tensor on
-    `device` (uint8 with opts.output_dtype='uint8'). `inputs`: per input,
+    `device`, (h, w, 4) with opts.region (uint8 with
+    opts.output_dtype='uint8'). `inputs`: per input,
     one tensor on the device: a shared one (shared_mask True), which every
     job samples as it is, or an (N, H, W, 4) stack whose slice i job i
     samples. `params`: one dict for every job, or a list of N dicts. Job i
     renders at t = ts[i] with its `frame` internal frames[i], each job the
     same sequence of operations as its lone `render`, so equal to it bit
-    for bit on one device. With `out`, an (N, H, W, 4) tensor, job i is
-    written into out[i] and that view is yielded."""
+    for bit on one device. With `out`, an (N, ...) tensor of the outputs'
+    shape, job i is written into out[i] and that view is yielded."""
     for i in range(len(ts)):
         ins = [a if shared else a[i] for a, shared in zip(inputs, shared_mask)]
         job_params = params[i] if isinstance(params, (list, tuple)) else params
@@ -188,9 +253,11 @@ def render_jobs(program_filters: dict, fdef: A.FilterDef, width: int, height: in
                 opts, device: torch.device, inputs: list, shared_mask, params,
                 ts, frames) -> torch.Tensor:
     """`iter_jobs` run into one preallocated output -> (N, H, W, 4) on
-    `device`: each job's last operation writes its slice."""
+    `device`, (N, h, w, 4) with opts.region: each job's last operation
+    writes its slice."""
     dtype = torch.uint8 if opts.output_dtype == "uint8" else torch.float32
-    out = torch.empty((len(ts), height, width, 4), dtype=dtype, device=device)
+    out = torch.empty((len(ts), *output_shape(opts, width, height), 4), dtype=dtype,
+                      device=device)
     for _ in iter_jobs(program_filters, fdef, width, height, opts, device, inputs,
                        shared_mask, params, ts, frames, out):
         pass

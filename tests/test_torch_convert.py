@@ -37,7 +37,6 @@ NON_DEFAULT = {
     "sweep_unroll": 4,
     "pallas_precision": "f32",
 }
-UNPORTED_FIELDS = {"region", "supersample_scheme"}
 REF_FIELDS = [f.name for f in dataclasses.fields(mm.RenderOptions)]
 
 
@@ -49,10 +48,6 @@ def test_table_covers_every_reference_field():
 @pytest.mark.parametrize("field", REF_FIELDS)
 def test_options_from_reference_carries_each_field(field):
     ref = mm.RenderOptions(**{field: NON_DEFAULT[field]})
-    if field in UNPORTED_FIELDS:
-        with pytest.raises(NotImplementedError, match="ROADMAP A4"):
-            options_from_reference(ref)
-        return
     port = options_from_reference(ref)
     assert isinstance(port, mt.RenderOptions)
     for name in REF_FIELDS:

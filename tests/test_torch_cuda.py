@@ -4,7 +4,10 @@ versions, and renders on the GPU (unsharded, tiled and sharded over a mesh
 of the one card) against the port's CPU renders and the unsharded card
 render; rand()'s hash and Perlin noise on the card against the CPU, bit for
 bit, and B3 loops that draw; quat_julia's vector loop through B3, and
-gaussian_blur on the card equal to the CPU bit for bit.
+gaussian_blur on the card equal to the CPU bit for bit; region renders
+equal to the card's full render cropped bit for bit (B1, B2, B3, and the
+tiled selection in place), corners against the CPU, the CLI, --selftest
+and the render service on the card.
 
 They carry the `cuda` marker and skip without a GPU. This file imports only
 torch, numpy and the port, so it also runs on a GPU machine without jax:
@@ -460,3 +463,107 @@ def test_cuda_gaussian_blur_equals_the_cpu(cuda):
         for sigma in (0.7, 1.5, 4.0):
             got = gaussian_blur_pixels(pix.to(cuda), sigma)
             assert torch.equal(got.cpu(), gaussian_blur_pixels(pix, sigma))
+
+
+REG = (5, 3, 17, 11)  # unaligned origin and size inside (H, W) = (20, 28)
+
+
+@pytest.mark.parametrize("name,folder", [("twirl", "Distorts"), ("fisheye", "Distorts"),
+                                         ("mandelbrot", "Render")])
+@pytest.mark.parametrize("out_dtype", ["float32", "uint8"])
+def test_cuda_region_is_the_full_render_cropped(cuda, name, folder, out_dtype):
+    """A region render launches the same kernels as the full render, on the
+    region's grid, and equals its crop bit for bit."""
+    f = mt.compile_file(os.path.join(ROOT, "filters", folder, f"{name}.mm"))
+    imgs = [torch.from_numpy(_source("u8")).to(cuda)] if f.image_params else []
+    kw = dict(width=W, height=H, device=cuda)
+    full = f.render(*imgs, options=mt.RenderOptions(output_dtype=out_dtype), **kw)
+    counts = [w.launches for w in (K.sample_image, L.apply_lut, WL.while_loop)]
+    got = f.render(*imgs, options=mt.RenderOptions(output_dtype=out_dtype, region=REG), **kw)
+    torch.cuda.synchronize()
+    launched = [w.launches - c for w, c in zip((K.sample_image, L.apply_lut, WL.while_loop),
+                                               counts)]
+    assert launched == ([1, 0, 0] if f.image_params else [0, 1, 1])
+    x, y, w, h = REG
+    assert got.shape == (h, w, 4)
+    assert torch.equal(got, full[y:y + h, x:x + w])
+
+
+def test_cuda_region_rand_and_tiled_in_place(cuda):
+    x, y, w, h = REG
+    rnd = mt.compile_source("filter n () grayColor(rand(0,1)) end")
+    full = rnd.render(width=W, height=H, device=cuda)
+    assert torch.equal(rnd.render(width=W, height=H, device=cuda,
+                                  options=mt.RenderOptions(region=REG)),
+                       full[y:y + h, x:x + w])
+    f = mt.compile_source("origVal(xy + xy:[0, 2 * sin(x / 3)])")
+    img = torch.from_numpy(_source("u8")[:H, :W].copy()).to(cuda)
+    o = mt.RenderOptions(region=REG, output_dtype="uint8")
+    got = f.render_tiled(img, halo=4, options=o, mesh=mt.make_mesh(1, 4, 1, devices=[cuda] * 4))
+    lone = f.render(img, options=o, device=cuda)
+    assert torch.equal(got[y:y + h, x:x + w], lone)
+    mask = torch.zeros(H, W, 1, dtype=torch.bool, device=cuda)
+    mask[y:y + h, x:x + w] = True
+    assert torch.equal(torch.where(mask, img, got), img)
+
+
+@pytest.mark.parametrize("src", ["origVal(xy + xy:[2 * sin(y / 5), 2 * cos(x / 4)])",
+                                 "filter n () grayColor(rand(0,1)) end"])
+def test_cuda_corners_match_the_cpu(cuda, src):
+    f = mt.compile_source(src)
+    imgs = [_smooth_image(W, H)] if f.image_params else []
+    o = mt.RenderOptions(supersample=2, supersample_scheme="corners", region=(3, 2, 20, 15))
+    got = f.render(*imgs, width=W, height=H, options=o, device=cuda)
+    want = f.render(*imgs, width=W, height=H, options=o, device="cpu")
+    torch.testing.assert_close(got.cpu(), want, rtol=RTOL, atol=ATOL)
+
+
+def test_cuda_cli_png_equals_the_api_render(cuda, tmp_path, monkeypatch):
+    from mathmap_tpu_torch.cli import main
+    from mathmap_tpu_torch.imgio.images import read_animation, read_image, write_image
+
+    monkeypatch.delenv("MMTPU_PLATFORM", raising=False)
+    src, out = tmp_path / "in.png", tmp_path / "out.png"
+    write_image(str(src), _smooth_image(W, H))
+    assert main([os.path.join(ROOT, "filters", "Distorts", "twirl.mm"), str(src), str(out),
+                 "--param", "angle=4", "--region", "2,3,20x12"]) == 0
+    f = mt.compile_file(os.path.join(ROOT, "filters", "Distorts", "twirl.mm"))
+    want = f.render(read_image(str(src)), params={"angle": 4}, device=cuda,
+                    options=mt.RenderOptions(output_dtype="uint8", region=(2, 3, 20, 12)))
+    np.testing.assert_array_equal(read_animation(str(out), as_uint8=True)[0],
+                                  want.cpu().numpy())
+
+
+def test_cuda_selftest_passes(cuda):
+    from mathmap_tpu_torch.selftest import run_selftest
+
+    assert run_selftest(size=64, device=cuda) == 0
+
+
+def test_cuda_service_jobs_equal_their_lone_renders(cuda):
+    import threading
+
+    from mathmap_tpu_torch.serve import RenderService
+
+    svc = RenderService(max_batch=8, window_ms=50.0, device=cuda)
+    img = (_source("u8")).copy()
+    angles = [1.0, 2.0, 3.0, 4.0]
+    results = [None] * 4
+
+    def go(i):
+        results[i] = svc.render_sync("twirl", [img], WI, HI, params={"angle": angles[i]})
+
+    threads = [threading.Thread(target=go, args=(i,)) for i in range(4)]
+    try:
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=300)
+            assert not th.is_alive()
+    finally:
+        svc.shutdown()
+    f = mt.default_db().compile("twirl")
+    for i, a in enumerate(angles):
+        lone = f.render(img, params={"angle": a}, device=cuda,
+                        options=mt.RenderOptions(output_dtype="uint8"))
+        np.testing.assert_array_equal(results[i], lone.cpu().numpy())

@@ -281,8 +281,13 @@ def test_unported_language_features_raise(what):
 @pytest.mark.parametrize("opts", [dict(region=(0, 0, 4, 4)),
                                   dict(supersample=2, supersample_scheme="corners")])
 def test_unported_options_raise(opts):
-    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
-        mt.RenderOptions(**opts)
+    """Once refused (ROADMAP A4c): a region and the corners scheme render
+    as the oracle's (tests/test_torch_region.py holds the rest)."""
+    src = "origVal(xy + xy:[sin(y / 3), cos(x / 4)])"
+    img = _image(20, 16, 0, "f32")
+    got = mt.compile_source(src).render(img, device="cpu", options=mt.RenderOptions(**opts))
+    want = mm.compile(src).render(img, interpret=True, options=mm.RenderOptions(**opts))
+    np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
 
 
 @pytest.mark.parametrize("entry,item", [("render_batch", "A4"), ("render_animation", "A4")])

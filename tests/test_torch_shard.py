@@ -183,10 +183,27 @@ def test_a_frame_batch_is_not_ported():
 
 @pytest.mark.parametrize("entry", ["render_sharded", "render_tiled"])
 def test_region_is_not_ported(entry):
+    """Once refused (ROADMAP A4c): render_sharded refuses a region with
+    the reference's ValueError, and render_tiled renders it in place on
+    the full canvas, as the JAX package's does (tests/test_torch_region.py
+    holds the rest)."""
+    img = _image(1, 16, 8)
+    kw = {"halo": 1} if entry == "render_tiled" else {}
+    try:
+        want = np.asarray(getattr(mm.compile("origVal(xy)"), entry)(
+            img, mesh=ref_make_mesh(1, 2, 1, devices=jax.devices()[:2]),
+            options=mm.RenderOptions(region=(0, 0, 4, 4)), **kw))
+    except ValueError as e:
+        want = e
     f = mt.compile_source("origVal(xy)")
-    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
-        getattr(f, entry)(_image(1, 16, 8), mesh=port_mesh((1, 2, 1)),
-                          options=mt.RenderOptions(region=(0, 0, 4, 4)))
+    if isinstance(want, ValueError):
+        with pytest.raises(ValueError, match="render_tiled"):
+            getattr(f, entry)(img, mesh=port_mesh((1, 2, 1)),
+                              options=mt.RenderOptions(region=(0, 0, 4, 4)), **kw)
+        return
+    got = getattr(f, entry)(img, mesh=port_mesh((1, 2, 1)),
+                            options=mt.RenderOptions(region=(0, 0, 4, 4)), **kw)
+    np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
 
 
 @pytest.mark.parametrize("entry", ["render_sharded", "render_tiled"])
