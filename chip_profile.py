@@ -4,8 +4,10 @@ renders of the PyTorch port (mathmap_tpu_torch) drift apart.
 
     python3 chip_profile.py              # from the root of a checkout, on a GPU host
     python3 chip_profile.py kernels DIR  # part 3 alone, on the package in DIR
+    python3 chip_profile.py renders DIR  # part 4 alone, on the package in DIR
+    python3 chip_profile.py dispatch     # part 5 alone
 
-Three parts, each printing one line per case (the first two by default):
+Five parts, each printing one line per case (the first two by default):
 
 1. profile: fisheye, twirl and pond at their default params, u8 input of
    1920x1080 and 3840x2160 already on the device, mandelbrot at its
@@ -26,7 +28,9 @@ Three parts, each printing one line per case (the first two by default):
    (pond, chromatic_aberration, bleach_bypass), each compiled by
    default_db(); the front-end slice: ripple at 1080p under
    supersample=2 with supersample_scheme='corners', and twirl at 4K over
-   chip_smoke's REGION (an unaligned 28% selection). The
+   chip_smoke's REGION (an unaligned 28% selection); the deployment
+   slice: twirl and mandelbrot at 4K through exported artifacts
+   (generators/artifact.py, exported on the card at their defaults). The
    median of 20 fenced renders (5 calls of a sweep or batch, as
    chip_smoke.py times them), then torch.profiler over 5 renders (calls):
    device kernels per render, device busy ms per render and its share of
@@ -48,6 +52,12 @@ Three parts, each printing one line per case (the first two by default):
    version), for the package in DIR (default: this checkout). Checkouts are
    compared on one card by running it on each in turns in one call:
    parent, change, change, parent.
+4. renders: fenced medians of 20 renders of fisheye, twirl and pond (u8
+   in) and default mandelbrot at 1920x1080 and 3840x2160 through the
+   package in DIR, compared between checkouts like part 3.
+5. dispatch: the host microseconds a call of B1, B2 and B3 through their
+   torch.library ops (the route every render takes) against their CUDA
+   implementations called directly, at 1920x1080.
 
 Every line carries the card's name and power limit. It imports no JAX.
 """
@@ -114,6 +124,106 @@ def profile_render(render, per: int = 1):
             syncs / n, [(k[:70], v / n / 1e3) for k, v in top])
 
 
+def exported_artifacts(twirl, mandelbrot, w: int, h: int, dev) -> dict:
+    """twirl and mandelbrot at their defaults exported on `dev` at (w, h)
+    and loaded back (generators/artifact.py)."""
+    import tempfile
+
+    from mathmap_tpu_torch.generators.artifact import export_artifact, load_artifact
+
+    arts = {}
+    with tempfile.TemporaryDirectory() as d:
+        for name, f in (("twirl", twirl), ("mandelbrot", mandelbrot)):
+            path = str(Path(d) / f"{name}.mmxa")
+            export_artifact(f, path, w, h, device=dev)
+            arts[name] = load_artifact(path)
+    return arts
+
+
+def part_renders(mt, dev, card):
+    """Fenced medians of 20 renders through the package `mt`: the
+    distortion suite (u8 in) and default mandelbrot at 1920x1080 and
+    3840x2160, the host-bound and the device-bound sizes."""
+    print(f"renders of {Path(mt.__file__).parent}")
+    filters = {n: mt.compile_file(str(ROOT / "filters" / "Distorts" / f"{n}.mm"))
+               for n in FILTERS}
+    mandelbrot = mt.compile_file(str(ROOT / "filters" / "Render" / "mandelbrot.mm"))
+    for (w, h) in SIZES:
+        img = torch.from_numpy(seeded_image(w, h, seed=4)[1]).to(dev)
+        cases = [(n, lambda f=f: f.render(img, device=dev)) for n, f in filters.items()]
+        cases.append(("mandelbrot", lambda: mandelbrot.render(width=w, height=h, device=dev)))
+        for name, render in cases:
+            print(f"render {name} {w}x{h}: median {fenced_median_ms(render):.3f} ms [{card}]")
+
+
+DISPATCH_CALLS = 500
+
+
+def part_dispatch(mt, dev, card):
+    """Host microseconds a call of each kernel through its torch.library
+    op (the route every render takes) against its CUDA implementation
+    called directly (the launch the op dispatches to), at 1920x1080: the
+    binding's own host cost. No sync inside a timed run, so the host times
+    its enqueue; the card drains the queue between runs."""
+    import time
+
+    from mathmap_tpu_torch.kernels import apply_lut as L
+    from mathmap_tpu_torch.kernels import sample_image as K
+    from mathmap_tpu_torch.kernels import while_loop as WL
+    from mathmap_tpu_torch.runtime import tracer
+
+    w, h = SIZES[0]
+    img = torch.from_numpy(seeded_image(w, h, seed=4)[1]).to(dev)
+    x, y = (torch.rand((h, w), device=dev) * 100 for _ in range(2))
+    pos = torch.rand((h, w), device=dev)
+    lut = torch.rand((256, 4), device=dev)
+    mand = mt.compile_file(str(ROOT / "filters" / "Render" / "mandelbrot.mm"))
+    calls = []
+    orig = tracer.loop_kernel
+    tracer.loop_kernel = lambda *a: calls.append(a) or orig(*a)
+    try:
+        mand.render(width=w, height=h, device=dev)
+    finally:
+        tracer.loop_kernel = orig
+    loop, flat0, mask0, max_iters = calls[0]
+    prog, text = WL._prepare(loop, len(flat0))
+    values = {("carry", k): a for k, a in enumerate(flat0)}
+    values.update({("x",): loop.x, ("y",): loop.y})
+    values.update({("dep", n, j): a for n, tv in loop.deps for j, a in enumerate(tv.arrays)})
+    grids = [values[k] for k in prog.grid_inputs]
+    scalars = torch.zeros(0)
+    loop_args = (text, grids, mask0, scalars, max_iters, loop.unroll, 0, 0, w,
+                 loop.rand_salt, loop.it_base)
+    edge = [0.0, 0.0, 0.0, 0.0]
+    cases = (
+        ("B1 sample_image", lambda: K.sample_image(img, x, y, "bilinear", "color", "color",
+                                                   edge),
+         lambda: K._sample_image_cuda(img, x, y, "bilinear", "color", "color", edge)),
+        ("B2 apply_lut", lambda: L.apply_lut(lut, pos), lambda: L._apply_lut_cuda(lut, pos)),
+        ("B3 while_loop", lambda: WL.while_loop(loop, flat0, mask0, max_iters),
+         lambda: WL._while_loop_cuda(*loop_args)),
+    )
+
+    def host_us(fn, n):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        us = (time.perf_counter() - t0) / n * 1e6
+        torch.cuda.synchronize()
+        return us
+
+    for name, via_op, direct in cases:
+        n = DISPATCH_CALLS if name != "B3 while_loop" else DISPATCH_CALLS // 5
+        runs = [host_us(via_op, n), host_us(direct, n), host_us(direct, n), host_us(via_op, n)]
+        op_us, direct_us = (runs[0] + runs[3]) / 2, (runs[1] + runs[2]) / 2
+        print(f"dispatch {name} {w}x{h}: {op_us:.1f} us a call through the op and its "
+              f"wrapper, {direct_us:.1f} us through the CUDA implementation directly "
+              f"(+{op_us - direct_us:.1f} us; runs op, direct, direct, op: "
+              f"{', '.join(f'{r:.1f}' for r in runs)}) [{card}]")
+
+
 def part_profile(mt, filters, mandelbrot, stochastic, library, eager_loop, dev, card):
     """`eager_loop`: RenderOptions that run mandelbrot's loop as the masked
     eager loop (pallas_while="off"), for the syncs the kernel removes;
@@ -164,6 +274,10 @@ def part_profile(mt, filters, mandelbrot, stochastic, library, eager_loop, dev, 
                       for name, f in library.items()]
             cases.append((f"twirl region {REGION}", lambda: filters["twirl"].render(
                 img, options=mt.RenderOptions(region=REGION), device=dev)))
+            arts = exported_artifacts(filters["twirl"], mandelbrot, w, h, dev)
+            fimg = img.to(torch.float32) / 255.0
+            cases.append(("twirl artifact", lambda: arts["twirl"].render(fimg)))
+            cases.append(("mandelbrot artifact", lambda: arts["mandelbrot"].render()))
             cases.append(("pond tiled (1,2,2)",
                           lambda: pond.render_tiled(img, mesh=mesh(1, 2, 2))))
             cases.append(("pond sharded (1,4,1)",
@@ -246,10 +360,11 @@ def main(argv) -> int:
         print("chip_profile: no CUDA GPU available", file=sys.stderr)
         return 1
     part = argv[0] if argv else None
-    if part not in (None, "kernels"):
-        print(f"chip_profile: unknown part {part!r} (kernels [DIR])", file=sys.stderr)
+    if part not in (None, "kernels", "renders", "dispatch"):
+        print(f"chip_profile: unknown part {part!r} (kernels [DIR], renders [DIR] or "
+              f"dispatch)", file=sys.stderr)
         return 2
-    root = Path(argv[1]).resolve() if part == "kernels" and len(argv) > 1 else ROOT
+    root = Path(argv[1]).resolve() if part and len(argv) > 1 else ROOT
     sys.path.insert(0, str(root))
     import mathmap_tpu_torch as mt
 
@@ -257,6 +372,12 @@ def main(argv) -> int:
     card = card_line()
     if part == "kernels":
         part_kernels(mt, dev, card)
+        return 0
+    if part == "renders":
+        part_renders(mt, dev, card)
+        return 0
+    if part == "dispatch":
+        part_dispatch(mt, dev, card)
         return 0
     filters = {n: mt.compile_file(str(ROOT / "filters" / "Distorts" / f"{n}.mm"))
                for n in FILTERS + ("ripple",)}

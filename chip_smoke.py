@@ -139,9 +139,30 @@ Phases, each printing its own lines:
    angles over one u8 PNG, every reply equal to its lone render bit for
    bit; batch histogram, p50/p99 latency and requests/s;
 21. selftest path: run_selftest() on cuda:0 (its ten path classes against
-   the CPU route) returns 0.
+   the CPU route) returns 0;
+22. artifact path (generators/artifact.py) at 3840x2160: twirl (B1), the
+   curve filter of tests/test_generators.py (B2), default mandelbrot
+   (B3, B2) and a loop reading `t` (B3, its scalars in device memory)
+   exported on cuda:0 and loaded; render launches each kernel
+   once through its custom op (mathmap::sample_image, apply_lut,
+   while_loop) and equals the live card render bit for bit, render_batch
+   (4 jobs) and render_animation (4 frames) equal the live ones; a CLI
+   .mmxa frame and one artifact request through the service; export and
+   load seconds (mandelbrot's load with its B3 library rebuilt by nvcc and
+   without) and the artifact render beside the live one;
+23. preview path: the preview app on 127.0.0.1 with cuda:0, /render
+   (twirl), /animate, /compose and a region /render over a 1920x1080 u8
+   image, each reply equal to its lone card render bit for bit and each
+   launching B1; a /render round trip;
+24. distributed path (parallel/distributed.py): a 2-process fleet over
+   gloo (NCCL refuses two ranks on one card), both ranks rendering on
+   cuda:0 through B1, twirl 1920x1080 over the global (4,1) mesh, each
+   rank's rows equal to the one-process card render's bit for bit; then
+   the NCCL route at world size 1 (an all_reduce of a CUDA tensor). The
+   workers are this script (`--distributed-worker`); their B1 launches
+   are the path's.
 
-Every main path (phases 5, 6, 8, 9, 11-21) runs with the four launch
+Every main path (phases 5, 6, 8, 9, 11-24) runs with the four launch
 counts set to 0 just before it and read just after; the kernels line
 gives each kernel's launches by path. Then the timings: phase 10's and
 11's, B3's bound (this run's pixel iterations x the distinct ops of an
@@ -2380,7 +2401,317 @@ def time_region_corners(mt, dev, filters, st, card):
           f"[{card}]")
 
 
+#: the curve filter of tests/test_generators.py (B2 on a curve param)
+CURVE_SRC = ("filter c (image in, curve cv) "
+             "grayColor(cv(clamp(abs(x / X), 0, 1))) end")
+#: a loop whose body reads `t` and `W`: in an artifact its kernel takes
+#: them from device memory (the export's `t` input), live by value
+T_LOOP = ("filter tloop () s = 0; i = 0; while s < 1 + t && i < 60 do "
+          "s = s + 0.02 + x / W * 0.01; i = i + 1 end; grayColor(i / 60) end")
+ARTIFACT_JOBS = 4
+PREVIEW_ROUND_TRIPS = 5
+#: the composer graph of tests/test_preview.py
+PREVIEW_GRAPH = {
+    "nodes": [
+        {"id": "a", "filter": "grayscale", "params": {"in": {"input": 0}}},
+        {"id": "b", "filter": "twirl", "params": {"in": {"ref": "a"}, "angle": 5.0}},
+    ],
+    "output": "b",
+}
+DISTRIBUTED_RANKS = 2
+DISTRIBUTED_TILES = 2  # mesh rows each rank contributes, all on cuda:0
+
+
+def launched(K, L, WL, call):
+    """(result of call(), its (B1, B2, B3) launches)."""
+    before = (K.sample_image.launches, L.apply_lut.launches, WL.while_loop.launches)
+    out = call()
+    torch.cuda.synchronize()
+    return out, tuple(b - a for a, b in zip(before, (
+        K.sample_image.launches, L.apply_lut.launches, WL.while_loop.launches)))
+
+
+def phase_artifact(mt, K, L, WL, build, dev, filters, work: Path, card):
+    """Exported artifacts on the card at 3840x2160: twirl (B1), the curve
+    filter (B2), default mandelbrot (B3, B2) and T_LOOP (B3 with its
+    scalars `t` and `W` in device memory), each exported with
+    export_artifact on cuda:0 and loaded with load_artifact; render launches
+    each kernel once through its custom op and equals the live card render
+    bit for bit, and render_batch (4 jobs) and render_animation (4 frames)
+    equal the live ones; then a CLI .mmxa frame and one artifact request
+    through the service. Timings: export and load seconds (mandelbrot's
+    load with its B3 library rebuilt by nvcc and without), the artifact
+    render against the live one (fenced medians of 20)."""
+    from mathmap_tpu_torch import cli
+    from mathmap_tpu_torch.generators.artifact import export_artifact, load_artifact
+    from mathmap_tpu_torch.imgio.images import to_uint8, write_image
+    from mathmap_tpu_torch.serve import RenderService
+
+    w, h = SIZES[1]
+    _, u8 = smooth_image(w, h, seed=41)
+    img_u8 = torch.from_numpy(u8).to(dev)
+    img = K.u8_to_float(img_u8)
+    lut = torch.from_numpy((np.linspace(0, 1, 16) ** 2).astype(np.float32))
+    cases = {
+        "twirl": (filters["twirl"], [img], {"angle": 3.0}, {"angle": 5.0}, (1, 0, 0)),
+        "curve": (mt.compile(CURVE_SRC), [img], {"cv": lut}, {"cv": lut * 0.5}, (0, 1, 0)),
+        "mandelbrot": (filters["mandelbrot"], [], {}, {}, (0, 1, 1)),
+        "t loop": (mt.compile(T_LOOP), [], {}, {}, (0, 0, 1)),
+    }
+    for name, (f, ins, p_export, p, want_launches) in cases.items():
+        path = work / f"{name}.mmxa"
+        t0 = time.perf_counter()
+        export_artifact(f, str(path), w, h, params=p_export, batch_sizes=(ARTIFACT_JOBS,),
+                        anim_frames=ARTIFACT_JOBS, device=dev)
+        export_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        art = load_artifact(str(path))
+        load_s = time.perf_counter() - t0
+        built = ""
+        if art.loops and dev.type == "cuda":
+            # load again with the loop's library gone: nvcc builds it
+            sources = [WL.emit_cuda(WL.Program.from_text(t), json.loads(t)["origin"])
+                       for t in art.loops]
+            for src in sources:
+                build.generated_paths(src)[1].unlink(missing_ok=True)
+                WL._LAUNCHERS.pop(src, None)
+            build.generated_library.cache_clear()
+            builds = WL.while_loop.builds
+            t0 = time.perf_counter()
+            art = load_artifact(str(path))
+            built_s = time.perf_counter() - t0
+            if WL.while_loop.builds != builds + len(sources):
+                raise AssertionError(f"artifact {name}: load built "
+                                     f"{WL.while_loop.builds - builds} loop kernels")
+            built = f", {built_s:.2f} s with its B3 library built by nvcc"
+        got, launches = launched(K, L, WL, lambda: art.render(*ins, params=p, t=0.3))
+        want = f.render(*ins, params=p, t=0.3, width=w, height=h, device=dev)
+        if not torch.equal(got, want):
+            raise AssertionError(f"artifact {name}: render differs from the live render")
+        if launches != want_launches:
+            raise AssertionError(f"artifact {name}: (B1, B2, B3) launches {launches}, "
+                                 f"expected {want_launches}")
+        ts = [0.1 * i for i in range(ARTIFACT_JOBS)]
+        stacks = [torch.stack([a] * ARTIFACT_JOBS) for a in ins]
+        jobs = [p] * ARTIFACT_JOBS
+        got = art.render_batch(*stacks, params=jobs, ts=ts)
+        want = f.render_batch(*stacks, ts=ts, params=jobs, width=w, height=h, device=dev)
+        if not torch.equal(got, want):
+            raise AssertionError(f"artifact {name}: render_batch differs from the live one")
+        got = art.render_animation(*ins, params=p)
+        want = f.render_animation(*ins, num_frames=ARTIFACT_JOBS, params=p, width=w,
+                                  height=h, device=dev)
+        if not torch.equal(got, want):
+            raise AssertionError(f"artifact {name}: render_animation differs from the live one")
+        art_ms = fenced_median_ms(lambda: art.render(*ins, params=p, t=0.3))
+        live_ms = fenced_median_ms(lambda: f.render(*ins, params=p, t=0.3, width=w, height=h,
+                                                    device=dev))
+        print(f"artifact {name} {w}x{h}: export {export_s:.2f} s, load {load_s:.2f} s{built}; "
+              f"render launches (B1, B2, B3) {launches} through the mathmap:: ops, equal to "
+              f"the live render bit for bit, render_batch ({ARTIFACT_JOBS} jobs) and "
+              f"render_animation ({ARTIFACT_JOBS} frames) too; render {art_ms:.3f} ms against "
+              f"the live render's {live_ms:.3f} ms [{card}]")
+    src = work / "art_in.png"
+    write_image(str(src), u8)
+    p = {"angle": 5.0}
+    if cli.main([str(work / "twirl.mmxa"), str(src), str(work / "art_out.png"), "--param",
+                 "angle=5"]) != 0:
+        raise AssertionError("artifact cli: non-zero exit")
+    want = to_uint8(filters["twirl"].render(img, params=p, device=dev).cpu().numpy())
+    if not torch.equal(_cli_png(work / "art_out.png"), torch.from_numpy(want)):
+        raise AssertionError("artifact cli: the PNG differs from the live render's")
+    svc = RenderService(device=dev)
+    try:
+        svc.load_artifacts(str(work / "twirl.mmxa"))
+        got, launches = launched(K, L, WL, lambda: svc.render_artifact("twirl", [u8], params=p))
+    finally:
+        svc.shutdown()
+    want = filters["twirl"].render(img, params=p, device=dev).cpu().numpy()
+    if not np.array_equal(got, want) or launches != (1, 0, 0):
+        raise AssertionError(f"artifact service request: equal {np.array_equal(got, want)}, "
+                             f"launches {launches}")
+    print("artifact twirl: a CLI .mmxa frame (PNG in and out) equal to the live render's PNG, "
+          "and one service request (RenderService.render_artifact, one B1 launch) equal to "
+          "the live render bit for bit")
+
+
+def phase_preview(mt, K, dev, card):
+    """The preview app on 127.0.0.1 with cuda:0: /render (twirl), /animate
+    (4 frames), /compose (grayscale -> twirl) and /render of a region over a
+    1920x1080 u8 image, each reply's PNG equal to its lone card render
+    packed to u8, bit for bit, each request launching B1; the median
+    /render round trip."""
+    import base64
+    import urllib.request
+    from http.server import ThreadingHTTPServer
+
+    from mathmap_tpu_torch.imgio.images import to_uint8
+    from mathmap_tpu_torch.imgio.png import decode_png
+    from mathmap_tpu_torch.preview import PreviewState, _make_handler
+
+    w, h = SIZES[0]
+    _, u8 = smooth_image(w, h, seed=43)
+    img = torch.from_numpy(u8).to(dev)
+    state = PreviewState(u8, 256, mt.default_db(), device=dev)
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), _make_handler(state))
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    twirl = (ROOT / "filters" / "Distorts" / "twirl.mm").read_text()
+
+    def post(path, req):
+        before = K.sample_image.launches
+        r = urllib.request.Request(base + path, json.dumps(req).encode(), method="POST")
+        with urllib.request.urlopen(r, timeout=300) as resp:
+            out = json.loads(resp.read())
+        if out.get("error"):
+            raise AssertionError(f"preview {path}: {out['error']}")
+        if K.sample_image.launches == before:
+            raise AssertionError(f"preview {path}: no B1 launch")
+        return out
+
+    def png(b64):
+        return decode_png(base64.b64decode(b64))
+
+    def same(tag, got, want):
+        if not np.array_equal(got, want):
+            n = int((got != want).any(-1).sum())
+            raise AssertionError(f"preview {tag}: {n} pixels differ from the lone render")
+
+    def lone(f, **kw):
+        return to_uint8(f.render(img, device=dev, **kw).cpu().numpy())
+
+    try:
+        p = {"angle": 4.0}
+        f = state._compile(twirl)
+        same("/render", png(post("/render", {"source": twirl, "params": p})["png"]),
+             lone(f, params=p))
+        frames = post("/animate", {"source": twirl, "params": p, "frames": 4})["frames"]
+        want = f.render_animation(img, num_frames=4, params=p, device=dev).cpu().numpy()
+        for i, b64 in enumerate(frames):
+            same(f"/animate frame {i}", png(b64), to_uint8(want[i]))
+        out = post("/compose", PREVIEW_GRAPH)
+        same("/compose", png(out["png"]), lone(state._compile(out["source"])))
+        reg = (w // 5 + 3, h // 7 + 1, w // 2 - 9, h // 3 + 5)
+        got = png(post("/render", {"source": twirl, "params": p, "region": list(reg)})["png"])
+        x, y, rw, rh = reg
+        mask = np.zeros((h, w, 1), bool)
+        mask[y:y + rh, x:x + rw] = True
+        same("/render region", got, np.where(mask, lone(f, params=p), u8))
+        times = []
+        for _ in range(PREVIEW_ROUND_TRIPS):
+            t0 = time.perf_counter()
+            post("/render", {"source": twirl, "params": p})
+            times.append((time.perf_counter() - t0) * 1e3)
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+    print(f"preview {w}x{h} on {dev}: /render, /animate (4 frames), /compose and a region "
+          f"/render, each reply equal to its lone card render bit for bit and launching B1; "
+          f"a /render round trip (PNG out) {statistics.median(times):.1f} ms, median of "
+          f"{PREVIEW_ROUND_TRIPS} [{card}]")
+
+
+def distributed_worker(rank: int, n: int, coord: str, out_dir: str, backend: str) -> int:
+    """One rank of phase_distributed's fleet (run as `chip_smoke.py
+    --distributed-worker RANK N HOST:PORT DIR BACKEND`): twirl at 1920x1080
+    over the global mesh of every rank's DISTRIBUTED_TILES rows on cuda:0,
+    this rank's tiles saved to DIR; its B1 launches summed over the ranks
+    with all_reduce; one JSON line."""
+    sys.path.insert(0, str(ROOT))
+    import torch.distributed as dist
+
+    import mathmap_tpu_torch as mt
+    from mathmap_tpu_torch.kernels import sample_image as K
+    from mathmap_tpu_torch.parallel import distributed
+
+    distributed.initialize(coord, num_processes=n, process_id=rank, backend=backend)
+    dev = torch.device("cuda", 0)
+    mesh = distributed.global_mesh(rows=n * DISTRIBUTED_TILES,
+                                   devices=["cuda:0"] * DISTRIBUTED_TILES)
+    w, h = SIZES[0]
+    img = torch.from_numpy(smooth_image(w, h, seed=45)[1]).to(dev)
+    f = mt.compile_file(str(ROOT / "filters" / "Distorts" / "twirl.mm"))
+    K.sample_image.launches = 0
+    frame = f.render_sharded(img, mesh=mesh, params={"angle": 3.0})
+    torch.cuda.synchronize()
+    launches = K.sample_image.launches
+    total = torch.tensor([launches], device=dev if backend == "nccl" else "cpu")
+    dist.all_reduce(total)
+    for (r0, _c0), tile in frame.tiles.items():
+        np.save(Path(out_dir) / f"{backend}_rank{rank}_row{r0}.npy", tile.cpu().numpy())
+    print(json.dumps({"rank": rank, "backend": dist.get_backend(), "launches": launches,
+                      "launches_all_ranks": int(total.item()),
+                      "rows": sorted(r0 for r0, _ in frame.tiles)}), flush=True)
+    dist.destroy_process_group()
+    return 0
+
+
+def phase_distributed(mt, dev, work: Path) -> int:
+    """A DISTRIBUTED_RANKS-process fleet over gloo, chosen explicitly (NCCL
+    refuses two ranks on one card), whose ranks both render on cuda:0
+    through B1; then the NCCL route at world size 1. Each rank's rows equal
+    the one-process card render's rows bit for bit. Returns the B1 launches
+    of every rank."""
+    import socket
+
+    w, h = SIZES[0]
+    img = torch.from_numpy(smooth_image(w, h, seed=45)[1]).to(dev)
+    f = mt.compile_file(str(ROOT / "filters" / "Distorts" / "twirl.mm"))
+    whole = f.render(img, params={"angle": 3.0}, device=dev).cpu().numpy()
+    total = 0
+    for backend, n in (("gloo", DISTRIBUTED_RANKS), ("nccl", 1)):
+        s = socket.socket()
+        s.bind(("127.0.0.1", 0))
+        coord = f"127.0.0.1:{s.getsockname()[1]}"
+        s.close()
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
+                                   "--distributed-worker", str(r), str(n), coord, str(work),
+                                   backend], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                  text=True, cwd=str(ROOT))
+                 for r in range(n)]
+        outs = []
+        try:
+            for p in procs:
+                outs.append(p.communicate(timeout=300))
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        wall = time.perf_counter() - t0
+        reports = []
+        for r, (p, (out, err)) in enumerate(zip(procs, outs)):
+            if p.returncode != 0:
+                raise AssertionError(f"distributed {backend} rank {r}: exit {p.returncode}: "
+                                     f"{err[-2000:]}")
+            reports.append(json.loads(out.strip().splitlines()[-1]))
+        tile_h = h // (n * DISTRIBUTED_TILES)
+        rows = []
+        for rep in reports:
+            if rep["launches"] != DISTRIBUTED_TILES or rep["launches_all_ranks"] != n * DISTRIBUTED_TILES:
+                raise AssertionError(f"distributed {backend}: {rep}")
+            for r0 in rep["rows"]:
+                tile = np.load(work / f"{backend}_rank{rep['rank']}_row{r0}.npy")
+                if not np.array_equal(tile, whole[r0:r0 + tile_h]):
+                    raise AssertionError(f"distributed {backend} rank {rep['rank']} rows "
+                                         f"{r0}..{r0 + tile_h}: differ from the card render")
+                rows.append(r0)
+            total += rep["launches"]
+        if sorted(rows) != [k * tile_h for k in range(n * DISTRIBUTED_TILES)]:
+            raise AssertionError(f"distributed {backend}: rows {sorted(rows)}")
+        print(f"distributed {backend}, {n} process(es) on cuda:0, twirl {w}x{h} over a "
+              f"({n * DISTRIBUTED_TILES},1) global mesh: each rank's {DISTRIBUTED_TILES} "
+              f"tiles ({DISTRIBUTED_TILES} B1 launches, all_reduce of every rank's: "
+              f"{reports[0]['launches_all_ranks']}) equal to the one-process card render's "
+              f"rows bit for bit; {wall:.1f} s wall with process start-up")
+    return total
+
+
 def main() -> int:
+    if sys.argv[1:2] == ["--distributed-worker"]:
+        rank, n, coord, out_dir, backend = sys.argv[2:7]
+        return distributed_worker(int(rank), int(n), coord, out_dir, backend)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA GPU available", file=sys.stderr)
         return 1
@@ -2415,7 +2746,7 @@ def main() -> int:
     loop_filters = [(filters[n], {}) for n in GENERATIVE]
     lib = library_filters(mt)
     loop_filters += [(filters["mandelbrot"], ZOOMED), (sin_filter, {}), (rand_walk, {}),
-                     (lib["quat_julia"], {})]
+                     (lib["quat_julia"], {}), (mt.compile(T_LOOP), {})]
     card = phase_card(mt, build, WL, tracer, loop_filters)
     rate, sms, mhz = single_op_rate()
     print(f"single-op issue rate: {sms} SMs x {LANES_PER_SM} lanes x {mhz:.0f} MHz "
@@ -2460,6 +2791,11 @@ def main() -> int:
         path("cli", phase_cli, mt, K, B4, dev, work)
         path("serve", phase_serve, mt, K, dev, card)
         path("selftest", phase_selftest, mt, dev)
+        path("artifact", phase_artifact, mt, K, L, WL, build, dev, filters, work, card)
+        path("preview", phase_preview, mt, K, dev, card)
+        # the fleet's launches are its worker processes' own counts
+        b1_fleet = path("distributed", phase_distributed, mt, dev, work)
+        by_path["distributed"] = (b1_fleet, 0, 0, 0)
         names = ("sample_image", "apply_lut", "while_loop", "sample_tiled")
         launches = {name: {p: c[k] for p, c in by_path.items() if c[k]}
                     for k, name in enumerate(names)}

@@ -10,7 +10,7 @@ on the device the caller names, origVal goes through a hand-written CUDA
 sampler (csrc/sample_image.cu), curves and gradients through a CUDA LUT
 kernel (csrc/apply_lut.cu), and each eligible `while` loop through a CUDA
 kernel generated from its body (kernels/while_loop.py), all built by nvcc
-at first use. `Filter.render_sharded` and `Filter.render_tiled` split a
+at first use and called as `torch.library` custom ops (`mathmap::`). `Filter.render_sharded` and `Filter.render_tiled` split a
 render over a mesh of devices (`make_mesh`), the latter sampling each
 tile's halo-extended input block through a CUDA kernel of its own
 (csrc/sample_tiled.cu). `Filter.render_batch` renders N jobs (a
@@ -22,9 +22,13 @@ filters/ (the `.mm` sources and the `.mmc` compositions of the composer,
 designer/), each entry compiled with the whole library in scope.
 `RenderOptions.region` renders a selection and
 `supersample_scheme="corners"` the corner-grid antialiasing. The front
-ends are the CLI (`python -m mathmap_tpu_torch`, with `--selftest`) and
-the render service (`python -m mathmap_tpu_torch.serve`), over the
-package's own image I/O (imgio/). ROADMAP.md lists what is still to port.
+ends are the CLI (`python -m mathmap_tpu_torch`, with `--selftest`), the
+render service (`python -m mathmap_tpu_torch.serve`) and the preview app
+(`python -m mathmap_tpu_torch.preview`), over the package's own image I/O
+(imgio/). `generators/` exports a filter as an artifact (.mmxa, a
+`torch.export` program that loads without the compiler), a script or its
+program's text, and `parallel/distributed.py` splits a render over the
+ranks of a `torch.distributed` group.
 
     import mathmap_tpu_torch as mt
     f = mt.compile_file("filters/Distorts/twirl.mm")
@@ -32,26 +36,40 @@ package's own image I/O (imgio/). ROADMAP.md lists what is still to port.
     g = mt.default_db().compile("dream_pond")  # a composition
 """
 
+import importlib as _importlib
 import sys as _sys
 
 # Deep machine-generated expressions recurse through the parser and the
 # evaluator, as in the reference.
 _sys.setrecursionlimit(max(_sys.getrecursionlimit(), 20000))
 
-from . import ops as _ops  # noqa: E402,F401  — populate the builtin registry
-from .api import Filter, compile_file, compile_source, shared  # noqa: E402
-from .expression_db import ExpressionDB, default_db  # noqa: E402
-from .parallel.mesh import make_mesh  # noqa: E402
-from .runtime.options import RenderOptions  # noqa: E402
-from .utils.errors import (  # noqa: E402
-    MMError,
-    MMNameError,
-    MMRuntimeError,
-    MMSyntaxError,
-    MMTypeError,
-)
+#: public name -> the module that defines it. Imported at first use, so
+#: importing a submodule alone (the artifact loader, generators/artifact.py)
+#: loads no parser, evaluator or builtin table.
+_EXPORTS = {
+    "Filter": "api", "compile_file": "api", "compile_source": "api", "shared": "api",
+    "ExpressionDB": "expression_db", "default_db": "expression_db",
+    "make_mesh": "parallel.mesh",
+    "RenderOptions": "runtime.options",
+    "MMError": "utils.errors", "MMNameError": "utils.errors",
+    "MMRuntimeError": "utils.errors", "MMSyntaxError": "utils.errors",
+    "MMTypeError": "utils.errors",
+}
 
-compile = compile_source  # noqa: A001 — the reference's alias
+
+def __getattr__(name):
+    if name == "compile":  # the reference's alias
+        return __getattr__("compile_source")
+    module = _EXPORTS.get(name)
+    if module is None:  # a submodule not imported yet
+        try:
+            return _importlib.import_module(f".{name}", __name__)
+        except ModuleNotFoundError:
+            raise AttributeError(f"module {__name__!r} has no attribute {name!r}") from None
+    value = getattr(_importlib.import_module(f".{module}", __name__), name)
+    globals()[name] = value
+    return value
+
 
 __all__ = [
     "Filter",

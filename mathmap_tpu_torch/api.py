@@ -117,9 +117,11 @@ def shared(value):
 class Filter:
     """A compiled MathMap filter (plus the filter environment of its file)."""
 
-    def __init__(self, program: A.Program, fdef: A.FilterDef):
+    def __init__(self, program: A.Program, fdef: A.FilterDef, source: str | None = None):
         self.fdef = fdef
         self.filters = {f.name: f for f in program.filters}
+        #: the MathMap source it was compiled from (generators/standalone.py)
+        self.source = source
 
     # -- metadata -----------------------------------------------------------
     @property
@@ -254,15 +256,17 @@ class Filter:
         (T, H, W, 4) stacks. `mesh=None` puts every visible GPU on the row
         axis (and raises without one; a CPU mesh is
         make_mesh(devices=["cpu"] * n)). options.region raises ValueError:
-        render() gives the crop, render_tiled() the selection in place."""
+        render() gives the crop, render_tiled() the selection in place.
+        Over a mesh that spans processes (parallel/distributed.global_mesh)
+        this rank renders only its own tiles -> a shard.LocalFrame of them
+        (one frame only)."""
         from .parallel.mesh import make_mesh
         from .parallel.shard import render_frame_sharded, render_frames_sharded
 
         opts = options or RenderOptions()
         if mesh is None:
             mesh = make_mesh()
-        first = mesh.devices[0, 0, 0]
-        ins = [_stage_input(a, first) for a in inputs]
+        ins = [_stage_input(a, mesh.first_local) for a in inputs]
         width, height = _resolve_size(ins, width, height)
         if num_frames == 1:
             return render_frame_sharded(mesh, self.filters, self.fdef, width, height, opts,
@@ -298,6 +302,9 @@ class Filter:
 
         if mesh is None:
             mesh = make_mesh()
+        if mesh.spans_processes:
+            raise ValueError("render_tiled over a mesh that spans processes is not "
+                             "supported: its halo exchange runs in one process")
         first = mesh.devices[0, 0, 0]
         imgs = [_stage_input(a, first) for a in input_images]
         width, height = _resolve_size(imgs, width, height)
@@ -330,7 +337,7 @@ def compile_source(source: str, main: str | None = None) -> Filter:
         if main not in by_name:
             raise MMNameError(f"no filter named {main!r} in source")
         fdef = by_name[main]
-    return Filter(program, fdef)
+    return Filter(program, fdef, source)
 
 
 def compile_file(path: str, main: str | None = None) -> Filter:

@@ -11,8 +11,12 @@ MMTPU_PLATFORM=cpu is set or --interpret is given (the kernels' plain
 versions); without a GPU and without either it raises. --tiled and
 --sharded take a mesh of every visible GPU, or of the CPU. PNG, PAM and
 PPM files are read and written without Pillow; JPEG and GIF need it.
-Exported artifacts (.mmxa, --export-artifact) are not ported yet
-(ROADMAP A10).
+
+Exported artifacts (generators/artifact.py):
+    python -m mathmap_tpu_torch twirl --export-artifact tw.mmxa \
+        --size 512x512 --param angle=3
+    python -m mathmap_tpu_torch tw.mmxa in.png out.png --param angle=5
+An artifact is exported on the device the CLI renders on and runs there.
 """
 
 from __future__ import annotations
@@ -33,9 +37,6 @@ from .imgio.images import (image_size, read_animation, read_image, to_uint8, wri
                            write_image)
 from .runtime.options import EDGE_BEHAVIORS, INTERPOLATIONS, RenderOptions
 from .utils.errors import MMError
-
-NOT_PORTED_ARTIFACTS = "exported artifacts (.mmxa) are not ported yet (ROADMAP A10)"
-
 
 def build_arg_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
@@ -131,9 +132,14 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--batch-size", type=int, default=16,
                    help="images per render_batch call in --input-dir mode")
     p.add_argument("--export-artifact", default=None, metavar="FILE.mmxa",
-                   help=f"refused: {NOT_PORTED_ARTIFACTS}")
+                   help="trace the filter at --size on the render device and "
+                        "write it as an artifact (--param names become its "
+                        "runtime inputs; --frames N also lets it render the "
+                        "N-frame sweep). Render one with: mathmap_tpu_torch "
+                        "FILE.mmxa [in ...] out")
     p.add_argument("--artifact-batch-sizes", default="", metavar="N[,N...]",
-                   help=f"refused: {NOT_PORTED_ARTIFACTS}")
+                   help="with --export-artifact: the batch sizes its "
+                        "render_batch takes (up to the largest)")
     p.add_argument("--param-sweep", default=None, metavar="NAME=LO:HI",
                    help="animate a numeric param over --frames steps "
                         "(t stays --t; the `frame` internal is the step "
@@ -373,6 +379,51 @@ def _profiler(trace_dir):
     prof.export_chrome_trace(os.path.join(trace_dir, "trace.json"))
 
 
+def _run_artifact(args, input_paths, out_path, device, log) -> int:
+    """Render from an exported .mmxa (no parser, evaluator or compile): one
+    frame by default; --frames matching the exported animation renders the
+    sweep (GIF out or a frame sequence)."""
+    from .generators.artifact import load_artifact
+
+    t0 = time.perf_counter()
+    try:
+        art = load_artifact(args.expression, platform=device.type)
+    except (ValueError, OSError) as exc:
+        print(exc, file=sys.stderr)
+        return 1
+    m = art.manifest
+    log(f"loaded {args.expression}: filter {m['filter']!r} "
+        f"{m['width']}x{m['height']}, params {sorted(m['params'])}, "
+        f"load {time.perf_counter() - t0:.3f}s")
+    inputs = [read_image(p) for p in input_paths]
+    params = _parse_params(args.param)
+    try:
+        t1 = time.perf_counter()
+        if args.frames > 1:
+            if m.get("anim_frames") != args.frames:
+                raise SystemExit(
+                    f"artifact has {'no' if not m.get('anim_frames') else m['anim_frames']}-frame "
+                    f"animation program; re-export with --frames "
+                    f"{args.frames} (got --frames {args.frames})")
+            frames = art.render_animation(*inputs, params=params)
+            if out_path.lower().endswith(".gif"):
+                write_animation(out_path, np.stack([to_uint8(f) for f in frames]), fps=args.fps)
+            else:
+                for i, fr in enumerate(frames):
+                    write_image(_frame_path(out_path, i, len(frames)), fr)
+            n = len(frames)
+        else:
+            write_image(out_path, art.render(*inputs, params=params, t=args.t))
+            n = 1
+        dt = time.perf_counter() - t1
+        log(f"render: {dt:.3f}s  {n} frame(s)  "
+            f"{n * m['width'] * m['height'] / max(dt, 1e-9) / 1e6:.2f} Mpix/s")
+    except ValueError as exc:
+        print(exc, file=sys.stderr)
+        return 1
+    return 0
+
+
 def _device(args):
     """--interpret: the CPU; else the front ends' device (a one-line exit
     for a bad MMTPU_PLATFORM or a missing GPU)."""
@@ -392,10 +443,6 @@ def main(argv=None) -> int:
         raise SystemExit("--fallback is not supported: no device failure is "
                          "hidden behind a CPU render (use --interpret to "
                          "render on the CPU)")
-    if (args.export_artifact or args.artifact_batch_sizes
-            or (args.expression or "").endswith(".mmxa")):
-        print(f"mathmap_tpu_torch: {NOT_PORTED_ARTIFACTS}", file=sys.stderr)
-        return 1
     if args.tiled and args.sharded:
         raise SystemExit("--tiled (input-sharded) and --sharded "
                          "(output-sharded) are mutually exclusive")
@@ -444,9 +491,19 @@ def main(argv=None) -> int:
         raise SystemExit("missing expression (or use --list / --chain)")
     if args.chain is not None and args.expression is not None:
         args.images.insert(0, args.expression)  # expression slot was an image
-    if not args.images:
+    if not args.images and not args.export_artifact:
         raise SystemExit("missing output image path")
-    *input_paths, out_path = args.images
+    if args.export_artifact:
+        input_paths, out_path = args.images, None
+    else:
+        *input_paths, out_path = args.images
+
+    if args.expression and args.expression.endswith(".mmxa"):
+        if args.export_artifact:
+            raise SystemExit(
+                "cannot --export-artifact from a .mmxa (artifacts carry "
+                "no filter source); export from the .mm source instead")
+        return _run_artifact(args, input_paths, out_path, _device(args), log)
 
     t0 = time.perf_counter()
     try:
@@ -527,6 +584,22 @@ def main(argv=None) -> int:
             return 1
 
     device = _device(args)
+    if args.export_artifact:
+        from .generators.artifact import export_artifact
+
+        bs = tuple(int(x) for x in args.artifact_batch_sizes.split(",") if x.strip())
+        try:
+            export_artifact(filt, args.export_artifact, cw, ch, options=opts, params=params,
+                            batch_sizes=bs,
+                            anim_frames=args.frames if args.frames > 1 else None,
+                            device=device)
+        except MMError as exc:
+            print(exc.format(), file=sys.stderr)
+            return 1
+        log(f"exported {args.export_artifact}: {cw}x{ch} on {device}, "
+            f"params {sorted(params)}, batch_sizes {list(bs)}, "
+            f"anim_frames {args.frames if args.frames > 1 else None}")
+        return 0
     try:
         with _profiler(args.profile):
             t1 = time.perf_counter()

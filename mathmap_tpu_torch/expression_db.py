@@ -138,7 +138,7 @@ class ExpressionDB:
         if name not in self.entries:
             raise MMNameError(f"no filter named {name!r} in {self.root}")
         entry = self.entries[name]
-        filt = Filter(entry.program, entry.fdef)
+        filt = Filter(entry.program, entry.fdef, entry.source)
         lib = self.library_defs()
         # file-local definitions shadow library ones
         merged = dict(lib)

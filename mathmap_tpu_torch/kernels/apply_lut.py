@@ -63,19 +63,18 @@ def _kernel():
     return fn
 
 
-def apply_lut(lut: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
-    """Apply a (K,) curve or (K, 4) gradient LUT at `pos` -> planar
-    (C, *pos.shape) float32, C = 1 or 4.
+torch.library.define("mathmap::apply_lut", "(Tensor lut, Tensor pos) -> Tensor")
 
-    A CPU tensor goes to the plain version; a CUDA tensor launches the
-    kernel on the current stream (no synchronisation) or raises. The kernel
-    takes `pos` contiguous; the LUT is copied when it is not contiguous and
-    16-byte aligned (it is at most a few KB)."""
+
+def _apply_lut_cpu(lut, pos):
+    return apply_lut_reference(lut, pos).contiguous()
+
+
+torch.library.impl("mathmap::apply_lut", "CPU")(_apply_lut_cpu)
+
+
+def _apply_lut_cuda(lut, pos):
     _check(lut, pos)
-    if pos.device.type == "cpu":
-        return apply_lut_reference(lut, pos)
-    if pos.device.type != "cuda":
-        raise ValueError(f"no LUT kernel for device {pos.device}")
     if not pos.is_contiguous():
         raise ValueError("pos must be contiguous")
     k = int(lut.shape[0])
@@ -96,6 +95,32 @@ def apply_lut(lut: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
             f"({build.error_string(err)})")
     apply_lut.launches += 1
     return out
+
+
+torch.library.impl("mathmap::apply_lut", "CUDA")(_apply_lut_cuda)
+
+
+def _apply_lut_fake(lut, pos):
+    channels = 1 if lut.dim() == 1 else int(lut.shape[1])
+    return pos.new_empty((channels, *pos.shape))
+
+
+torch.library.register_fake("mathmap::apply_lut")(_apply_lut_fake)
+
+
+def apply_lut(lut: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+    """Apply a (K,) curve or (K, 4) gradient LUT at `pos` -> planar
+    (C, *pos.shape) float32, C = 1 or 4.
+
+    The custom op `mathmap::apply_lut`, which an exported program calls
+    too: a CPU tensor goes to the plain version; a CUDA tensor launches the
+    kernel on the current stream (no synchronisation) or raises. The kernel
+    takes `pos` contiguous; the LUT is copied when it is not contiguous and
+    16-byte aligned (it is at most a few KB)."""
+    _check(lut, pos)
+    if pos.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no LUT kernel for device {pos.device}")
+    return torch.ops.mathmap.apply_lut(lut, pos)
 
 
 #: kernel launches since the count was last set to 0 (CPU calls never count)

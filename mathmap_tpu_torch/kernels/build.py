@@ -105,21 +105,27 @@ def library() -> Library:
     return _build(BUILD_DIR / f"libmm_kernels_{digest}.so", NVCC_FLAGS, sources)
 
 
-@functools.cache
-def generated_library(source: str) -> Library:
-    """Build (if needed) and load the library of one generated CUDA source,
-    named by a hash of the source and GENERATED_FLAGS."""
+def generated_paths(source: str) -> tuple:
+    """(source file, library file) of one generated CUDA source, named by a
+    hash of the source and GENERATED_FLAGS."""
     h = hashlib.sha256(source.encode())
     for flag in GENERATED_FLAGS:
         h.update(b"\0" + flag.encode())
     digest = h.hexdigest()[:16]
-    src = BUILD_DIR / f"mm_gen_{digest}.cu"
+    return BUILD_DIR / f"mm_gen_{digest}.cu", BUILD_DIR / f"libmm_gen_{digest}.so"
+
+
+@functools.cache
+def generated_library(source: str) -> Library:
+    """Build (if needed) and load the library of one generated CUDA source
+    (generated_paths)."""
+    src, lib = generated_paths(source)
     if not src.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = src.with_name(f"{src.stem}.{os.getpid()}.tmp")
         tmp.write_text(source)
         os.replace(tmp, src)
-    return _build(BUILD_DIR / f"libmm_gen_{digest}.so", GENERATED_FLAGS, [src])
+    return _build(lib, GENERATED_FLAGS, [src])
 
 
 def error_string(err: int) -> str:

@@ -254,19 +254,22 @@ def _kernel():
     return bind(build.library())
 
 
-def sample_image(pixels, x, y, interpolation: str, edge_x: str, edge_y: str,
-                 edge_color) -> torch.Tensor:
-    """Sample `pixels` ((Hi, Wi, 4) float32 or uint8) at world coordinate
-    grids `x`, `y` ((H, W) float32) -> planar (4, H, W) float32.
+torch.library.define(
+    "mathmap::sample_image",
+    "(Tensor pixels, Tensor x, Tensor y, str interpolation, str edge_x, str edge_y, "
+    "float[] edge_color) -> Tensor")
 
-    A CPU tensor goes to the plain version; a CUDA tensor launches the
-    kernel on the current stream (no synchronisation) or raises."""
+
+def _sample_image_cpu(pixels, x, y, interpolation, edge_x, edge_y, edge_color):
+    return sample_image_reference(pixels, x, y, interpolation, edge_x, edge_y,
+                                  edge_color).contiguous()
+
+
+torch.library.impl("mathmap::sample_image", "CPU")(_sample_image_cpu)
+
+
+def _sample_image_cuda(pixels, x, y, interpolation, edge_x, edge_y, edge_color):
     _check(pixels, x, y, interpolation, edge_x, edge_y, edge_color)
-    if pixels.device.type == "cpu":
-        return sample_image_reference(pixels, x, y, interpolation, edge_x,
-                                      edge_y, edge_color)
-    if pixels.device.type != "cuda":
-        raise ValueError(f"no sampler for device {pixels.device}")
     h, w = int(x.shape[0]), int(x.shape[1])
     out = torch.empty((4, h, w), dtype=torch.float32, device=pixels.device)
     if out.numel() == 0:
@@ -290,6 +293,32 @@ def sample_image(pixels, x, y, interpolation: str, edge_x: str, edge_y: str,
             f"({build.error_string(err)})")
     sample_image.launches += 1
     return out
+
+
+torch.library.impl("mathmap::sample_image", "CUDA")(_sample_image_cuda)
+
+
+def _sample_image_fake(pixels, x, y, interpolation, edge_x, edge_y, edge_color):
+    return x.new_empty((4, *x.shape))
+
+
+torch.library.register_fake("mathmap::sample_image")(_sample_image_fake)
+
+
+def sample_image(pixels, x, y, interpolation: str, edge_x: str, edge_y: str,
+                 edge_color) -> torch.Tensor:
+    """Sample `pixels` ((Hi, Wi, 4) float32 or uint8) at world coordinate
+    grids `x`, `y` ((H, W) float32) -> planar (4, H, W) float32.
+
+    The custom op `mathmap::sample_image`, which an exported program
+    (generators/artifact.py) calls too: a CPU tensor goes to the plain
+    version; a CUDA tensor launches the kernel on the current stream (no
+    synchronisation) or raises."""
+    _check(pixels, x, y, interpolation, edge_x, edge_y, edge_color)
+    if pixels.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no sampler for device {pixels.device}")
+    return torch.ops.mathmap.sample_image(pixels, x, y, interpolation, edge_x, edge_y,
+                                          [float(c) for c in edge_color])
 
 
 #: kernel launches since the count was last set to 0 (CPU calls never count)

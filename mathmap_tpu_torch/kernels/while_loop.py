@@ -19,9 +19,14 @@ of ops/rand.py) with the pixel's global index, the salt of the step's first
 counter and the iteration number, all kernel arguments, so a new seed,
 frame size or tile offset does not rebuild.
 
-The plain version is `while_loop_reference`, the eager masked loop (the
-reference's oracle loop with the lax route's `while_unroll` gating): every
-step evaluates the body over the whole grid and merges it under the mask.
+The kernel is the custom op `mathmap::while_loop`, whose first argument is
+the Program as text (`Program.to_text`): the live render and an exported
+program (generators/artifact.py) call it alike, so the loop's op list
+travels with the program. Its CPU implementation, the plain version, is
+`while_loop_reference`, the eager masked loop (the reference's oracle
+loop with the lax route's `while_unroll` gating), stepping `run_program`
+over the whole grid and merging each step under the mask: the same values
+as stepping the evaluator's closure, which the tests hold bit for bit.
 
 What bounds the kernel: operations (pixels x iterations x ops per
 iteration), then the carried and dependency bytes read and written once,
@@ -32,6 +37,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import json
 import math
 import operator
 import string
@@ -42,9 +48,8 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
-from ..lang import astnodes as A
 from ..ops import libm
-from ..ops.rand import COUNTER, M32, draw_salt, rand_uniform
+from ..ops.rand import COUNTER, M32, draw_salt, rand_index, rand_uniform
 from . import build
 
 #: builtins a kernel body may call: the reference's SAFE_CALLS
@@ -72,8 +77,10 @@ SAFE_CALLS = frozenset({
 SCALAR_INTERNALS = ("t", "frame", "X", "Y", "W", "H", "R")
 
 
-def scalar_internal(ctx, name: str) -> float:
-    """The value the evaluator's literal of a scalar internal holds."""
+def scalar_internal(ctx, name: str):
+    """The value the evaluator's literal of a scalar internal holds: a
+    float, or for `t` and `frame` the 0-d tensor of an exported program's
+    input (generators/artifact.py)."""
     return {"t": ctx.t, "frame": ctx.frame, "X": ctx.width * 0.5,
             "Y": ctx.height * 0.5, "W": float(ctx.width), "H": float(ctx.height),
             "R": ((ctx.width * 0.5) ** 2 + (ctx.height * 0.5) ** 2) ** 0.5}[name]
@@ -81,10 +88,12 @@ def scalar_internal(ctx, name: str) -> float:
 TEMPLATE = Path(__file__).resolve().parent.parent / "csrc" / "while_loop.cu.tmpl"
 
 
-def eligible(node: A.While, env: dict, filters: dict) -> bool:
-    """Whether a loop can run as a generated kernel, decided from its AST:
-    every call is a SAFE_CALLS builtin that no env value or user filter
-    shadows, and no loop is nested in it."""
+def eligible(node, env: dict, filters: dict) -> bool:
+    """Whether a loop (an A.While) can run as a generated kernel, decided
+    from its AST: every call is a SAFE_CALLS builtin that no env value or
+    user filter shadows, and no loop is nested in it."""
+    from ..lang import astnodes as A
+
     for sub in A.walk(node):
         if isinstance(sub, A.Call):
             f = sub.func
@@ -97,10 +106,12 @@ def eligible(node: A.While, env: dict, filters: dict) -> bool:
     return True
 
 
-def dependencies(node: A.While, init_env: dict, carried, shape) -> list | None:
-    """The non-carried env values the loop reads, as (name, TupleValue) in
-    name order; None when one is opaque or not a float32 scalar or `shape`
-    grid, which makes the loop ineligible."""
+def dependencies(node, init_env: dict, carried, shape) -> list | None:
+    """The non-carried env values the loop (an A.While) reads, as (name,
+    TupleValue) in name order; None when one is opaque or not a float32
+    scalar or `shape` grid, which makes the loop ineligible."""
+    from ..lang import astnodes as A
+
     reads = {s.name for s in A.walk(node) if isinstance(s, A.Var)}
     deps = []
     for name in sorted(reads):
@@ -131,7 +142,7 @@ class Loop:
     y: torch.Tensor
     ctx: Any  # RenderContext
     unroll: int  # masked steps per convergence check (plain version)
-    node: A.While
+    node: Any  # A.While
     #: what else fixes the traced ops: the carried names with their
     #: lengths and tags, and each dependency's name, tag and length
     spec: tuple
@@ -227,7 +238,7 @@ class Program:
     (bool). "in" ops name a kernel input, "const" ops a float32 or bool
     literal, and a "rand" op, operand ("n", k), the step's k-th draw."""
 
-    def __init__(self, rand_base: int = 0):
+    def __init__(self, rand_base: int = 0, origin: str = ""):
         self.ops: list = []
         self.outputs: list = []  # operand per carried slot
         self.cond = None  # operand of the continue condition
@@ -235,6 +246,8 @@ class Program:
         self._inputs: dict = {}
         #: the rand counter the traced step started from (Loop.rand_base)
         self.rand_base = rand_base
+        #: where the loop is (Loop.origin), for the generated source's header
+        self.origin = origin
 
     def add(self, op: str, operands: tuple, kind: str) -> "Sym":
         self.ops.append((op, operands, kind))
@@ -357,6 +370,39 @@ class Program:
             todo += [value(o) for o in self.ops[i][1] if o[0] == "v"]
         return sum(RAND_OPS if self.ops[i][0] == "rand" else 1
                    for i in (live & varying) - carried)
+
+
+    @property
+    def draws(self) -> bool:
+        """Whether a step draws rand()."""
+        return any(op == "rand" for op, _, _ in self.ops)
+
+    def to_text(self) -> str:
+        """The program as JSON: the op list, outputs, condition, rand base
+        and origin (Program.from_text reads it back). This string is the
+        custom op `mathmap::while_loop`'s description of its loop, so an
+        exported program carries the loop it runs."""
+        return json.dumps({"ops": self.ops, "outputs": self.outputs, "cond": self.cond,
+                           "rand_base": self.rand_base, "origin": self.origin},
+                          separators=(",", ":"))
+
+    @classmethod
+    def from_text(cls, text: str) -> "Program":
+        d = json.loads(text)
+        prog = cls(d["rand_base"], d["origin"])
+        for op, operands, kind in d["ops"]:
+            if op == "in":
+                key = tuple(operands[0])
+                prog._inputs[key] = Sym(prog, len(prog.ops), kind)
+                operands = (key,)
+            elif op == "const":
+                operands = tuple(operands)
+            else:
+                operands = tuple(tuple(o) for o in operands)
+            prog.ops.append((op, operands, kind))
+        prog.outputs = [tuple(o) for o in d["outputs"]]
+        prog.cond = tuple(d["cond"])
+        return prog
 
 
 def _program_of(args) -> Program:
@@ -516,7 +562,7 @@ def trace(loop: Loop, n_flat: int) -> Program:
     """Run the loop's step once on symbolic inputs -> its Program."""
     from ..runtime.value import TupleValue
 
-    prog = Program(loop.rand_base)
+    prog = Program(loop.rand_base, loop.origin)
     flat = tuple(prog.input(("carry", i)) for i in range(n_flat))
     base_env = {name: TupleValue(tv.tag, tuple(prog.input(("dep", name, j))
                                                for j in range(len(tv.arrays))))
@@ -543,7 +589,7 @@ def trace(loop: Loop, n_flat: int) -> Program:
 _INTERP = {
     "add": operator.add, "sub": operator.sub, "mul": operator.mul,
     "div": operator.truediv, "remainder": torch.remainder, "fmod": torch.fmod,
-    "pow": operator.pow, "minimum": torch.minimum,
+    "minimum": torch.minimum,
     "maximum": torch.maximum, "eq": operator.eq, "ne": operator.ne,
     "lt": operator.lt, "gt": operator.gt, "le": operator.le, "ge": operator.ge,
     "and": operator.and_, "or": operator.or_, "xor": operator.xor,
@@ -672,7 +718,9 @@ def emit_cuda(prog: Program, origin: str = "") -> str:
                 names[i] = f"c{key[1]}"
                 loads.append(f"  float c{key[1]} = MM_IN({grid_slot[key]});")
             elif key[0] == "scalar":
-                names[i] = f"a.s[{scalar_slot[key]}]"
+                names[i] = f"v{i}"
+                slot = scalar_slot[key]
+                loads.append(f"  const float v{i} = a.s_dev ? a.s_dev[{slot}] : a.s_host[{slot}];")
             else:
                 names[i] = f"v{i}"
                 loads.append(f"  const float v{i} = MM_IN({grid_slot[key]});")
@@ -712,18 +760,42 @@ def emit_cuda(prog: Program, origin: str = "") -> str:
 
 #: generated source -> its loaded launcher, for this process
 _LAUNCHERS: dict = {}
-#: (id(node), spec) -> (node, Program, launcher): a loop is traced and
-#: emitted once per process, not once per render
+#: (id(node), spec) -> (node, Program, its text): a loop is traced once per
+#: process, not once per render
 _PREPARED: dict = {}
+#: Program text -> (Program, its CUDA source or None until emitted): what the
+#: op's implementations run, for this process's loops and for the loops of
+#: the exported programs it loaded
+_PROGRAMS: dict = {}
 
 
 def _prepare(loop: Loop, n_flat: int):
+    """The loop's Program and its text, traced on first use."""
     key = (id(loop.node), loop.spec)
     hit = _PREPARED.get(key)
     if hit is None or hit[0] is not loop.node:
         prog = trace(loop, n_flat)
-        hit = _PREPARED[key] = (loop.node, prog, _launcher(emit_cuda(prog, loop.origin)))
+        text = prog.to_text()
+        _PROGRAMS.setdefault(text, [prog, None])
+        hit = _PREPARED[key] = (loop.node, prog, text)
     return hit[1], hit[2]
+
+
+def _program(text: str):
+    """The Program of a text and its slot in _PROGRAMS."""
+    entry = _PROGRAMS.get(text)
+    if entry is None:
+        entry = _PROGRAMS[text] = [Program.from_text(text), None]
+    return entry
+
+
+def build_program(text: str):
+    """The launcher of a Program's text: its CUDA source emitted once, the
+    library built by nvcc (or found on disk) and loaded once."""
+    entry = _program(text)
+    if entry[1] is None:
+        entry[1] = emit_cuda(entry[0], entry[0].origin)
+    return _launcher(entry[1])
 
 
 def _launcher(source: str):
@@ -733,7 +805,8 @@ def _launcher(source: str):
         if lib.build_seconds > 0:
             while_loop.builds += 1
         fn = lib.cdll.mm_while_loop
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # ptrs, strides, scalars
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p,  # ptrs, strides
+                       ctypes.c_void_p, ctypes.c_void_p,  # scalars on the host, on the card
                        ctypes.c_int, ctypes.c_int, ctypes.c_int,  # h, w, max_iters
                        ctypes.c_int, ctypes.c_int, ctypes.c_int,  # row0, col0, width
                        ctypes.c_uint32, ctypes.c_int,  # rand_salt, it_base
@@ -753,56 +826,126 @@ def _strides(t: torch.Tensor, shape, what: str):
     return t.stride()
 
 
+torch.library.define(
+    "mathmap::while_loop",
+    "(str program, Tensor[] grids, Tensor mask, Tensor scalars, int max_iters, int unroll, "
+    "int row0, int col0, int width, int rand_salt, int it_base) -> Tensor[]")
+
+
+def _while_loop_cpu(program, grids, mask, scalars, max_iters, unroll, row0, col0, width,
+                    rand_salt, it_base):
+    """The plain version over the Program: the masked loop of
+    while_loop_reference, each step one run_program under the mask."""
+    prog = _program(program)[0]
+    shape = tuple(mask.shape)
+    values = dict(zip(prog.grid_inputs, grids))
+    values.update({k: scalars[n] for n, k in enumerate(prog.scalar_inputs)})
+    index = rand_index(shape, width, row0, col0, mask.device) if prog.draws else None
+
+    def step(flat, m, loop_i):
+        values.update({("carry", k): a for k, a in enumerate(flat)})
+        outs, cond = run_program(prog, values, mask.device, rand=(index, rand_salt, loop_i))
+        return tuple(torch.where(m, o, a) for o, a in zip(outs, flat)), m & cond
+
+    flat0 = tuple(values[("carry", k)] for k in range(len(prog.outputs)))
+    flat, _ = while_loop_reference(step, flat0, mask, max_iters, unroll, it_base)
+    return [torch.broadcast_to(a, shape).clone(memory_format=torch.contiguous_format)
+            for a in flat]
+
+
+torch.library.impl("mathmap::while_loop", "CPU")(_while_loop_cpu)
+
+
+def _while_loop_cuda(program, grids, mask, scalars, max_iters, unroll, row0, col0, width,
+                     rand_salt, it_base):
+    """Kernel B3: the Program's CUDA source, built once per distinct source
+    (and found on disk after that), launched on the current stream."""
+    prog = _program(program)[0]
+    fn = build_program(program)
+    dev = mask.device
+    if mask.dtype != torch.bool:
+        raise TypeError(f"mask must be bool, got {mask.dtype}")
+    if scalars.dtype != torch.float32 or scalars.numel() != len(prog.scalar_inputs):
+        raise ValueError(f"loop scalars must be {len(prog.scalar_inputs)} float32 values")
+    h, w = (int(n) for n in mask.shape)
+    for t in (*grids, mask):
+        if t.device != dev:
+            raise ValueError(f"loop input on {t.device}, expected {dev}")
+    if scalars.device not in (dev, torch.device("cpu")):
+        raise ValueError(f"loop scalars on {scalars.device}, expected {dev} or the CPU")
+    strides = [s for k, t in zip(prog.grid_inputs, grids) for s in _strides(t, (h, w), str(k[0]))]
+    strides += list(_strides(mask, (h, w), "mask"))
+    outs = [torch.empty((h, w), dtype=torch.float32, device=dev) for _ in prog.outputs]
+    if h * w == 0:
+        return outs
+    scalars = scalars.contiguous()
+    on_host = scalars.device.type == "cpu"
+    ptrs = (ctypes.c_void_p * (len(grids) + 1 + len(outs)))(
+        *(t.data_ptr() for t in (*grids, mask, *outs)))
+    strides_c = (ctypes.c_longlong * len(strides))(*strides)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(ptrs, strides_c, scalars.data_ptr() if on_host else None,
+                 None if on_host else scalars.data_ptr(), h, w,
+                 min(int(max_iters), 2**31 - 1), row0, col0, width, rand_salt, it_base, stream)
+    if err != 0:
+        raise RuntimeError(
+            f"while_loop kernel launch failed: cudaError {err} "
+            f"({build.error_string(err)}) for the loop at {prog.origin}")
+    while_loop.launches += 1
+    return outs
+
+
+torch.library.impl("mathmap::while_loop", "CUDA")(_while_loop_cuda)
+
+
+def _while_loop_fake(program, grids, mask, scalars, max_iters, unroll, row0, col0, width,
+                     rand_salt, it_base):
+    return [mask.new_empty(mask.shape, dtype=torch.float32)
+            for _ in _program(program)[0].outputs]
+
+
+torch.library.register_fake("mathmap::while_loop")(_while_loop_fake)
+
+
+def _scalars(ctx, keys, device) -> torch.Tensor:
+    """The scalar inputs' values as one float32 tensor: on the host when
+    every one is a float (the kernel takes them by value, no copy to the
+    card), else on `device` (an exported program's `t` or `frame`)."""
+    vals = [scalar_internal(ctx, k[1]) for k in keys]
+    if not any(isinstance(v, torch.Tensor) for v in vals):
+        return torch.tensor(vals, dtype=torch.float32)
+    return torch.stack([v.reshape(()) if isinstance(v, torch.Tensor)
+                        else torch.tensor(v, dtype=torch.float32, device=device) for v in vals])
+
+
 def while_loop(loop: Loop, flat0: tuple, mask0: torch.Tensor, max_iters: int) -> tuple:
     """Run `loop` from carry `flat0` ((H, W) float32 grids) and the first
     condition's mask `mask0` ((H, W) bool) until every pixel's condition
     fails or `max_iters` iterations -> the final carry.
 
-    A CPU mask goes to the plain version; on a CUDA device the loop's
-    kernel is generated, built (once per distinct source) and launched on
-    the current stream without synchronising, or this raises. Iterations
-    are numbered from loop.it_base + 1."""
+    The loop is traced into its Program once, and the custom op
+    `mathmap::while_loop` runs the Program's text, in the live render and
+    in an exported program alike: on the CPU the masked loop over
+    run_program (the plain version), on a CUDA device the loop's generated
+    kernel, built once per distinct source and launched on the current
+    stream without synchronising, or this raises. Iterations are numbered
+    from loop.it_base + 1."""
     dev = mask0.device
-    if dev.type == "cpu":
-        return while_loop_reference(loop.step, flat0, mask0, max_iters, loop.unroll,
-                                    loop.it_base)[0]
-    if dev.type != "cuda":
+    if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"no while-loop kernel for device {dev}")
-    if mask0.dtype != torch.bool:
-        raise TypeError(f"mask0 must be bool, got {mask0.dtype}")
-    h, w = loop.ctx.shape
-    prog, fn = _prepare(loop, len(flat0))
+    ctx = loop.ctx
+    prog, text = _prepare(loop, len(flat0))
     values = {("carry", k): a for k, a in enumerate(flat0)}
     values[("x",)], values[("y",)] = loop.x, loop.y
     for name, tv in loop.deps:
         for j, a in enumerate(tv.arrays):
             values[("dep", name, j)] = a
-    inputs = [values[k] for k in prog.grid_inputs]
-    for t in (*inputs, mask0):
-        if t.device != dev:
-            raise ValueError(f"loop input on {t.device}, expected {dev}")
-    strides = [s for k, t in zip(prog.grid_inputs, inputs)
-               for s in _strides(t, (h, w), str(k[0]))]
-    strides += list(_strides(mask0, (h, w), "mask"))
-    outs = [torch.empty((h, w), dtype=torch.float32, device=dev) for _ in flat0]
-    if h * w == 0:
-        return tuple(outs)
-    ptrs = (ctypes.c_void_p * (len(inputs) + 1 + len(outs)))(
-        *(t.data_ptr() for t in (*inputs, mask0, *outs)))
-    strides_c = (ctypes.c_longlong * len(strides))(*strides)
-    scalars = [scalar_internal(loop.ctx, k[1]) for k in prog.scalar_inputs]
-    scalars_c = (ctypes.c_float * max(1, len(scalars)))(*scalars)
-    ctx = loop.ctx
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(ptrs, strides_c, scalars_c, h, w, min(int(max_iters), 2**31 - 1),
-                 ctx.row_offset, ctx.col_offset, ctx.width, loop.rand_salt, loop.it_base, stream)
-    if err != 0:
-        raise RuntimeError(
-            f"while_loop kernel launch failed: cudaError {err} "
-            f"({build.error_string(err)}) for the loop at {loop.origin}")
-    while_loop.launches += 1
-    return tuple(outs)
+    grids = [values[k] for k in prog.grid_inputs]
+    scalars = _scalars(ctx, prog.scalar_inputs, dev)
+    return tuple(torch.ops.mathmap.while_loop(
+        text, grids, mask0, scalars, int(max_iters), int(loop.unroll), ctx.row_offset,
+        ctx.col_offset, ctx.width, loop.rand_salt, loop.it_base))
 
 
 #: kernel launches since the count was last set to 0 (CPU calls never count)

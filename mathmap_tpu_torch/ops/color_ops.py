@@ -127,7 +127,7 @@ def _to_ra(ev, args, span):
     (p,) = need_args(args, 1, "toRA", span)
     need_length(p, 2, "toRA", span)
     x, y = p.arrays
-    r = torch.sqrt(x * x + y * y)
+    r = libm.sqrt(x * x + y * y)
     # angle in [0, 2*pi), counterclockwise from the +x axis
     a = torch.remainder(libm.atan2(y, x), _2PI)
     # float mod of a tiny negative yields EXACTLY 2*pi: wrap into [0, 2*pi)

@@ -42,7 +42,7 @@ def c_log(a: TupleValue) -> TupleValue:
 
 def c_sqrt(a: TupleValue) -> TupleValue:
     re, im = a.arrays
-    r = torch.sqrt(torch.sqrt(re * re + im * im))
+    r = libm.sqrt(libm.sqrt(re * re + im * im))
     th = 0.5 * libm.atan2(im, re)
     return TupleValue("ri", (r * libm.cos(th), r * libm.sin(th)))
 
@@ -95,7 +95,7 @@ def _complex_dispatch(name: str, complex_fn, real_fn):
 
 
 _complex_dispatch("exp", c_exp, torch.exp)
-_complex_dispatch("sqrt", c_sqrt, torch.sqrt)
+_complex_dispatch("sqrt", c_sqrt, libm.sqrt)
 _complex_dispatch("sin", c_sin, libm.sin)
 _complex_dispatch("cos", c_cos, libm.cos)
 _complex_dispatch("tan", c_tan, libm.tan)

@@ -263,7 +263,7 @@ def _abs(ev, args, span):
         acc = a.arrays[0] * a.arrays[0]
         for x in a.arrays[1:]:
             acc = acc + x * x
-        return TupleValue(NIL, (torch.sqrt(acc),))
+        return TupleValue(NIL, (libm.sqrt(acc),))
     return TupleValue(a.tag, tuple(torch.abs(x) for x in a.arrays))
 
 
@@ -273,7 +273,7 @@ ew1("log10", torch.log10)
 ew1("exp2", torch.exp2)
 # C fmod: the sign follows the dividend (unlike '%', which is floored mod)
 ew2("fmod", torch.fmod)
-ew2("hypot", lambda x, y: torch.sqrt(x * x + y * y))
+ew2("hypot", lambda x, y: libm.sqrt(x * x + y * y))
 
 
 @builtin("smoothstep")

@@ -140,3 +140,7 @@ def need_length(v: TupleValue, n: int, name: str, span) -> TupleValue:
     if v.length != n:
         raise MMTypeError(f"{name!r} expects a length-{n} tuple, got length {v.length}", span)
     return v
+
+
+# the builtins register themselves through `builtin` above
+from . import builtins  # noqa: E402,F401

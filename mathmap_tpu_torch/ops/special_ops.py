@@ -78,7 +78,7 @@ def _gamma_real(x):
     """Lanczos gamma for real x; gamma(x) = pi / (sin(pi x) gamma(1 - x))
     for x < 0.5."""
     reflect, z, acc, t = _lanczos(x)
-    g = _SQRT_2PI * torch.pow(t, z + 0.5) * torch.exp(-t) * acc
+    g = _SQRT_2PI * libm.pow(t, z + 0.5) * torch.exp(-t) * acc
     return torch.where(reflect, _rdiv(_PI, libm.sin(_PI * x) * g), g)
 
 
@@ -148,12 +148,12 @@ _AGM_ITERS = 12
 def _agm_ke(k):
     """The complete elliptic integrals K(k), E(k) by the AGM."""
     a = torch.ones_like(k)
-    b = torch.sqrt(1.0 - k * k)
+    b = libm.sqrt(1.0 - k * k)
     c_sum = 0.5 * k * k
     pow2 = 1.0
     for _ in range(_AGM_ITERS):
         an = 0.5 * (a + b)
-        bn = torch.sqrt(a * b)
+        bn = libm.sqrt(a * b)
         cn = 0.5 * (a - b)
         pow2 = pow2 * 2.0
         c_sum = c_sum + 0.5 * pow2 * cn * cn
@@ -178,12 +178,12 @@ def _jacobi_sn_cn_dn(u, k):
     """Jacobi sn, cn, dn by the AGM and the descending Landen chain, at a
     fixed depth (Abramowitz & Stegun 16.4)."""
     a = torch.ones_like(k)
-    b = torch.sqrt(1.0 - k * k)
+    b = libm.sqrt(1.0 - k * k)
     levels = []  # (a_i, c_i), i = 1..n, after each update
     for _ in range(_AGM_ITERS):
         an = 0.5 * (a + b)
         c = 0.5 * (a - b)
-        b = torch.sqrt(a * b)
+        b = libm.sqrt(a * b)
         a = an
         levels.append((a, c))
     # phi_n = 2^n a_n u, then 2 phi_{i-1} = phi_i + asin(c_i / a_i sin phi_i)
@@ -191,7 +191,7 @@ def _jacobi_sn_cn_dn(u, k):
     for a_i, c_i in reversed(levels):
         phi = 0.5 * (phi + libm.asin(torch.clamp(c_i / a_i * libm.sin(phi), -1.0, 1.0)))
     sn, cn = libm.sin(phi), libm.cos(phi)
-    dn = torch.sqrt(torch.clamp(1.0 - (k * sn) * (k * sn), min=0.0))
+    dn = libm.sqrt(torch.clamp(1.0 - (k * sn) * (k * sn), min=0.0))
     return sn, cn, dn
 
 

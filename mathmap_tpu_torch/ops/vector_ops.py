@@ -18,6 +18,7 @@ import torch
 from ..runtime.value import TupleValue
 from ..typesys.tags import NIL
 from ..utils.errors import MMTypeError
+from . import libm
 from .registry import builtin, need_args, need_length
 
 
@@ -58,7 +59,7 @@ def _normalize(ev, args, span):
     (v,) = need_args(args, 1, "normalize", span)
     if v.is_opaque:
         raise MMTypeError("'normalize' expects a numeric tuple", span)
-    norm = torch.sqrt(_sum_of_squares(v))
+    norm = libm.sqrt(_sum_of_squares(v))
     safe = torch.where(norm == 0, ev.lit(1.0), norm)
     return TupleValue(v.tag, tuple(x / safe for x in v.arrays))
 
@@ -68,7 +69,7 @@ def _length(ev, args, span):
     (v,) = need_args(args, 1, "length", span)
     if v.is_opaque:
         raise MMTypeError("'length' expects a numeric tuple", span)
-    return TupleValue(NIL, (torch.sqrt(_sum_of_squares(v)),))
+    return TupleValue(NIL, (libm.sqrt(_sum_of_squares(v)),))
 
 
 # ---------------------------------------------------------------------------

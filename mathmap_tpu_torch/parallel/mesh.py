@@ -26,18 +26,41 @@ COL_AXIS = "x"
 
 
 class Mesh:
-    """A (frames, rows, cols) ndarray of torch.device."""
+    """A (frames, rows, cols) ndarray of torch.device. A mesh that spans
+    processes (parallel/distributed.global_mesh) also holds the rank that
+    owns each entry and this process's rank: a render over it evaluates
+    only this rank's tiles."""
 
     axis_names = (FRAME_AXIS, ROW_AXIS, COL_AXIS)
 
-    def __init__(self, devices: np.ndarray):
+    def __init__(self, devices: np.ndarray, ranks: np.ndarray | None = None, rank: int = 0):
         if devices.ndim != 3:
             raise ValueError(f"a mesh is (frames, rows, cols), got {devices.shape}")
+        if ranks is not None and ranks.shape != devices.shape:
+            raise ValueError(f"ranks {ranks.shape} must match the devices {devices.shape}")
         self.devices = devices
+        self.ranks = ranks
+        self.rank = rank
 
     @property
     def shape(self) -> dict:
         return dict(zip(self.axis_names, self.devices.shape))
+
+    @property
+    def spans_processes(self) -> bool:
+        return self.ranks is not None
+
+    def is_local(self, index) -> bool:
+        """Whether this process owns the entry at `index` (f, y, x)."""
+        return self.ranks is None or int(self.ranks[index]) == self.rank
+
+    @property
+    def first_local(self) -> torch.device:
+        """The first device, in mesh order, that this process owns."""
+        for index in np.ndindex(self.devices.shape):
+            if self.is_local(index):
+                return self.devices[index]
+        raise ValueError(f"rank {self.rank} owns no device of this mesh")
 
 
 def _device(d) -> torch.device:

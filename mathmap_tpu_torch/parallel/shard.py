@@ -10,6 +10,12 @@ through kernel B1, and its loops and LUTs go through kernels B3 and B2, as
 the unsharded render's do. One process drives every tile. A sweep of
 frames splits over the mesh's frame axis in contiguous blocks: frame slice
 k renders its block of frames over its own (rows, cols) tiles.
+
+Over a mesh that spans processes (parallel/distributed.global_mesh) each
+rank evaluates only the tiles of its own devices, and a frame is a
+`LocalFrame` of those tiles (distributed.local_slice_of): the
+single-controller design, applied per rank. Nothing crosses processes,
+since every rank has the inputs whole.
 """
 
 from __future__ import annotations
@@ -28,18 +34,34 @@ def _check_divisible(total: int, parts: int, what: str):
         raise MMRuntimeError(f"{what} ({total}) must be divisible by its mesh axis ({parts})")
 
 
-def _render_tiles(devices, replicas: dict, program_filters, fdef, width: int, height: int,
-                  opts, inputs: list, params: dict, t: float, frame: float, out=None):
-    """One frame over the (rows, cols) tile `devices` -> (H, W, 4) on
-    devices[0, 0], or written into `out` on its device. `replicas` maps a device
-    to its copies of `inputs`, made on first use and reused by later
-    frames."""
+class LocalFrame:
+    """This process's tiles of a frame rendered over a mesh that spans
+    processes: `tiles` maps each tile's global (row, col) origin to its
+    (tile_h, tile_w, 4) tensor, in mesh order; `shape` is the frame's."""
+
+    def __init__(self, tiles: dict, shape: tuple):
+        self.tiles = tiles
+        self.shape = shape
+
+
+def _render_tiles(mesh, f: int, replicas: dict, program_filters, fdef, width: int,
+                  height: int, opts, inputs: list, params: dict, t: float, frame: float,
+                  out=None):
+    """One frame over the (rows, cols) tiles of the mesh's frame slice `f`
+    -> (H, W, 4) on its first device, or written into `out` on its device;
+    over a mesh that spans processes, a LocalFrame of this rank's tiles.
+    `replicas` maps a device to its copies of `inputs`, made on first use
+    and reused by later frames."""
+    devices = mesh.devices[f]
     ny, nx = devices.shape
     tile_h, tile_w = height // ny, width // nx
     tiles = []
+    local = {}
     for r in range(ny):
         row = []
         for c in range(nx):
+            if not mesh.is_local((f, r, c)):
+                continue
             dev = devices[r, c]
             if dev not in replicas:
                 replicas[dev] = [a.to(dev, non_blocking=True) for a in inputs]
@@ -50,8 +72,12 @@ def _render_tiles(devices, replicas: dict, program_filters, fdef, width: int, he
                         for i, a in enumerate(replicas[dev])],
                 grid_shape=(tile_h, tile_w),
                 row_offset=r * tile_h, col_offset=c * tile_w)
-            row.append(render_frame(ctx, fdef, user_values(ctx, fdef, params)))
+            tile = render_frame(ctx, fdef, user_values(ctx, fdef, params))
+            row.append(tile)
+            local[(r * tile_h, c * tile_w)] = tile
         tiles.append(row)
+    if mesh.spans_processes:
+        return LocalFrame(local, (height, width, 4))
     return assemble(tiles, devices[0, 0] if out is None else out.device, out=out)
 
 
@@ -78,7 +104,7 @@ def render_frame_sharded(mesh, program_filters, fdef, width: int, height: int,
     param values."""
     validate_params(fdef, params, opts.static_params)
     _check_grid(mesh, opts, width, height)
-    return _render_tiles(mesh.devices[0], {}, program_filters, fdef, width, height,
+    return _render_tiles(mesh, 0, {}, program_filters, fdef, width, height,
                          opts, inputs, params, t, frame)
 
 
@@ -91,6 +117,9 @@ def render_frames_sharded(mesh, program_filters, fdef, width: int, height: int,
     frame axis."""
     validate_params(fdef, params, opts.static_params)
     _check_grid(mesh, opts, width, height)
+    if mesh.spans_processes:
+        raise ValueError("a sweep of frames over a mesh that spans processes is not "
+                         "supported: render its frames one at a time")
     n = len(ts)
     nf = axis_size(mesh, FRAME_AXIS)
     _check_divisible(n, nf, "num_frames")
@@ -101,6 +130,6 @@ def render_frames_sharded(mesh, program_filters, fdef, width: int, height: int,
     out = torch.empty((n, height, width, 4), dtype=dtype, device=first)
     replicas = {}
     for i in range(n):
-        _render_tiles(devices[i // per_slice], replicas, program_filters, fdef, width,
+        _render_tiles(mesh, i // per_slice, replicas, program_filters, fdef, width,
                       height, opts, inputs, params, float(ts[i]), float(i), out=out[i])
     return out

@@ -82,8 +82,11 @@ class RenderContext:
     opts: Any  # RenderOptions
     inputs: list = field(default_factory=list)  # list[InputImage]
     filters: dict = field(default_factory=dict)  # name -> FilterDef
-    t: float = 0.0  # animation time
-    frame: float = 0.0
+    #: animation time and the `frame` internal: floats, or 0-d tensors on
+    #: the device when an exported program takes them as inputs
+    #: (generators/artifact.py)
+    t: Any = 0.0
+    frame: Any = 0.0
     #: component dtype of every grid and literal
     dtype: torch.dtype = torch.float32
     #: filter-inlining depth (recursive filters would inline forever)
@@ -192,14 +195,13 @@ class Evaluator:
         elif name == "y":
             v = TupleValue(NIL, (self.y,))
         elif name == "r":
-            v = TupleValue(NIL, (torch.sqrt(self.x * self.x + self.y * self.y),))
+            v = TupleValue(NIL, (libm.sqrt(self.x * self.x + self.y * self.y),))
         elif name == "a":
             # angle in [0, 2pi) counterclockwise from +x
             v = TupleValue(NIL, (torch.remainder(libm.atan2(self.y, self.x), _2PI),))
-        elif name == "t":
-            v = TupleValue(NIL, (self.lit(ctx.t),))
-        elif name == "frame":
-            v = TupleValue(NIL, (self.lit(ctx.frame),))
+        elif name in ("t", "frame"):
+            value = getattr(ctx, name)
+            v = TupleValue(NIL, (value if isinstance(value, torch.Tensor) else self.lit(value),))
         elif name == "X":
             v = TupleValue(NIL, (self.lit(ctx.width * 0.5),),
                            const=(ctx.width * 0.5,))
@@ -669,6 +671,12 @@ class Evaluator:
                 flat_out = loop_kernel(loop, flat0, mask0, max_iters - n_done)
                 TRACE_LOOP_PATHS.append(("kernel", max_iters))
             else:
+                if torch.compiler.is_exporting():
+                    # its convergence check reads the mask on the host
+                    raise MMRuntimeError(
+                        "this loop runs as the masked eager loop, which an exported "
+                        "program cannot hold: only a loop that kernel B3 runs (or the "
+                        "static unroll) exports", node.span)
                 flat_out, steps = WL.while_loop_reference(
                     step, flat0, mask0, max_iters - n_done, opts.while_unroll, n_done)
                 TRACE_LOOP_PATHS.append(("masked", n_done + steps))

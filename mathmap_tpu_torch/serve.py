@@ -33,7 +33,11 @@ Endpoints:
   POST /animate          {"filter": ..., "num_frames", "fps", ...} ->
                           {"gif": base64} (GIF needs Pillow), or "format":
                           "raw" -> (F, H, W, 4) bytes + declared dtype
-  GET  /artifacts        exported artifacts are not ported yet (ROADMAP A10)
+  GET  /artifacts        loaded .mmxa artifacts, their geometry and params
+
+{"artifact": name} in place of "filter" on /render and /animate runs an
+exported artifact loaded with `load_artifacts` (or `--artifacts PATH`):
+no parser or evaluator at serve time, the geometry fixed at export.
 
 Any render/animate request may set {"binary": true} to receive the bytes
 directly (image/png, image/gif, or application/octet-stream with
@@ -47,7 +51,7 @@ RenderService(output_dtype='float32') restores raw float results.
 
 The device is the GPU, or the CPU under MMTPU_PLATFORM=cpu or `--cpu`.
 Client errors (bad JSON, unknown filter, bad params) return 400; render
-timeouts 503; backend failures (and the artifact routes) 500.
+timeouts 503; backend failures 500.
 """
 
 from __future__ import annotations
@@ -65,8 +69,6 @@ from typing import Any
 import numpy as np
 
 from .runtime.options import RenderOptions
-
-NOT_PORTED_ARTIFACTS = "exported artifacts (.mmxa) are not ported yet (ROADMAP A10)"
 
 #: options forwarded from request JSON to RenderOptions. JSON arrays
 #: become tuples (edge_color, static_params, region: RenderOptions is
@@ -131,6 +133,9 @@ class _Job:
     #: unique-sig jobs dispatch the moment the dispatcher sees them: a
     #: gathering window would add latency with no chance of a companion
     solo: bool = False
+    #: not None -> a job of this LoadedArtifact (render_artifact)
+    artifact: Any = None
+    frame: float = 0.0
 
 
 class RenderService:
@@ -160,6 +165,8 @@ class RenderService:
         self.output_dtype = output_dtype
         self._q: queue.Queue = queue.Queue()
         self._filters: dict = {}     # cache key -> Filter
+        self.artifacts: dict = {}    # name -> LoadedArtifact (.mmxa)
+        self._artifact_paths: dict = {}  # name -> abspath it was loaded from
         self._lock = threading.Lock()
         self.stats = {
             "jobs": 0, "dispatches": 0, "errors": 0,
@@ -202,15 +209,97 @@ class RenderService:
             return filt
 
     def load_artifacts(self, path) -> list:
-        raise NotImplementedError(NOT_PORTED_ARTIFACTS)
+        """Register .mmxa artifacts (a file or a directory of them) under
+        their exported filter names (the file stem on a collision); they
+        must have been exported for this service's device type. Requests
+        ({"artifact": name}) run the exported program: no parse and no
+        evaluator at serve time, the geometry fixed at export. Artifacts
+        exported with batch_sizes coalesce like live filters; the others
+        dispatch as singletons."""
+        import os
 
-    def render_artifact(self, name: str, inputs, params=None, t: float = 0.0,
-                        frame: float = 0.0, timeout: float | None = 600.0):
-        raise NotImplementedError(NOT_PORTED_ARTIFACTS)
+        from .generators.artifact import load_artifact
 
-    def animate_artifact(self, name: str, inputs, params=None, num_frames=None,
-                         timeout: float | None = 600.0):
-        raise NotImplementedError(NOT_PORTED_ARTIFACTS)
+        files = ([os.path.join(path, f) for f in sorted(os.listdir(path))
+                  if f.endswith(".mmxa")]
+                 if os.path.isdir(path) else [path])
+        names = []
+        for f in files:
+            art = load_artifact(f, platform=self.device.type)
+            src = os.path.abspath(f)
+            name = art.manifest.get("filter") or os.path.basename(f)
+            if name in self.artifacts and self._artifact_paths.get(name) != src:
+                name = os.path.splitext(os.path.basename(f))[0]
+            if name in self.artifacts and self._artifact_paths.get(name) != src:
+                # two different files claiming one name: refuse rather than
+                # reroute the clients of the first
+                raise ValueError(
+                    f"artifact name {name!r} already serves "
+                    f"{self._artifact_paths[name]}; rename {f} to load it")
+            self.artifacts[name] = art
+            self._artifact_paths[name] = src
+            names.append(name)
+        return names
+
+    def _artifact(self, name: str):
+        art = self.artifacts.get(name)
+        if art is None:
+            raise ValueError(f"unknown artifact {name!r}; loaded: {sorted(self.artifacts)}")
+        return art
+
+    @staticmethod
+    def _check_artifact_request(art, inputs, params):
+        """The artifact's own ValueErrors for bad inputs or params, raised
+        before the job is queued, so a bad request never joins (and fails)
+        a group."""
+        m = art.manifest
+        if len(inputs) != m["n_inputs"]:
+            raise ValueError(
+                f"artifact expects {m['n_inputs']} input image(s), got {len(inputs)}")
+        for a in inputs:
+            if np.shape(a) != (m["height"], m["width"], 4):
+                raise ValueError(
+                    f"artifact inputs must be ({m['height']}, {m['width']}, 4); "
+                    f"got {np.shape(a)}")
+        art._build_uv(params or {})
+
+    def render_artifact(self, name: str, inputs, params: dict | None = None,
+                        t: float = 0.0, frame: float = 0.0,
+                        timeout: float | None = 600.0) -> np.ndarray:
+        """Render a loaded artifact through the job queue -> a host array."""
+        art = self._artifact(name)
+        inputs = [_host_input(a) for a in inputs]
+        self._check_artifact_request(art, inputs, params)
+        sig = ("art", id(art)) if art.batch_sizes else ("art", id(art), object())
+        job = self._put(_Job(sig=sig, filt=None, inputs=inputs, t=float(t),
+                             params=params or {}, width=art.manifest["width"],
+                             height=art.manifest["height"], options=RenderOptions(),
+                             artifact=art, frame=float(frame), solo=not art.batch_sizes))
+        return self._wait(job, timeout, "render")
+
+    def animate_artifact(self, name: str, inputs, params: dict | None = None,
+                         num_frames: int | None = None,
+                         timeout: float | None = 600.0) -> np.ndarray:
+        """Run a loaded artifact's exported sweep -> (F, H, W, 4) on the
+        host; F is fixed at export, so a conflicting `num_frames` raises.
+        Never grouped."""
+        art = self._artifact(name)
+        exported = art.manifest.get("anim_frames")
+        if num_frames is not None and num_frames != exported:
+            raise ValueError(
+                f"artifact animation has {exported or 'no'} frames (fixed at export); "
+                f"requested num_frames={num_frames}: re-export with anim_frames="
+                f"{num_frames} or drop the field")
+        if not exported:
+            raise ValueError("artifact has no animation program; export with "
+                             "anim_frames=F to enable render_animation")
+        inputs = [_host_input(a) for a in inputs]
+        self._check_artifact_request(art, inputs, params)
+        job = self._put(_Job(sig=("art-anim", id(art), object()), filt=None, inputs=inputs,
+                             t=0.0, params=params or {}, width=art.manifest["width"],
+                             height=art.manifest["height"], options=RenderOptions(),
+                             artifact=art, solo=True, num_frames=int(exported)))
+        return self._wait(job, timeout, "animation")
 
     def warmup(self, spec, width: int, height: int,
                options: RenderOptions | None = None,
@@ -343,6 +432,8 @@ class RenderService:
             j0 = group[0]
             if j0.call is not None:
                 j0.call()
+            elif j0.artifact is not None:
+                self._dispatch_artifact(group)
             elif len(group) == 1 and j0.num_frames is not None:
                 j0.result = j0.filt.render_animation(
                     *j0.inputs, num_frames=j0.num_frames, width=j0.width,
@@ -381,6 +472,31 @@ class RenderService:
                         self.stats["latency_ms_sum"] += (now - g.enqueued) * 1e3
             for g in group:
                 g.done.set()
+
+    @staticmethod
+    def _dispatch_artifact(group: list):
+        """Artifact jobs: one render_batch call per chunk of at most the
+        largest exported batch size, else each job alone."""
+        art = group[0].artifact
+        if group[0].num_frames is not None:
+            (g,) = group  # animation sigs are unique: never grouped
+            g.result = art.render_animation(*g.inputs, params=g.params).cpu().numpy()
+            return
+        if len(group) == 1 or not art.batch_sizes:
+            for g in group:
+                g.result = art.render(*g.inputs, params=g.params, t=g.t,
+                                      frame=g.frame).cpu().numpy()
+            return
+        cap = max(art.batch_sizes)
+        for s in range(0, len(group), cap):
+            chunk = group[s:s + cap]
+            stacks = [np.stack([g.inputs[i] for g in chunk]) for i in range(len(chunk[0].inputs))]
+            outs = art.render_batch(
+                *stacks, params=[g.params for g in chunk],
+                ts=np.asarray([g.t for g in chunk], np.float32),
+                frames=np.asarray([g.frame for g in chunk], np.float32)).cpu().numpy()
+            for g, o in zip(chunk, outs):
+                g.result = o
 
     def snapshot(self) -> dict:
         with self._lock:
@@ -463,7 +579,12 @@ def make_handler(service: RenderService):
             elif self.path == "/stats":
                 self._json(200, service.snapshot())
             elif self.path == "/artifacts":
-                self._json(500, {"error": f"NotImplementedError: {NOT_PORTED_ARTIFACTS}"})
+                self._json(200, {
+                    name: {"width": a.manifest["width"], "height": a.manifest["height"],
+                           "n_inputs": a.manifest["n_inputs"],
+                           "params": sorted(a.manifest["params"]),
+                           "platforms": list(a.platforms)}
+                    for name, a in service.artifacts.items()})
             else:
                 self._json(404, {"error": "unknown path"})
 
@@ -484,8 +605,11 @@ def make_handler(service: RenderService):
                 if self.path not in ("/render", "/animate"):
                     return self._json(404, {"error": "unknown path"})
                 inputs = [_decode_input(b) for b in req.get("inputs", [])]
-                if "artifact" in req:
-                    raise NotImplementedError(NOT_PORTED_ARTIFACTS)
+                if "artifact" in req and self.path == "/render":
+                    out = service.render_artifact(
+                        req["artifact"], inputs, params=req.get("params"),
+                        t=float(req.get("t", 0.0)), frame=float(req.get("frame", 0.0)))
+                    return self._send_array(out, req)
                 w = int(req.get("width") or (inputs[0].shape[-2] if inputs else 256))
                 h = int(req.get("height") or (inputs[0].shape[-3] if inputs else 256))
                 if self.path == "/render":
@@ -493,9 +617,17 @@ def make_handler(service: RenderService):
                         req["filter"], inputs, w, h, t=float(req.get("t", 0.0)),
                         params=req.get("params"), options=_opts_from(req))
                     return self._send_array(out, req)
-                frames = service.animate_sync(
-                    req["filter"], inputs, w, h, num_frames=int(req.get("num_frames", 8)),
-                    params=req.get("params"), options=_opts_from(req))
+                if "artifact" in req:
+                    # the exported sweep: F fixed at export, a conflicting
+                    # num_frames is a 400
+                    nf = req.get("num_frames")
+                    frames = service.animate_artifact(
+                        req["artifact"], inputs, params=req.get("params"),
+                        num_frames=None if nf is None else int(nf))
+                else:
+                    frames = service.animate_sync(
+                        req["filter"], inputs, w, h, num_frames=int(req.get("num_frames", 8)),
+                        params=req.get("params"), options=_opts_from(req))
                 if req.get("format") == "raw":
                     return self._send_raw(frames, req)
                 from .imgio.images import encode_gif
@@ -554,10 +686,10 @@ def main(argv=None):
     ap.add_argument("--cpu", action="store_true",
                     help="render on the CPU (like MMTPU_PLATFORM=cpu)")
     ap.add_argument("--artifacts", default=None, metavar="PATH",
-                    help=f"refused: {NOT_PORTED_ARTIFACTS}")
+                    help="load .mmxa artifacts (a file or a directory) as "
+                         "exported programs ({'artifact': name} on /render "
+                         "and /animate; GET /artifacts lists them)")
     args = ap.parse_args(argv)
-    if args.artifacts:
-        raise SystemExit(NOT_PORTED_ARTIFACTS)
     from .api import platform_device
 
     try:
@@ -566,6 +698,9 @@ def main(argv=None):
         raise SystemExit(str(exc))
     svc = RenderService(max_batch=args.max_batch, window_ms=args.window_ms,
                         output_dtype=args.output_dtype, device=device)
+    if args.artifacts:
+        names = svc.load_artifacts(args.artifacts)
+        print(f"loaded {len(names)} artifact(s): {', '.join(names)}", flush=True)
     print(f"serving on http://{args.host}:{args.port} on {svc.device}  "
           f"(max_batch={args.max_batch}, window={args.window_ms}ms)", flush=True)
     serve(args.port, args.host, svc)

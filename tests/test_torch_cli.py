@@ -1,9 +1,9 @@
 """The port's command-line renderer (mathmap_tpu_torch/cli.py) on the CPU.
 
 The cases mirror tests/test_cli.py case for case, run in-process through
-`cli.main(argv)` under MMTPU_PLATFORM=cpu, except the artifact cases (not
-ported yet, ROADMAP A10: their refusal is tested instead), `--fallback`
-(refused here) and the animated-GIF input case. Each render's PNG (every
+`cli.main(argv)` under MMTPU_PLATFORM=cpu, except `--fallback` (refused
+here) and the animated-GIF input case; the artifact cases export on the
+CPU and render the .mmxa. Each render's PNG (every
 frame of a sequence) must be within 1 u8 level of the JAX CLI's
 `--interpret` PNG for the same argv, run in-process too; a --param-sweep,
 which the JAX CLI runs only on its jit path, is held against the NumPy
@@ -264,15 +264,88 @@ def test_cli_selftest_runs_clean(capsys):
 
 
 def test_artifacts_are_refused_with_the_roadmap_item(input_png, tmp_path, capsys):
-    for argv in (["filters/Distorts/twirl.mm", "--export-artifact", str(tmp_path / "t.mmxa"),
-                  "--size", "24x20"],
-                 [str(tmp_path / "tw.mmxa"), input_png, str(tmp_path / "o.png")],
-                 ["filters/Distorts/twirl.mm", input_png, str(tmp_path / "o.png"),
-                  "--artifact-batch-sizes", "2,4"]):
-        assert main(argv) == 1
+    """Once refused naming ROADMAP A10: the three argv forms it pinned now
+    export an artifact (with batch sizes) and render one, rc 0."""
+    art = tmp_path / "t.mmxa"
+    for argv in (["filters/Distorts/twirl.mm", "--export-artifact", str(art), "--size", "24x20"],
+                 [str(art), input_png, str(tmp_path / "o.png")],
+                 ["filters/Distorts/twirl.mm", "--export-artifact", str(tmp_path / "b.mmxa"),
+                  "--size", "24x20", "--artifact-batch-sizes", "2,4"]):
+        assert main(argv) == 0
         err = capsys.readouterr().err
-        assert "ROADMAP A10" in err and "Traceback" not in err
-        assert err.count("\n") == 1
+        assert "ROADMAP A10" not in err and "Traceback" not in err
+    assert (tmp_path / "o.png").exists() and (tmp_path / "b.mmxa").exists()
+
+
+def test_export_and_render_artifact(input_png, tmp_path):
+    """--export-artifact writes a .mmxa; rendering from it (no compiler
+    path) equals the live CLI render bit for bit at uint8, and the JAX
+    CLI's --interpret render within 1 level."""
+    art = tmp_path / "tw.mmxa"
+    assert main(["filters/Distorts/twirl.mm", "--export-artifact", str(art), "--size", "24x20",
+                 "--param", "angle=3", "--artifact-batch-sizes", "2,4"]) == 0
+    assert art.exists()
+    from mathmap_tpu_torch.generators.artifact import load_artifact
+
+    assert load_artifact(str(art)).batch_sizes == (2, 4)
+    out_a, out_l, out_r = tmp_path / "a.png", tmp_path / "l.png", tmp_path / "r.png"
+    assert main([str(art), input_png, str(out_a), "--param", "angle=5"]) == 0
+    assert main(["filters/Distorts/twirl.mm", input_png, str(out_l), "--size", "24x20",
+                 "--param", "angle=5"]) == 0
+    np.testing.assert_array_equal(u8(out_a), u8(out_l))
+    assert ref_main(["filters/Distorts/twirl.mm", input_png, str(out_r), "--size", "24x20",
+                     "--param", "angle=5", "--interpret"]) == 0
+    within_one_level([(u8(out_a), u8(out_r))])
+
+
+def test_artifact_animation_cli(tmp_path):
+    art = tmp_path / "g.mmxa"
+    assert main(["filter g () grayColor(t) end", "--export-artifact", str(art), "--size",
+                 "16x12", "--frames", "3"]) == 0
+    gif = tmp_path / "g.gif"
+    assert main([str(art), str(gif), "--frames", "3"]) == 0
+    assert read_animation(str(gif), as_uint8=True).shape[0] == 3
+    # a frame sequence needs no Pillow: each frame is the live sweep's
+    assert main([str(art), str(tmp_path / "s.png"), "--frames", "3"]) == 0
+    live = mt.compile("filter g () grayColor(t) end").render_animation(
+        num_frames=3, width=16, height=12, device="cpu")
+    for i in range(3):
+        np.testing.assert_array_equal(u8(tmp_path / f"s_{i:04d}.png"), to_uint8(live[i]))
+    # a frame-count mismatch is a clear error, not a wrong render
+    with pytest.raises(SystemExit, match="re-export"):
+        main([str(art), str(tmp_path / "x.gif"), "--frames", "5"])
+
+
+def test_artifact_cli_error_paths(tmp_path, capsys):
+    """A missing .mmxa and an export from an artifact give one-line
+    errors, not tracebacks."""
+    assert main([str(tmp_path / "typo.mmxa"), str(tmp_path / "out.png")]) == 1
+    err = capsys.readouterr().err
+    assert "Traceback" not in err and err.count("\n") == 1
+    with pytest.raises(SystemExit, match="cannot --export-artifact"):
+        main([str(tmp_path / "typo.mmxa"), "--export-artifact", str(tmp_path / "new.mmxa")])
+
+
+def test_artifact_of_another_platform_is_refused(input_png, tmp_path, capsys, monkeypatch):
+    """An artifact exported on the CPU renders on the CPU only: with the
+    GPU as the CLI's device it is refused at load time (simulated by the
+    platform recorded in the manifest)."""
+    import struct
+
+    from mathmap_tpu_torch.generators.artifact import _MAGIC
+
+    art = tmp_path / "tw.mmxa"
+    assert main(["filters/Distorts/twirl.mm", "--export-artifact", str(art), "--size",
+                 "24x20"]) == 0
+    whole = art.read_bytes()
+    (n,) = struct.unpack("<I", whole[len(_MAGIC):len(_MAGIC) + 4])
+    manifest = json.loads(whole[len(_MAGIC) + 4:len(_MAGIC) + 4 + n])
+    manifest["platforms"] = ["cuda"]
+    raw = json.dumps(manifest).encode()
+    art.write_bytes(_MAGIC + struct.pack("<I", len(raw)) + raw + whole[len(_MAGIC) + 4 + n:])
+    assert main([str(art), input_png, str(tmp_path / "o.png")]) == 1
+    err = capsys.readouterr().err
+    assert "re-export" in err and "Traceback" not in err
 
 
 def test_fallback_is_refused(input_png, tmp_path):

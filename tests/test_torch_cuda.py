@@ -7,7 +7,8 @@ bit, and B3 loops that draw; quat_julia's vector loop through B3, and
 gaussian_blur on the card equal to the CPU bit for bit; region renders
 equal to the card's full render cropped bit for bit (B1, B2, B3, and the
 tiled selection in place), corners against the CPU, the CLI, --selftest
-and the render service on the card.
+and the render service on the card; exported artifacts on the card equal
+to the live render bit for bit, each kernel launched through its op.
 
 They carry the `cuda` marker and skip without a GPU. This file imports only
 torch, numpy and the port, so it also runs on a GPU machine without jax:
@@ -567,3 +568,47 @@ def test_cuda_service_jobs_equal_their_lone_renders(cuda):
         lone = f.render(img, params={"angle": a}, device=cuda,
                         options=mt.RenderOptions(output_dtype="uint8"))
         np.testing.assert_array_equal(results[i], lone.cpu().numpy())
+
+
+#: a loop whose body reads `t` and `W`: in an exported program its scalars
+#: come from device memory, in the live render by value
+T_LOOP = ("filter tloop () s = 0; i = 0; while s < 1 + t && i < 60 do "
+          "s = s + 0.02 + x / W * 0.01; i = i + 1 end; grayColor(i / 60) end")
+ARTIFACT_CASES = {
+    "twirl": ("filters/Distorts/twirl.mm", True, {"angle": 3.0}, {"angle": -2.5}, (1, 0, 0)),
+    "mandelbrot": ("filters/Render/mandelbrot.mm", False, {"maxiter": 64}, {"maxiter": 90},
+                   (0, 1, 1)),
+    "t loop": (T_LOOP, False, {}, {}, (0, 0, 1)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(ARTIFACT_CASES))
+def test_cuda_artifact_equals_the_live_render_through_the_ops(cuda, name, tmp_path):
+    """An artifact exported on the card renders, batches and sweeps bit for
+    bit like the live render, launching each kernel through its op."""
+    from mathmap_tpu_torch.generators.artifact import export_artifact, load_artifact
+
+    src, image, p_export, p, launches = ARTIFACT_CASES[name]
+    f = (mt.compile_file(os.path.join(ROOT, src)) if src.endswith(".mm")
+         else mt.compile(src))
+    ins = [torch.from_numpy(_source("f32")).to(cuda)] if image else []
+    path = str(tmp_path / "a.mmxa")
+    export_artifact(f, path, WI, HI, params=p_export, batch_sizes=(3,), anim_frames=3,
+                    device=cuda)
+    art = load_artifact(path)
+    assert art.platforms == ("cuda",)
+    before = [w.launches for w in (K.sample_image, L.apply_lut, WL.while_loop)]
+    got = art.render(*ins, params=p, t=0.35)
+    torch.cuda.synchronize()
+    after = [w.launches for w in (K.sample_image, L.apply_lut, WL.while_loop)]
+    assert tuple(a - b for a, b in zip(after, before)) == launches
+    want = f.render(*ins, params=p, t=0.35, width=WI, height=HI, device=cuda)
+    assert torch.equal(got, want)
+    ts = [0.1, 0.5, 0.9]
+    stacks = [torch.stack([a] * 3) for a in ins]
+    assert torch.equal(art.render_batch(*stacks, params=[p] * 3, ts=ts),
+                       f.render_batch(*stacks, ts=ts, params=[p] * 3, width=WI, height=HI,
+                                      device=cuda))
+    assert torch.equal(art.render_animation(*ins, params=p),
+                       f.render_animation(*ins, num_frames=3, params=p, width=WI, height=HI,
+                                          device=cuda))

@@ -240,6 +240,33 @@ def test_uint8_output_is_the_packed_float_output():
     np.testing.assert_array_equal(u, np.floor(np.clip(f, 0, 1) * 255 + 0.5).astype(np.uint8))
 
 
+#: ROADMAP C3 (closed): twirl's `(1 - r / R) ^ 2` on a noise image, where
+#: torch's CPU sqrt (the radius `r`) and pow were an ulp from the oracle's
+#: float32 numpy ufuncs and the image's gradient amplified the ulp past the
+#: tolerance at 2 of 65,536 values (angle 3, pixel (32, 211)) and 1 (angle 5)
+@pytest.mark.parametrize("angle", [3.0, 5.0])
+def test_twirl_on_a_noise_image_matches_the_oracle(angle):
+    img = np.random.default_rng(7).random((64, 256, 4)).astype(np.float32)
+    img[..., 3] = 1.0
+    port, ref = _pair("twirl")
+    want = np.asarray(ref.render(img, params={"angle": angle}, interpret=True))
+    got = port.render(img, params={"angle": angle}, device="cpu").numpy()
+    np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("name", ["sqrt", "pow"])
+def test_cpu_sqrt_and_pow_are_the_oracles_numpy_ufuncs(name):
+    from mathmap_tpu_torch.ops import libm
+
+    rng = np.random.default_rng(3)
+    a = rng.random((64, 256)).astype(np.float32) * 2
+    b = np.float32(2.0)
+    args = (a,) if name == "sqrt" else (a, b)
+    want = (np.sqrt if name == "sqrt" else np.power)(*args)
+    got = getattr(libm, name)(*(torch.from_numpy(np.asarray(x)) for x in args))
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
 def test_tensor_inputs_render_like_numpy_inputs():
     port, _ = _pair("pond")
     img = _image(40, 30, seed=2, dtype="u8")

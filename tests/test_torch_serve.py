@@ -1,10 +1,9 @@
 """The port's render service (mathmap_tpu_torch/serve.py) on the CPU: the
 coalescing dispatcher and the HTTP endpoints.
 
-The cases mirror tests/test_serve.py, except its artifact cases (exported
-artifacts are not ported yet, ROADMAP A10: their refusal is tested
-instead) and the bucket-padding half of its dispatch test (the port
-dispatches the true group size). Every job must equal its lone render
+The cases mirror tests/test_serve.py, its artifact cases included (the
+artifacts exported on the CPU), except the bucket-padding half of its
+dispatch test (the port dispatches the true group size). Every job must equal its lone render
 BIT FOR BIT (a batch job is its lone render, runtime/render.iter_jobs), the
 concurrent requests must show a batch_hist size above 1, and one /render
 must be within 1 u8 level of the JAX package's service for the same
@@ -410,18 +409,218 @@ def test_http_render_region(http_server):
     assert code_e == 400 and "exceeds" in body["error"]
 
 
-def test_artifact_routes_name_the_roadmap_item(http_server, service):
-    code, body = _post(http_server, "/render", {"artifact": "tinted", "inputs": []})
-    assert code == 500 and "ROADMAP A10" in body["error"]
-    code, body = _post(http_server, "/animate", {"artifact": "tinted"})
-    assert code == 500 and "ROADMAP A10" in body["error"]
+@pytest.fixture(scope="module")
+def artifact_dir(tmp_path_factory):
+    from mathmap_tpu_torch.generators.artifact import export_artifact
+
+    d = tmp_path_factory.mktemp("artifacts")
+    f = mt.compile("filter tinted (image in, float gain: 0-2 (1)) in(xy) * gain end")
+    export_artifact(f, str(d / "tinted.mmxa"), W, H, params={"gain": 1.0}, device="cpu")
+    return d
+
+
+def test_artifact_serving_http(artifact_dir, service, http_server):
+    """/artifacts lists what load_artifacts registered; an artifact /render
+    equals the artifact's own render of the decoded request bit for bit
+    and the float expectation within the request PNG's quantisation."""
+    from mathmap_tpu_torch.generators.artifact import load_artifact
+
+    names = service.load_artifacts(str(artifact_dir))
+    assert names == ["tinted"]
     code, body = _get(http_server, "/artifacts")
-    assert code == 500 and "ROADMAP A10" in body["error"]
-    for call in (lambda: service.load_artifacts("x.mmxa"),
-                 lambda: service.render_artifact("x", []),
-                 lambda: service.animate_artifact("x", [])):
-        with pytest.raises(NotImplementedError, match="ROADMAP A10"):
+    assert code == 200 and body["tinted"]["n_inputs"] == 1
+    assert body["tinted"]["platforms"] == ["cpu"]
+    img = _img(7)
+    code, body = _post(http_server, "/render", {
+        "artifact": "tinted", "inputs": [_png_b64(img)], "params": {"gain": 0.5},
+        "format": "raw"})
+    assert code == 200, body
+    out = np.frombuffer(base64.b64decode(body["data"]),
+                        np.dtype(body["dtype"])).reshape(body["shape"])
+    # the artifact renders float32 (no service output_dtype repack)
+    assert out.dtype == np.float32
+    art = load_artifact(str(artifact_dir / "tinted.mmxa"))
+    np.testing.assert_array_equal(
+        out, art.render(_request_u8(img), params={"gain": 0.5}).numpy())
+    expect = _request_u8(img) / 255.0 * 0.5
+    assert np.abs(out[..., :3] - expect[..., :3]).max() < 2 / 255
+    code, body = _post(http_server, "/render", {"artifact": "nope", "inputs": [_png_b64(img)]})
+    assert code == 400 and "unknown artifact" in body["error"]
+
+
+def test_artifact_u8_input_normalizes(artifact_dir):
+    from mathmap_tpu_torch.generators.artifact import load_artifact
+
+    art = load_artifact(str(artifact_dir / "tinted.mmxa"))
+    u8 = (_img(9) * 255).round().astype(np.uint8)
+    a = art.render(u8.astype(np.float32) / 255.0, params={"gain": 1.0})
+    b = art.render(u8, params={"gain": 1.0})
+    assert torch.equal(a, b)
+    assert torch.equal(b, art.render(torch.from_numpy(u8), params={"gain": 1.0}))
+
+
+def _batched_artifact(d, batch_sizes):
+    from mathmap_tpu_torch.generators.artifact import export_artifact
+
+    f = mt.compile("filter sc (image in, float gain: 0-2 (1)) in(xy) * gain end")
+    export_artifact(f, str(d / "sc.mmxa"), W, H, params={"gain": 1.0},
+                    batch_sizes=batch_sizes, device="cpu")
+    return d / "sc.mmxa"
+
+
+def test_artifact_requests_microbatch(tmp_path_factory):
+    """Concurrent requests for a batch-exported artifact coalesce into one
+    render_batch dispatch, each equal to the lone artifact render."""
+    from mathmap_tpu_torch.generators.artifact import load_artifact
+
+    path = _batched_artifact(tmp_path_factory.mktemp("arts_batched"), (4,))
+    svc = RenderService(max_batch=8, window_ms=60.0, device="cpu")
+    try:
+        svc.load_artifacts(str(path.parent))
+        art = load_artifact(str(path))
+        imgs = [_img(i) for i in range(4)]
+        results = _concurrently(4, lambda i: svc.render_artifact(
+            "sc", [imgs[i]], params={"gain": 0.25 * (i + 1)}))
+        snap = svc.snapshot()
+        assert snap["jobs"] == 4
+        assert snap["batch_hist"].get("4") == 1, snap
+        for i in range(4):
+            want = art.render(imgs[i], params={"gain": 0.25 * (i + 1)}).numpy()
+            np.testing.assert_array_equal(results[i], want)
+    finally:
+        svc.shutdown()
+
+
+def test_artifact_without_batch_programs_singletons(tmp_path_factory):
+    from mathmap_tpu_torch.generators.artifact import export_artifact
+
+    d = tmp_path_factory.mktemp("arts_single")
+    f = mt.compile("filter g () grayColor(x / W + 0.5) end")
+    export_artifact(f, str(d / "g.mmxa"), W, H, device="cpu")
+    svc = RenderService(max_batch=8, window_ms=60.0, device="cpu")
+    try:
+        svc.load_artifacts(str(d))
+        outs = [svc.render_artifact("g", []) for _ in range(2)]
+        assert svc.snapshot()["dispatches"] == 2  # never grouped
+        np.testing.assert_array_equal(outs[0], outs[1])
+        assert outs[0].shape == (H, W, 4)
+        np.testing.assert_array_equal(outs[0], f.render(width=W, height=H,
+                                                        device="cpu").numpy())
+    finally:
+        svc.shutdown()
+
+
+def test_artifact_animate_http(tmp_path_factory):
+    """/animate with {"artifact": name} runs the exported sweep: raw frames
+    (a GIF needs Pillow), F fixed at export."""
+    from mathmap_tpu_torch.generators.artifact import export_artifact
+
+    d = tmp_path_factory.mktemp("arts_anim")
+    f = mt.compile("filter g () grayColor(t) end")
+    export_artifact(f, str(d / "g.mmxa"), W, H, anim_frames=3, device="cpu")
+    svc = RenderService(max_batch=8, window_ms=30.0, device="cpu")
+    httpd, base = _start(make_handler(svc))
+    try:
+        svc.load_artifacts(str(d))
+        code, body = _post(base, "/animate", {"artifact": "g", "format": "raw"})
+        assert code == 200, body
+        arr = np.frombuffer(base64.b64decode(body["data"]),
+                            np.dtype(body["dtype"])).reshape(body["shape"])
+        assert arr.shape == (3, H, W, 4)
+        assert arr[0, 0, 0, 0] < arr[2, 0, 0, 0]  # t sweeps 0 -> 2/3
+        np.testing.assert_array_equal(arr, f.render_animation(
+            num_frames=3, width=W, height=H, device="cpu").numpy())
+        code, data, hdr = _post_bytes(base, "/animate", {"artifact": "g", "binary": True})
+        assert code == 200 and hdr["Content-Type"] == "image/gif"
+        assert data[:6] in (b"GIF87a", b"GIF89a")
+        code, body = _post(base, "/animate", {"artifact": "g", "num_frames": 8})
+        assert code == 400 and "re-export" in body["error"]
+        code, body = _post(base, "/animate", {"artifact": "g", "num_frames": 3,
+                                              "format": "raw"})
+        assert code == 200, body
+        code, body = _post(base, "/render", {"artifact": "g"})
+        assert code == 200, body
+    finally:
+        httpd.shutdown()
+        svc.shutdown()
+
+
+def test_artifact_bad_request_cannot_poison_batch(tmp_path_factory):
+    """Requests are validated against the manifest before they are queued:
+    a malformed one raises its own ValueError and never joins a group."""
+    path = _batched_artifact(tmp_path_factory.mktemp("arts_poison"), (2,))
+    svc = RenderService(max_batch=8, window_ms=40.0, device="cpu")
+    try:
+        svc.load_artifacts(str(path.parent))
+        good, bad_errors = [None], []
+
+        def good_client():
+            good[0] = svc.render_artifact("sc", [_img(0)], params={"gain": 1.0})
+
+        def bad_client(inputs, params):
+            try:
+                svc.render_artifact("sc", inputs, params=params)
+            except ValueError as e:
+                bad_errors.append(str(e))
+
+        ths = [threading.Thread(target=good_client),
+               threading.Thread(target=bad_client,
+                                args=([np.zeros((4, 4, 4), np.float32)], {"gain": 1.0})),
+               threading.Thread(target=bad_client, args=([], {"gain": 1.0})),
+               threading.Thread(target=bad_client, args=([_img(1)], {"nope": 2.0}))]
+        for th in ths:
+            th.start()
+        for th in ths:
+            th.join(120)
+            assert not th.is_alive()
+        assert len(bad_errors) == 3, bad_errors
+        assert good[0] is not None and good[0].shape == (H, W, 4)
+        assert svc.snapshot()["jobs"] == 1
+    finally:
+        svc.shutdown()
+
+
+def test_artifact_name_collision_and_reload(tmp_path_factory):
+    from mathmap_tpu_torch.generators.artifact import export_artifact
+
+    d1 = tmp_path_factory.mktemp("arts_c1")
+    d2 = tmp_path_factory.mktemp("arts_c2")
+    f = mt.compile("filter g () grayColor(x / W + 0.5) end")
+    export_artifact(f, str(d1 / "g.mmxa"), W, H, device="cpu")
+    export_artifact(f, str(d2 / "g.mmxa"), W, H, device="cpu")
+    svc = RenderService(max_batch=4, window_ms=10.0, device="cpu")
+    try:
+        assert svc.load_artifacts(str(d1)) == ["g"]
+        assert svc.load_artifacts(str(d1)) == ["g"]  # same-path reload
+        with pytest.raises(ValueError, match="already serves"):
+            svc.load_artifacts(str(d2))
+    finally:
+        svc.shutdown()
+
+
+def test_export_anim_frames_zero_rejected(tmp_path):
+    from mathmap_tpu_torch.generators.artifact import export_artifact
+
+    f = mt.compile("filter g () grayColor(t) end")
+    with pytest.raises(ValueError, match="anim_frames must be >= 1"):
+        export_artifact(f, str(tmp_path / "z.mmxa"), W, H, anim_frames=0, device="cpu")
+
+
+def test_artifact_routes_name_the_roadmap_item(http_server, service):
+    """Once refused naming ROADMAP A10: the artifact routes answer, and an
+    unknown artifact is the client's error (400, ValueError)."""
+    code, body = _post(http_server, "/render", {"artifact": "nope", "inputs": []})
+    assert code == 400 and "unknown artifact" in body["error"]
+    code, body = _post(http_server, "/animate", {"artifact": "nope"})
+    assert code == 400 and "unknown artifact" in body["error"]
+    code, body = _get(http_server, "/artifacts")
+    assert code == 200 and isinstance(body, dict)
+    for call in (lambda: service.render_artifact("nope", []),
+                 lambda: service.animate_artifact("nope", [])):
+        with pytest.raises(ValueError, match="unknown artifact"):
             call()
+    with pytest.raises(FileNotFoundError):
+        service.load_artifacts("no_such_dir/x.mmxa")
 
 
 def test_service_device_switch(monkeypatch):
