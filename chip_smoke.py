@@ -63,11 +63,11 @@ Phases, each printing its own lines:
    where one PyTorch call computes the same function, against that call
    (grid_sample), and each kernel's bound. B1: all six cases (nearest,
    bilinear, bicubic on u8 and f32) at both sizes, with bound and share of
-   bound, grid_sample of the same mode as yardstick for nearest and
-   bilinear (none for bicubic: PyTorch's uses A = -0.75, B1's Catmull-Rom
-   A = -0.5); then B1 on the coordinate fields that fisheye, twirl and pond
-   hand it at 4K (u8 source, each interpolation), the main path's own
-   traffic;
+   bound, grid_sample of the same mode as yardstick (for bicubic a
+   yardstick of the same taps only: PyTorch's uses A = -0.75, B1's
+   Catmull-Rom A = -0.5); then B1 on the coordinate fields that fisheye,
+   twirl and pond hand it at 4K (u8 source, each interpolation), the main
+   path's own traffic;
 11. stochastic path (rand() and noise): the hash and perlin3 on the card
    against the CPU bit for bit (and what CUDA's float -> int conversion
    gives for NaN and inf); static_tv, film_grain, sparkle, dissolve,
@@ -156,11 +156,22 @@ Phases, each printing its own lines:
    launching B1; a /render round trip;
 24. distributed path (parallel/distributed.py): a 2-process fleet over
    gloo (NCCL refuses two ranks on one card), both ranks rendering on
-   cuda:0 through B1, twirl 1920x1080 over the global (4,1) mesh, each
-   rank's rows equal to the one-process card render's bit for bit; then
-   the NCCL route at world size 1 (an all_reduce of a CUDA tensor). The
-   workers are this script (`--distributed-worker`); their B1 launches
-   are the path's.
+   cuda:0: twirl 1920x1080 through render_sharded over the global (4,1)
+   mesh (B1); pond 3840x2160, u8 in, through render_tiled over the global
+   (1,4,1) mesh, two tiles a rank, halo rows crossing ranks, B4 launched
+   once per sampler call of each rank's tiles and summed over the ranks
+   to the one-process count; a halo too small raising the same error on
+   both ranks; a render_sharded LocalFrame chained into render_tiled;
+   default mandelbrot 3840x2160 as a 4-frame sweep over the global
+   (2,2,1) mesh, B2 and B3 on each rank; every rank's tiles equal to the
+   one-process card render's over a mesh of the same shape bit for bit
+   (sha256 of each tile); then 5 fenced tiled frames a rank, with the
+   exchange's host time and bytes, beside the one-process tiled render.
+   Then the NCCL route at world size 1 (an all_reduce of a CUDA tensor)
+   and, on a machine with two cards, the tiled pond on NCCL, one card a
+   rank (else a line says why it did not run). The workers are this
+   script (`--distributed-worker`); their launches before the timing are
+   the path's.
 
 Every main path (phases 5, 6, 8, 9, 11-24) runs with the four launch
 counts set to 0 just before it and read just after; the kernels line
@@ -188,6 +199,7 @@ exits non-zero before printing any result. It imports no JAX.
 
 from __future__ import annotations
 
+import hashlib
 import json
 import re
 import shutil
@@ -711,11 +723,11 @@ def phase_distortion_path(mt, K, dev, filters):
 
 
 def grid_sample_image(pix, x, y, mode: str = "bilinear"):
-    """B1's function as one PyTorch call: grid_sample (`mode` "bilinear" or
-    "nearest") with zero padding (the transparent edge color) on the
-    float32 NCHW copy of `pix`; returns (call, its (4, H, W) output). The
-    layout copy and the normalised grid are made here, outside the timed
-    call."""
+    """B1's function as one PyTorch call: grid_sample (`mode` "bilinear",
+    "nearest", or "bicubic", whose weights differ from B1's) with zero
+    padding (the transparent edge color) on the float32 NCHW copy of
+    `pix`; returns (call, its (4, H, W) output). The layout copy and the
+    normalised grid are made here, outside the timed call."""
     import torch.nn.functional as F
 
     hi, wi = pix.shape[:2]
@@ -754,11 +766,12 @@ def turns(plain, kernel, n_plain: int, n_kernel: int):
     return (runs[1] + runs[2]) / 2, (runs[0] + runs[3]) / 2
 
 
-#: the grid_sample mode that computes each of B1's interpolations, its
-#: yardstick; none computes B1's bicubic
-GRID_SAMPLE_MODE = {"nearest": "nearest", "bilinear": "bilinear", "bicubic": None}
-NO_BICUBIC_YARDSTICK = ("no yardstick: PyTorch's bicubic is the cubic convolution "
-                        "with A = -0.75, B1's Catmull-Rom has A = -0.5")
+#: the grid_sample mode beside each of B1's interpolations, its yardstick
+GRID_SAMPLE_MODE = {"nearest": "nearest", "bilinear": "bilinear", "bicubic": "bicubic"}
+#: grid_sample's bicubic reads B1's 16 taps with other weights
+BICUBIC_YARDSTICK = ("; PyTorch's bicubic is the cubic convolution with A = -0.75, "
+                     "B1's Catmull-Rom has A = -0.5: the same taps and work, another "
+                     "function")
 
 
 def b1_ops(interp: str, u8: bool) -> int:
@@ -809,14 +822,13 @@ def time_b1_case(K, label: str, args, lib_bilinear: float, card, with_plain: boo
     if plain_ms is not None:
         line += f", plain {plain_ms:.4f} ms ({plain_ms / kernel_ms:.1f}x)"
     line += f", max abs err {err:.3e}; "
-    mode, lib_ms = GRID_SAMPLE_MODE[interp], None
-    if mode:
-        lib, lib_out = grid_sample_image(pix, x, y, mode)
-        lib_ms = lib_bilinear if mode == "bilinear" else event_ms(lib, 50)
-        line += (f"grid_sample {mode} {lib_ms:.4f} ms (max abs diff "
-                 f"{float((lib_out - got).abs().max()):.2e})")
-    else:
-        line += NO_BICUBIC_YARDSTICK
+    mode = GRID_SAMPLE_MODE[interp]
+    lib, lib_out = grid_sample_image(pix, x, y, mode)
+    lib_ms = lib_bilinear if mode == "bilinear" else event_ms(lib, 50)
+    line += (f"grid_sample {mode} {lib_ms:.4f} ms (max abs diff "
+             f"{float((lib_out - got).abs().max()):.2e})")
+    if mode == "bicubic":
+        line += BICUBIC_YARDSTICK
     line += (f"; kernel / grid_sample bilinear {lib_bilinear:.4f} ms = "
              f"{kernel_ms / lib_bilinear:.3f}")
     print(f"{line} [{card}]")
@@ -881,6 +893,8 @@ def phase_timings(mt, K, sampling, dev, filters, card):
     vec = record.pop("vec")
     record.update(f32_ms=records[(w, h, "f32", "bilinear")]["ms"],
                   bicubic_u8_ms=records[(w, h, "u8", "bicubic")]["ms"],
+                  grid_sample_bicubic_ms=records[(w, h, "u8", "bicubic")]["library_ms"],
+                  grid_sample_nearest_ms=records[(w, h, "u8", "nearest")]["library_ms"],
                   instantiation=f"sample_image_kernel<uchar4, bilinear, V={vec}>")
     return record
 
@@ -2420,6 +2434,9 @@ PREVIEW_GRAPH = {
 }
 DISTRIBUTED_RANKS = 2
 DISTRIBUTED_TILES = 2  # mesh rows each rank contributes, all on cuda:0
+DISTRIBUTED_SEED = 46  # the fleet's 4K u8 image
+DISTRIBUTED_TIMED = 5  # fenced tiled frames timed on each rank
+TIMING_GO = "timing.go"  # written when the fleet may time its frames
 
 
 def launched(K, L, WL, call):
@@ -2611,107 +2628,358 @@ def phase_preview(mt, K, dev, card):
           f"{PREVIEW_ROUND_TRIPS} [{card}]")
 
 
-def distributed_worker(rank: int, n: int, coord: str, out_dir: str, backend: str) -> int:
+def tile_hashes(tiles: dict) -> dict:
+    """sha256 of each tile's bytes, keyed by its origin joined with '_'."""
+    return {"_".join(map(str, o)): hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()
+            for o, t in tiles.items()}
+
+
+def mesh_tiles(out, shape, lead: int = 0) -> dict:
+    """The tiles (frame shards with `lead` frames a slice) of a one-process
+    render over a mesh of `shape`, keyed as a LocalFrame keys them."""
+    nf, ny, nx = shape
+    th, tw = out.shape[-3] // ny, out.shape[-2] // nx
+    tiles = {}
+    for f, r, c in np.ndindex(*shape):
+        if lead:
+            tiles[f * lead, r * th, c * tw] = out[f * lead:(f + 1) * lead, r * th:(r + 1) * th,
+                                                  c * tw:(c + 1) * tw]
+        elif f == 0:
+            tiles[r * th, c * tw] = out[r * th:(r + 1) * th, c * tw:(c + 1) * tw]
+    return tiles
+
+
+def distributed_worker(rank: int, n: int, coord: str, out_dir: str, backend: str,
+                       jobs: str) -> int:
     """One rank of phase_distributed's fleet (run as `chip_smoke.py
-    --distributed-worker RANK N HOST:PORT DIR BACKEND`): twirl at 1920x1080
-    over the global mesh of every rank's DISTRIBUTED_TILES rows on cuda:0,
-    this rank's tiles saved to DIR; its B1 launches summed over the ranks
-    with all_reduce; one JSON line."""
+    --distributed-worker RANK N HOST:PORT DIR BACKEND JOBS`). JOBS "twirl":
+    twirl at 1920x1080 over the global mesh of every rank's
+    DISTRIBUTED_TILES rows, this rank's tiles saved to DIR; "tiled": pond
+    4K through render_tiled over the global (1, 4, 1) mesh, its B4
+    launches against its sampler calls and summed over the ranks, then 5
+    fenced frames timed with the exchange's bytes and host time; "all":
+    both, then the halo check, a render_sharded LocalFrame chained into
+    render_tiled and the 4-frame mandelbrot sweep over (2, 2, 1). Each
+    rank renders on cuda:0 (gloo), or its own card (NCCL, 2 ranks). One
+    JSON line: the tiles' sha256 and every job's launches."""
     sys.path.insert(0, str(ROOT))
     import torch.distributed as dist
 
     import mathmap_tpu_torch as mt
+    from mathmap_tpu_torch.kernels import apply_lut as L
     from mathmap_tpu_torch.kernels import sample_image as K
-    from mathmap_tpu_torch.parallel import distributed
+    from mathmap_tpu_torch.kernels import sample_tiled as B4
+    from mathmap_tpu_torch.kernels import while_loop as WL
+    from mathmap_tpu_torch.parallel import distributed, halo
+    from mathmap_tpu_torch.runtime import sampling
 
+    index = rank if backend == "nccl" and n > 1 else 0
+    torch.cuda.set_device(index)
+    dev = torch.device("cuda", index)
     distributed.initialize(coord, num_processes=n, process_id=rank, backend=backend)
-    dev = torch.device("cuda", 0)
-    mesh = distributed.global_mesh(rows=n * DISTRIBUTED_TILES,
-                                   devices=["cuda:0"] * DISTRIBUTED_TILES)
-    w, h = SIZES[0]
-    img = torch.from_numpy(smooth_image(w, h, seed=45)[1]).to(dev)
-    f = mt.compile_file(str(ROOT / "filters" / "Distorts" / "twirl.mm"))
-    K.sample_image.launches = 0
-    frame = f.render_sharded(img, mesh=mesh, params={"angle": 3.0})
-    torch.cuda.synchronize()
-    launches = K.sample_image.launches
-    total = torch.tensor([launches], device=dev if backend == "nccl" else "cpu")
-    dist.all_reduce(total)
-    for (r0, _c0), tile in frame.tiles.items():
-        np.save(Path(out_dir) / f"{backend}_rank{rank}_row{r0}.npy", tile.cpu().numpy())
-    print(json.dumps({"rank": rank, "backend": dist.get_backend(), "launches": launches,
-                      "launches_all_ranks": int(total.item()),
-                      "rows": sorted(r0 for r0, _ in frame.tiles)}), flush=True)
+    wrappers = (K.sample_image, L.apply_lut, WL.while_loop, B4.sample_tiled)
+    report = {"rank": rank, "backend": dist.get_backend(), "jobs": {}}
+
+    def job(name, call):
+        for w in wrappers:
+            w.launches = 0
+        result = call()
+        torch.cuda.synchronize()
+        report["jobs"][name] = dict(result, launches=launch_counts(*wrappers))
+
+    def summed(value: int) -> int:
+        total = torch.tensor([value], device=dev if backend == "nccl" else "cpu")
+        dist.all_reduce(total)
+        return int(total.item())
+
+    def twirl():
+        w, h = SIZES[0]
+        mesh = distributed.global_mesh(rows=n * DISTRIBUTED_TILES,
+                                       devices=[str(dev)] * DISTRIBUTED_TILES)
+        img = torch.from_numpy(smooth_image(w, h, seed=45)[1]).to(dev)
+        f = mt.compile_file(str(ROOT / "filters" / "Distorts" / "twirl.mm"))
+        frame = f.render_sharded(img, mesh=mesh, params={"angle": 3.0})
+        torch.cuda.synchronize()
+        for (r0, _c0), tile in frame.tiles.items():
+            np.save(Path(out_dir) / f"{backend}_rank{rank}_row{r0}.npy", tile.cpu().numpy())
+        return {"rows": sorted(r0 for r0, _ in frame.tiles),
+                "b1_all_ranks": summed(K.sample_image.launches)}
+
+    gw, gh = SIZES[1]
+    u8 = seeded_image(gw, gh, seed=DISTRIBUTED_SEED)[1]
+    pond = mt.compile_file(str(ROOT / "filters" / "Distorts" / "pond.mm"))
+
+    def tiled():
+        mesh = distributed.global_mesh(1, 4, 1, devices=[str(dev)] * (4 // n))
+        with KernelCapture(sampling, "tiled_kernel") as cap:
+            frame = pond.render_tiled(u8, mesh=mesh, t=0.3)
+        return {"hashes": tile_hashes(frame.tiles), "sampler_calls": len(cap.calls),
+                "b4_all_ranks": summed(B4.sample_tiled.launches)}
+
+    def timing():
+        """5 fenced tiled frames: the frame, the exchange and the reduction
+        of the halo check (each fenced by a synchronize at its start, so
+        it excludes the device work queued before it), the bytes sent;
+        then the gloo staging alone: the sent pieces copied to the host
+        and back, as the exchange copies them."""
+        go = Path(out_dir) / TIMING_GO
+        deadline = time.perf_counter() + 300
+        while not go.exists():  # the card free of the other fleets
+            if time.perf_counter() > deadline:
+                raise TimeoutError(f"{go} did not appear")
+            time.sleep(0.05)
+        mesh = distributed.global_mesh(1, 4, 1, devices=[str(dev)] * (4 // n))
+        spent = {"exchange": [], "reduce": []}
+        sent = []
+
+        def timed(name, fn):
+            def call(*args):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn(*args)
+                spent[name].append((time.perf_counter() - t0) * 1e3)
+                if name == "exchange":
+                    sent.extend(t for _, t in args[0])
+                return out
+            return call
+
+        originals = halo.exchange, halo.all_reduce_max
+        halo.exchange = timed("exchange", halo.exchange)
+        halo.all_reduce_max = timed("reduce", halo.all_reduce_max)
+        try:
+            times = []
+            for k in range(2 + DISTRIBUTED_TIMED):
+                for v in spent.values():
+                    v.clear()
+                sent.clear()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                pond.render_tiled(u8, mesh=mesh, t=0.3)
+                torch.cuda.synchronize()
+                if k >= 2:
+                    times.append(((time.perf_counter() - t0) * 1e3, sum(spent["exchange"]),
+                                  sum(spent["reduce"])))
+        finally:
+            halo.exchange, halo.all_reduce_max = originals
+        pieces = [t.clone() for t in sent]
+        staging = []
+        for _ in range(2 + DISTRIBUTED_TIMED):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            back = [p.to("cpu").to(dev) for p in pieces]
+            torch.cuda.synchronize()
+            staging.append((time.perf_counter() - t0) * 1e3)
+        del back
+        return {"frame_ms": statistics.median(t for t, _, _ in times),
+                "exchange_ms": statistics.median(e for _, e, _ in times),
+                "reduce_ms": statistics.median(r for _, _, r in times),
+                "staging_ms": statistics.median(staging[2:]),
+                "bytes_sent": sum(p.numel() * p.element_size() for p in pieces)}
+
+    def check():
+        mesh = distributed.global_mesh(1, 4, 1, devices=[str(dev)] * (4 // n))
+        try:
+            mt.compile_source("origVal(xy + xy:[0, 40])").render_tiled(u8, halo=4, mesh=mesh)
+        except mt.MMRuntimeError as e:
+            return {"error": str(e)}
+        raise AssertionError("a sample past the halo did not raise")
+
+    def chain():
+        mesh = distributed.global_mesh(1, 4, 1, devices=[str(dev)] * (4 // n))
+        twirl_f = mt.compile_file(str(ROOT / "filters" / "Distorts" / "twirl.mm"))
+        mid = twirl_f.render_sharded(u8, mesh=mesh, params={"angle": 3.0})
+        frame = pond.render_tiled(mid, mesh=mesh, t=0.3)
+        return {"hashes": tile_hashes(frame.tiles)}
+
+    def sweep():
+        mesh = distributed.global_mesh(2, 2, 1, devices=[str(dev)] * (4 // n))
+        f = mt.compile_file(str(ROOT / "filters" / "Render" / "mandelbrot.mm"))
+        frame = f.render_sharded(mesh=mesh, num_frames=SWEEP_FRAMES, width=gw, height=gh)
+        shards = distributed.local_slice_of(frame)
+        return {"hashes": tile_hashes(frame.tiles),
+                "shapes": [list(s.shape) for s in shards]}
+
+    if jobs in ("twirl", "all"):
+        job("twirl", twirl)
+    if jobs in ("tiled", "all"):
+        job("tiled", tiled)
+    if jobs == "all":
+        job("check", check)
+        job("chain", chain)
+        job("sweep", sweep)
+    if jobs in ("tiled", "all"):
+        # timed after every count is read: its launches are not the path's
+        report["timing"] = timing()
+    print(json.dumps(report), flush=True)
     dist.destroy_process_group()
     return 0
 
 
-def phase_distributed(mt, dev, work: Path) -> int:
-    """A DISTRIBUTED_RANKS-process fleet over gloo, chosen explicitly (NCCL
-    refuses two ranks on one card), whose ranks both render on cuda:0
-    through B1; then the NCCL route at world size 1. Each rank's rows equal
-    the one-process card render's rows bit for bit. Returns the B1 launches
-    of every rank."""
+def start_fleet(n: int, backend: str, jobs: str, work: Path) -> tuple:
+    """Start an n-process fleet of distributed_worker on `backend` ->
+    (its processes, its start time)."""
     import socket
 
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    coord = f"127.0.0.1:{s.getsockname()[1]}"
+    s.close()
+    t0 = time.perf_counter()
+    return [subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
+                              "--distributed-worker", str(r), str(n), coord, str(work),
+                              backend, jobs], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                             text=True, cwd=str(ROOT))
+            for r in range(n)], t0
+
+
+def wait_fleet(procs: list, t0: float, backend: str) -> tuple:
+    """Wait for a fleet -> (each rank's report, wall seconds with process
+    start-up); a rank that fails raises with its stderr."""
+    outs = [p.communicate(timeout=300) for p in procs]
+    wall = time.perf_counter() - t0
+    reports = []
+    for r, (p, (out, err)) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise AssertionError(f"distributed {backend} rank {r}: exit {p.returncode}: "
+                                 f"{err[-3000:]}")
+        reports.append(json.loads(out.strip().splitlines()[-1]))
+    return reports, wall
+
+
+def phase_distributed(mt, B4, dev, work: Path, card: str) -> tuple:
+    """A DISTRIBUTED_RANKS-process fleet over gloo, chosen explicitly (NCCL
+    refuses two ranks on one card), whose ranks both render on cuda:0: the
+    twirl rows of render_sharded (B1); pond 4K through render_tiled over
+    the global (1, 4, 1) mesh, halo rows crossing ranks, B4 on each rank's
+    two tiles; the halo check raising on both ranks; a render_sharded
+    LocalFrame chained into render_tiled; default mandelbrot 4K as a
+    4-frame sweep over (2, 2, 1), B2 and B3 on each rank. Every rank's
+    tiles equal the one-process card render's over a mesh of the same
+    shape bit for bit. Then the NCCL route at world size 1 and, with two
+    cards, the tiled pond on NCCL. Returns the (B1, B2, B3, B4) launches
+    of every rank's counted jobs."""
     w, h = SIZES[0]
     img = torch.from_numpy(smooth_image(w, h, seed=45)[1]).to(dev)
-    f = mt.compile_file(str(ROOT / "filters" / "Distorts" / "twirl.mm"))
-    whole = f.render(img, params={"angle": 3.0}, device=dev).cpu().numpy()
-    total = 0
-    for backend, n in (("gloo", DISTRIBUTED_RANKS), ("nccl", 1)):
-        s = socket.socket()
-        s.bind(("127.0.0.1", 0))
-        coord = f"127.0.0.1:{s.getsockname()[1]}"
-        s.close()
-        t0 = time.perf_counter()
-        procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
-                                   "--distributed-worker", str(r), str(n), coord, str(work),
-                                   backend], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                                  text=True, cwd=str(ROOT))
-                 for r in range(n)]
-        outs = []
-        try:
-            for p in procs:
-                outs.append(p.communicate(timeout=300))
-        finally:
-            for p in procs:
-                if p.poll() is None:
-                    p.kill()
-                    p.wait()
-        wall = time.perf_counter() - t0
-        reports = []
-        for r, (p, (out, err)) in enumerate(zip(procs, outs)):
-            if p.returncode != 0:
-                raise AssertionError(f"distributed {backend} rank {r}: exit {p.returncode}: "
-                                     f"{err[-2000:]}")
-            reports.append(json.loads(out.strip().splitlines()[-1]))
-        tile_h = h // (n * DISTRIBUTED_TILES)
-        rows = []
+    twirl = mt.compile_file(str(ROOT / "filters" / "Distorts" / "twirl.mm"))
+    whole = twirl.render(img, params={"angle": 3.0}, device=dev).cpu().numpy()
+    gw, gh = SIZES[1]
+    u8 = seeded_image(gw, gh, seed=DISTRIBUTED_SEED)[1]
+    pond = mt.compile_file(str(ROOT / "filters" / "Distorts" / "pond.mm"))
+    mesh141 = card_mesh(mt, dev, (1, 4, 1))
+    B4.sample_tiled.launches = 0
+    one = pond.render_tiled(u8, mesh=mesh141, t=0.3)
+    torch.cuda.synchronize()
+    one_b4 = B4.sample_tiled.launches
+    want = {"tiled": tile_hashes(mesh_tiles(one, (1, 4, 1)))}
+    mid = twirl.render_sharded(u8, mesh=mesh141, params={"angle": 3.0})
+    want["chain"] = tile_hashes(mesh_tiles(pond.render_tiled(mid, mesh=mesh141, t=0.3),
+                                           (1, 4, 1)))
+    mandel = mt.compile_file(str(ROOT / "filters" / "Render" / "mandelbrot.mm"))
+    sweep = mandel.render_sharded(mesh=card_mesh(mt, dev, (2, 2, 1)), num_frames=SWEEP_FRAMES,
+                                  width=gw, height=gh)
+    want["sweep"] = tile_hashes(mesh_tiles(sweep, (2, 2, 1), lead=SWEEP_FRAMES // 2))
+    one_ms = fenced_median_ms(lambda: pond.render_tiled(u8, mesh=mesh141, t=0.3),
+                              DISTRIBUTED_TIMED)
+    try:
+        mt.compile_source("origVal(xy + xy:[0, 40])").render_tiled(u8, halo=4, mesh=mesh141)
+    except mt.MMRuntimeError as e:
+        want_error = str(e)
+    else:
+        raise AssertionError("a sample past the halo did not raise in one process")
+    total = [0, 0, 0, 0]
+    # the gloo fleet and NCCL at world size 1 start together; the gloo
+    # ranks time their frames once the other fleet has exited (TIMING_GO)
+    go = work / TIMING_GO
+    go.unlink(missing_ok=True)
+    started = [start_fleet(DISTRIBUTED_RANKS, "gloo", "all", work),
+               start_fleet(1, "nccl", "twirl", work)]
+    try:
+        nccl1 = wait_fleet(*started[1], "nccl")
+        go.touch()
+        runs = [("gloo", DISTRIBUTED_RANKS, wait_fleet(*started[0], "gloo")),
+                ("nccl", 1, nccl1)]
+        if torch.cuda.device_count() >= 2:
+            started.append(start_fleet(2, "nccl", "tiled", work))
+            runs.append(("nccl", 2, wait_fleet(*started[2], "nccl")))
+    finally:
+        for p in (p for procs, _ in started for p in procs):
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if torch.cuda.device_count() < 2:
+        print(f"distributed nccl, 2 processes: not run: this machine has "
+              f"{torch.cuda.device_count()} CUDA device, and NCCL refuses two ranks on one "
+              f"device; the NCCL halo exchange is unverified")
+    for backend, n, (reports, wall) in runs:
+        tag = f"distributed {backend}, {n} process(es)"
         for rep in reports:
-            if rep["launches"] != DISTRIBUTED_TILES or rep["launches_all_ranks"] != n * DISTRIBUTED_TILES:
-                raise AssertionError(f"distributed {backend}: {rep}")
-            for r0 in rep["rows"]:
-                tile = np.load(work / f"{backend}_rank{rep['rank']}_row{r0}.npy")
-                if not np.array_equal(tile, whole[r0:r0 + tile_h]):
-                    raise AssertionError(f"distributed {backend} rank {rep['rank']} rows "
-                                         f"{r0}..{r0 + tile_h}: differ from the card render")
-                rows.append(r0)
-            total += rep["launches"]
-        if sorted(rows) != [k * tile_h for k in range(n * DISTRIBUTED_TILES)]:
-            raise AssertionError(f"distributed {backend}: rows {sorted(rows)}")
-        print(f"distributed {backend}, {n} process(es) on cuda:0, twirl {w}x{h} over a "
-              f"({n * DISTRIBUTED_TILES},1) global mesh: each rank's {DISTRIBUTED_TILES} "
-              f"tiles ({DISTRIBUTED_TILES} B1 launches, all_reduce of every rank's: "
-              f"{reports[0]['launches_all_ranks']}) equal to the one-process card render's "
-              f"rows bit for bit; {wall:.1f} s wall with process start-up")
-    return total
+            r = rep["rank"]
+            for name, done in rep["jobs"].items():
+                total = [a + b for a, b in zip(total, done["launches"])]
+            if "twirl" in rep["jobs"]:
+                done = rep["jobs"]["twirl"]
+                tile_h = h // (n * DISTRIBUTED_TILES)
+                if (done["launches"] != [DISTRIBUTED_TILES, 0, 0, 0]
+                        or done["b1_all_ranks"] != n * DISTRIBUTED_TILES):
+                    raise AssertionError(f"{tag} twirl: {done}")
+                if done["rows"] != [(r * DISTRIBUTED_TILES + k) * tile_h
+                                    for k in range(DISTRIBUTED_TILES)]:
+                    raise AssertionError(f"{tag} twirl rank {r}: rows {done['rows']}")
+                for r0 in done["rows"]:
+                    tile = np.load(work / f"{backend}_rank{r}_row{r0}.npy")
+                    if not np.array_equal(tile, whole[r0:r0 + tile_h]):
+                        raise AssertionError(f"{tag} rank {r} rows {r0}..{r0 + tile_h}: "
+                                             f"differ from the card render")
+            for name in ("tiled", "chain", "sweep"):
+                if name not in rep["jobs"]:
+                    continue
+                got = rep["jobs"][name]["hashes"]
+                if not got or any(got[o] != want[name][o] for o in got):
+                    raise AssertionError(f"{tag} {name} rank {r}: tiles {sorted(got)} differ "
+                                         f"from the one-process card render's")
+            if "tiled" in rep["jobs"]:
+                done = rep["jobs"]["tiled"]
+                if not (done["launches"][3] == done["sampler_calls"] == 4 // n
+                        and done["b4_all_ranks"] == one_b4):
+                    raise AssertionError(f"{tag} tiled rank {r}: B4 {done['launches'][3]}, "
+                                         f"sampler calls {done['sampler_calls']}, all ranks "
+                                         f"{done['b4_all_ranks']} (one process {one_b4})")
+            if "check" in rep["jobs"] and rep["jobs"]["check"]["error"] != want_error:
+                raise AssertionError(f"{tag} check rank {r}: {rep['jobs']['check']}")
+            if "sweep" in rep["jobs"]:
+                done = rep["jobs"]["sweep"]
+                per = SWEEP_FRAMES // 2
+                if (done["launches"][1:3] != [2 * per, 2 * per]
+                        or done["shapes"] != [[per, gh // 2, gw, 4]] * 2):
+                    raise AssertionError(f"{tag} sweep rank {r}: {done}")
+        launches = [{k: v["launches"] for k, v in rep["jobs"].items()} for rep in reports]
+        print(f"{tag} on {'cuda:0' if n == 1 or backend == 'gloo' else 'a card each'}: "
+              f"{', '.join(reports[0]['jobs'])}: every rank's tiles equal to the "
+              f"one-process card render's over a mesh of the same shape bit for bit; "
+              f"(B1, B2, B3, B4) launches by rank and job {launches}; "
+              f"{wall:.1f} s wall with process start-up")
+        if "check" in reports[0]["jobs"]:
+            print(f"{tag}: a sample 40 rows away with halo 4 raises the same error on "
+                  f"every rank: {want_error}")
+        for rep in reports:
+            if "timing" in rep:
+                tm = rep["timing"]
+                print(f"timing {tag} rank {rep['rank']}: pond {gw}x{gh} u8 in, render_tiled "
+                      f"over the global (1,4,1) mesh ({4 // n} tiles a rank): median "
+                      f"{tm['frame_ms']:.3f} ms/frame of {DISTRIBUTED_TIMED} fenced, of which "
+                      f"the halo exchange {tm['exchange_ms']:.3f} ms (copies to and from "
+                      f"the host, send/recv, the wait for the peer) and the halo check's "
+                      f"all_reduce {tm['reduce_ms']:.3f} ms; {tm['bytes_sent']} bytes sent "
+                      f"a frame, their staging through the host alone "
+                      f"{tm['staging_ms']:.3f} ms; one process over (1,4,1) of cuda:0: "
+                      f"{one_ms:.3f} ms/frame [{card}]")
+    return tuple(total)
 
 
 def main() -> int:
     if sys.argv[1:2] == ["--distributed-worker"]:
-        rank, n, coord, out_dir, backend = sys.argv[2:7]
-        return distributed_worker(int(rank), int(n), coord, out_dir, backend)
+        rank, n, coord, out_dir, backend, jobs = sys.argv[2:8]
+        return distributed_worker(int(rank), int(n), coord, out_dir, backend, jobs)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA GPU available", file=sys.stderr)
         return 1
@@ -2794,8 +3062,8 @@ def main() -> int:
         path("artifact", phase_artifact, mt, K, L, WL, build, dev, filters, work, card)
         path("preview", phase_preview, mt, K, dev, card)
         # the fleet's launches are its worker processes' own counts
-        b1_fleet = path("distributed", phase_distributed, mt, dev, work)
-        by_path["distributed"] = (b1_fleet, 0, 0, 0)
+        by_path["distributed"] = path("distributed", phase_distributed, mt, B4, dev, work,
+                                      card)
         names = ("sample_image", "apply_lut", "while_loop", "sample_tiled")
         launches = {name: {p: c[k] for p, c in by_path.items() if c[k]}
                     for k, name in enumerate(names)}

@@ -258,8 +258,8 @@ class Filter:
         make_mesh(devices=["cpu"] * n)). options.region raises ValueError:
         render() gives the crop, render_tiled() the selection in place.
         Over a mesh that spans processes (parallel/distributed.global_mesh)
-        this rank renders only its own tiles -> a shard.LocalFrame of them
-        (one frame only)."""
+        this rank renders only its own tiles -> a shard.LocalFrame of them,
+        or for a sweep of its (F / nf, tile_h, tile_w, 4) frame shards."""
         from .parallel.mesh import make_mesh
         from .parallel.shard import render_frame_sharded, render_frames_sharded
 
@@ -296,17 +296,33 @@ class Filter:
         visible GPU on the row axis. With options.region the output is the
         full canvas: the selection rendered in place, every other pixel
         input 0's current frame (in the output dtype; u8 in and out pass
-        the input bytes through)."""
+        the input bytes through).
+
+        Over a mesh that spans processes (parallel/distributed.global_mesh)
+        every rank calls this alike, and each stages and renders only its
+        own tiles, halo rows and columns crossing ranks -> a
+        shard.LocalFrame of this rank's tiles. Each input is then an array
+        or tensor every rank passes whole (only this rank's blocks are
+        copied to its devices), or the LocalFrame of an earlier render over
+        the same mesh, so a chain of filters runs on a canvas no rank
+        holds."""
         from .parallel.halo import TiledRenderer
         from .parallel.mesh import make_mesh
+        from .parallel.shard import LocalFrame
 
         if mesh is None:
             mesh = make_mesh()
         if mesh.spans_processes:
-            raise ValueError("render_tiled over a mesh that spans processes is not "
-                             "supported: its halo exchange runs in one process")
-        first = mesh.devices[0, 0, 0]
-        imgs = [_stage_input(a, first) for a in input_images]
+            # blocks are cut from the input where it lies (a host array
+            # stays on the host), never staged whole on a device
+            imgs = [a if isinstance(a, LocalFrame) else
+                    _stage_input(a, a.device if isinstance(a, torch.Tensor) else "cpu")
+                    for a in input_images]
+        elif any(isinstance(a, LocalFrame) for a in input_images):
+            raise ValueError("a LocalFrame input is the tiles of a mesh that spans processes; "
+                             "render over that mesh")
+        else:
+            imgs = [_stage_input(a, mesh.devices[0, 0, 0]) for a in input_images]
         width, height = _resolve_size(imgs, width, height)
         for a in imgs:
             if tuple(a.shape[-3:-1]) != (height, width):

@@ -4,20 +4,29 @@
 The reference wires `jax.distributed` so that one `shard_map` program
 spans the devices of several hosts. Here each process is one rank of a
 `torch.distributed` process group: `initialize` joins it, `global_mesh`
-builds a mesh of every rank's devices in rank order, and
-`Filter.render_sharded` over that mesh has each rank evaluate only the
-tiles of its own devices (parallel/shard.py), the single-controller design
-applied per rank. `local_slice_of` gives those tiles. The collectives a
-fleet needs beyond that (a sum over ranks, a ring exchange) are
-`torch.distributed`'s own, on the backend the group was made with: NCCL
-for CUDA ranks, gloo for CPU ranks. Nothing here reads a cluster's
+builds a mesh of every rank's devices in rank order, and a render over
+that mesh has each rank evaluate only the tiles of its own devices, the
+single-controller design applied per rank:
+
+- `Filter.render_sharded` (parallel/shard.py) needs no message: every
+  rank has the inputs whole; a sweep of frames gives each rank the frame
+  shards of its entries;
+- `Filter.render_tiled` (parallel/halo.py) splits the inputs, so halo
+  rows and columns cross ranks through `exchange` (the reference's
+  `ppermute`) and the halo check's excess through `all_reduce_max` (its
+  `pmax`).
+
+`local_slice_of` gives a rank's tiles or frame shards. Messages go over
+the backend the group was made with: NCCL for CUDA ranks (device tensors,
+unverified between two cards), gloo for CPU ranks and for several ranks on
+one card (blocks staged through the host). Nothing here reads a cluster's
 environment: the caller names the coordinator, the world size and its
 rank.
 
     from mathmap_tpu_torch.parallel import distributed
     distributed.initialize("10.0.0.1:29500", num_processes=2, process_id=rank)
     mesh = distributed.global_mesh()          # every rank's GPUs on the rows
-    frame = f.render_sharded(img, mesh=mesh)  # this rank's tiles
+    frame = f.render_tiled(img, mesh=mesh)    # this rank's tiles
     tiles = distributed.local_slice_of(frame)
 """
 
@@ -86,7 +95,58 @@ def global_mesh(frames: int = 1, rows: int | None = None, cols: int = 1,
 
 
 def local_slice_of(frame) -> list:
-    """The tiles of a frame rendered over a mesh that spans processes
-    (shard.LocalFrame) that this rank owns, in mesh order: what this rank
-    writes out. `frame.tiles` maps each to its global (row, col) origin."""
+    """What this rank owns of a render over a mesh that spans processes
+    (shard.LocalFrame), in mesh order: a frame's (tile_h, tile_w, 4) tiles,
+    or a sweep's (F / nf, tile_h, tile_w, 4) frame shards, the shard shape
+    of the reference's (F, H, W, 4) array over (f, y, x). `frame.tiles`
+    maps each to its global (row, col) or (frame, row, col) origin."""
     return list(frame.tiles.values())
+
+
+def _wire(device: torch.device) -> torch.device:
+    """Where a message's tensor lives: the host under gloo, which sends
+    and receives CPU tensors only, the block's device otherwise (NCCL)."""
+    import torch.distributed as dist
+
+    return torch.device("cpu") if dist.get_backend() == "gloo" else device
+
+
+def exchange(sends: list, recvs: list) -> list:
+    """One phase of point-to-point messages, every send and receive posted
+    at once (`batch_isend_irecv`), then waited on. `sends`: (peer rank,
+    tensor) pairs; `recvs`: (peer rank, shape, dtype, device) -> the
+    received tensors, in order, each on its device. Both lists follow the
+    phase's global order, which every rank enumerates alike: the k-th
+    message from rank a to rank b is a's k-th send to b and b's k-th
+    receive from a (its tag under gloo; NCCL matches by order)."""
+    import torch.distributed as dist
+
+    ops, bufs = [], []
+    seq_out: dict = {}
+    for peer, tensor in sends:
+        # gloo: a blocking copy to the host, so the piece has landed before
+        # the send is posted; NCCL orders its send after the queued work
+        msg = tensor.to(_wire(tensor.device)).contiguous()
+        tag = seq_out[peer] = seq_out.get(peer, -1) + 1
+        ops.append(dist.P2POp(dist.isend, msg, peer, tag=tag))
+    seq_in: dict = {}
+    for peer, shape, dtype, device in recvs:
+        buf = torch.empty(shape, dtype=dtype, device=_wire(device))
+        bufs.append((buf, device))
+        tag = seq_in[peer] = seq_in.get(peer, -1) + 1
+        ops.append(dist.P2POp(dist.irecv, buf, peer, tag=tag))
+    if ops:
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+    return [buf.to(device) for buf, device in bufs]
+
+
+def all_reduce_max(value: torch.Tensor) -> torch.Tensor:
+    """The largest of every rank's `value` (a 0-d tensor), on the wire's
+    device (the host under gloo): the reference's `pmax`. Every rank must
+    call it."""
+    import torch.distributed as dist
+
+    buf = value.to(_wire(value.device)).clone()
+    dist.all_reduce(buf, op=dist.ReduceOp.MAX)
+    return buf

@@ -5,13 +5,16 @@ The input image's rows (and, on a 2-D mesh, columns) are split over the
 mesh; each tile's block is extended by `halo` rows/cols taken from its ring
 neighbours, and each tile renders its output block sampling only its
 extended block, through kernel B4 (kernels/sample_tiled.py). The JAX
-package runs this as one `shard_map` program with `ppermute`; here one
-process drives every tile: a tile's tensors live on its device, and the
-halo exchange is a slice of the neighbour's block moved with
+package runs this as one `shard_map` program with `ppermute`; here each
+process drives the tiles it owns: a tile's tensors live on its device, a
+neighbour block on the same process gives its halo as a slice moved with
 `.to(device, non_blocking=True)` (a copy within HBM when both tiles are on
-one card, a peer copy across cards). An animated input's frames are all
-split and exchanged alike, so a tile samples the block of the frame it
-selects.
+one card, a peer copy across cards), and over a mesh that spans processes
+(parallel/distributed.global_mesh) a neighbour on another rank sends it
+(distributed.exchange, the counterpart of `ppermute`), so no process holds
+another's blocks and no device the whole canvas. An animated input's
+frames are all split and exchanged alike, so a tile samples the block of
+the frame it selects.
 
 With `RenderOptions.region` (a GIMP selection of a drawable too large to
 replicate) the output is the FULL canvas: each tile evaluates only its
@@ -30,7 +33,8 @@ reference:
   - check=True (default) measures, per sampler call outside a while
     loop's steps (a loop's probe is measured), how far past the block any
     tap reached and raises MMRuntimeError on a violation instead of
-    clamping silently (one device sync per render);
+    clamping silently (one device sync per render; over ranks, a max
+    reduction first, so every rank raises alike);
   - out-of-halo taps clamp into the block when check=False.
 """
 
@@ -47,31 +51,69 @@ from ..runtime.tracer import RenderContext
 from ..runtime.value import InputImage, TiledInput
 from ..utils.errors import MMRuntimeError
 from .bounds import infer_displacement_bound
+from .distributed import all_reduce_max, exchange
 from .mesh import COL_AXIS, ROW_AXIS, assemble, axis_size
+from .shard import LocalFrame
+
+#: a rank's halo excess when its tiles measured no sample (the reference's
+#: initial excess): below any real excess, so the reduction ignores it
+NO_SAMPLE = -(2 ** 30)
 
 
 def exchange_halo(blocks: list, halo: int, axis: int = 0) -> list:
-    """Extend each block of one mesh axis's ring with `halo` rows (axis=0)
-    or cols (axis=1) from its ring neighbours -> the list of blocks
-    extended by 2*halo along `axis`, each on its own block's device. At
-    the global edges the halo wraps around the ring (right for edge
-    'wrap'; _paint_edge_halo rewrites it for 'color' and 'reflect').
-    halo == 0 means no exchange at all."""
+    """Extend each block of one mesh axis's ring, every block in this
+    process, with `halo` rows (axis=0) or cols (axis=1) from its ring
+    neighbours -> the list of blocks extended by 2*halo along `axis`
+    (exchange_rings over the one ring)."""
+    return exchange_rings([blocks], halo, axis)[0]
+
+
+def exchange_rings(rings: list, halo: int, axis: int = 0, owners=None, rank: int = 0) -> list:
+    """One exchange phase: extend each block of every ring with `halo`
+    rows (axis=0) or cols (axis=1) from its ring neighbours -> the rings
+    of blocks extended by 2*halo along `axis`, each on its own block's
+    device. At the global edges the halo wraps around the ring (right for
+    edge 'wrap'; _paint_edge_halo rewrites it for 'color' and 'reflect').
+    halo == 0 means no exchange at all.
+
+    `rings`: lists of blocks in ring order, None where another rank owns
+    the entry; `owners`: per ring, the rank that owns each position (None:
+    this process owns every block). A neighbour here is a slice moved with
+    `.to(device)`; a neighbour on another rank sends its slice through
+    distributed.exchange, every message of the phase posted at once, in
+    the order (ring, position, leading then trailing halo) that every rank
+    enumerates alike."""
     if halo == 0:
-        return list(blocks)
+        return [list(ring) for ring in rings]
     if halo < 0:
         raise MMRuntimeError(f"halo must be >= 0, got {halo}")
-    n = len(blocks)
-    out = []
-    for i, block in enumerate(blocks):
-        before, after = blocks[(i - 1) % n], blocks[(i + 1) % n]
-        # the previous block's trailing rows lead this one; the next
-        # block's leading rows trail it
-        lead = before.narrow(axis, before.shape[axis] - halo, halo)
-        trail = after.narrow(axis, 0, halo)
-        out.append(torch.cat([lead.to(block.device, non_blocking=True), block,
-                              trail.to(block.device, non_blocking=True)], dim=axis))
-    return out
+    pieces = {}
+    sends, recvs, received = [], [], []
+    for k, ring in enumerate(rings):
+        n = len(ring)
+        for i in range(n):
+            # the previous block's trailing rows lead block i; the next
+            # block's leading rows trail it
+            for side, j in ((0, (i - 1) % n), (1, (i + 1) % n)):
+                src = rank if owners is None else owners[k][j]
+                dst = rank if owners is None else owners[k][i]
+                if src == rank:
+                    b = ring[j]
+                    piece = b.narrow(axis, b.shape[axis] - halo if side == 0 else 0, halo)
+                    if dst == rank:
+                        pieces[k, i, side] = piece.to(ring[i].device, non_blocking=True)
+                    else:
+                        sends.append((dst, piece))
+                elif dst == rank:
+                    shape = list(ring[i].shape)
+                    shape[axis] = halo
+                    recvs.append((src, tuple(shape), ring[i].dtype, ring[i].device))
+                    received.append((k, i, side))
+    if sends or recvs:
+        pieces.update(zip(received, exchange(sends, recvs)))
+    return [[None if b is None else
+             torch.cat([pieces[k, i, 0], b, pieces[k, i, 1]], dim=axis)
+             for i, b in enumerate(ring)] for k, ring in enumerate(rings)]
 
 
 def _paint_edge_halo(ext, axis_idx: int, n_axis: int, halo: int, axis: int,
@@ -138,22 +180,38 @@ def _overlap(region, r0: int, c0: int, tile_h: int, tile_w: int):
     return top, left, bottom - top, right - left
 
 
-def _background(a: torch.Tensor, opts, frame: float, rows: slice, cols: slice, device):
+def _background(block: torch.Tensor, opts, frame: float):
     """A region render's pass-through: input 0's current frame over one
-    tile, in the output dtype, as a fresh tensor on `device`. u8 in and u8
-    out copy the input bytes; otherwise the float values are packed, or
-    u8 is converted, by the render's own rules."""
-    block = InputImage(pixels=a).frame_pixels(frame)[rows, cols].to(device)
+    tile, from its block, in the output dtype, as a fresh tensor on the
+    block's device. u8 in and u8 out copy the input bytes; otherwise the
+    float values are packed, or u8 is converted, by the render's own
+    rules."""
+    block = InputImage(pixels=block).frame_pixels(frame)
     if opts.output_dtype == "uint8":
         return block.clone() if block.dtype == torch.uint8 else pack_uint8(block)
     return u8_to_float(block) if block.dtype == torch.uint8 else block.clone()
+
+
+def _block(a, r: int, c: int, tile_h: int, tile_w: int, device) -> torch.Tensor:
+    """Tile (r, c)'s own block of input `a` on `device`, in its dtype: a
+    slice of a whole (H, W, 4) or animated (T, H, W, 4) tensor, or the
+    tile of a shard.LocalFrame rendered over the same tiling."""
+    if isinstance(a, LocalFrame):
+        tile = a.tiles.get((r * tile_h, c * tile_w))
+        if tile is None or tuple(tile.shape) != (tile_h, tile_w, 4):
+            raise ValueError(
+                f"a LocalFrame input must hold this rank's tiles of the same mesh tiling: "
+                f"no ({tile_h}, {tile_w}, 4) tile at ({r * tile_h}, {c * tile_w})")
+        return tile.to(device, non_blocking=True)
+    return a[..., r * tile_h:(r + 1) * tile_h, c * tile_w:(c + 1) * tile_w, :].to(
+        device, non_blocking=True)
 
 
 def render_frame_tiled(mesh, program_filters, fdef, width: int, height: int,
                        opts, inputs: list, halo, params: dict, t: float = 0.0,
                        frame: float = 0.0, check: bool = True):
     """One frame with every input split over the mesh's (y, x) axes and
-    halo-exchanged -> ((H, W, 4) frame on the mesh's first device, the
+    halo-exchanged -> (the (H, W, 4) frame on the mesh's first device, the
     largest halo excess as a 0-d int32 tensor there, or None when check is
     False or no sample was measured).
 
@@ -164,7 +222,17 @@ def render_frame_tiled(mesh, program_filters, fdef, width: int, height: int,
     column-sharded) or (rows, cols). The tiles are those of the mesh's
     first frame slice. With opts.region, the frame is the full canvas with
     the selection rendered in place and input 0's current frame elsewhere
-    (see the module docstring)."""
+    (see the module docstring).
+
+    Over a mesh that spans processes this rank stages and renders only its
+    own tiles: an input is a tensor every rank passes alike (whole, on the
+    host or a device; only this rank's blocks are copied to its devices)
+    or a shard.LocalFrame of an earlier render over the same tiling. The
+    halo crosses ranks through distributed.exchange, and with check=True
+    the excess is reduced over the ranks (every rank takes part, with the
+    reference's sentinel -2**30 when its tiles measured no sample). ->
+    (a shard.LocalFrame of this rank's tiles, that excess on the host
+    under gloo, or None when check is False)."""
     devices = mesh.devices[0]
     ny, nx = axis_size(mesh, ROW_AXIS), axis_size(mesh, COL_AXIS)
     if height % ny:
@@ -186,76 +254,88 @@ def render_frame_tiled(mesh, program_filters, fdef, width: int, height: int,
         raise MMRuntimeError(
             "region on the tiled path needs at least one input: input 0 "
             "is the drawable whose unselected pixels pass through")
+    local = [(r, c) for _f, r, c in mesh.local_entries(0)]
+    col_rings = [[(r, c) for r in range(ny)] for c in range(nx)]
+    row_rings = [[(r, c) for c in range(nx)] for r in range(ny)]
 
-    # per input: convert to float32 on the tile's device, exchange rows,
-    # paint, then exchange columns and paint (the reference's order); an
-    # animated block's row and column axes follow its frame axis
+    def phase(blocks, rings, n_halo, axis):
+        owners = ([[mesh.owner((0, *rc)) for rc in ring] for ring in rings]
+                  if mesh.spans_processes else None)
+        ext = exchange_rings([[blocks.get(rc) for rc in ring] for ring in rings], n_halo,
+                             axis, owners, mesh.rank)
+        return {rc: b for ring, row in zip(rings, ext) for rc, b in zip(ring, row)
+                if b is not None}
+
+    # per input: this rank's blocks as float32 on their tiles' devices,
+    # exchange rows, paint, then exchange columns and paint (the
+    # reference's order); an animated block's row and column axes follow
+    # its frame axis
     blocks_per_input = []
-    for a in inputs:
-        ax0 = a.dim() - 3
-        blocks = [float_inputs([a[..., r * tile_h:(r + 1) * tile_h,
-                                  c * tile_w:(c + 1) * tile_w, :]
-                                .to(devices[r, c], non_blocking=True) for c in range(nx)])
-                  for r in range(ny)]
-        for c in range(nx):
-            col = exchange_halo([blocks[r][c] for r in range(ny)], halo_y, axis=ax0)
-            for r in range(ny):
-                blocks[r][c] = col[r]
-                if halo_y and opts.edge_y in ("color", "reflect"):
-                    _paint_edge_halo(blocks[r][c], r, ny, halo_y, ax0, opts.edge_y,
-                                     opts.edge_color)
+    background = {}
+    for k, a in enumerate(inputs):
+        ax0 = a.dim() - 3 if isinstance(a, torch.Tensor) else 0
+        raw = {(r, c): _block(a, r, c, tile_h, tile_w, devices[r, c]) for r, c in local}
+        if k == 0 and region is not None:
+            background = raw
+        blocks = dict(zip(raw, float_inputs(list(raw.values()))))
+        blocks = phase(blocks, col_rings, halo_y, ax0)
+        if halo_y and opts.edge_y in ("color", "reflect"):
+            for (r, c), b in blocks.items():
+                _paint_edge_halo(b, r, ny, halo_y, ax0, opts.edge_y, opts.edge_color)
         if nx > 1:
-            for r in range(ny):
-                blocks[r] = exchange_halo(blocks[r], halo_x, axis=ax0 + 1)
-                if halo_x and opts.edge_x in ("color", "reflect"):
-                    for c in range(nx):
-                        _paint_edge_halo(blocks[r][c], c, nx, halo_x, ax0 + 1, opts.edge_x,
-                                         opts.edge_color)
-        blocks_per_input.append([[b.contiguous() for b in row] for row in blocks])
+            blocks = phase(blocks, row_rings, halo_x, ax0 + 1)
+            if halo_x and opts.edge_x in ("color", "reflect"):
+                for (r, c), b in blocks.items():
+                    _paint_edge_halo(b, c, nx, halo_x, ax0 + 1, opts.edge_x,
+                                     opts.edge_color)
+        blocks_per_input.append({rc: b.contiguous() for rc, b in blocks.items()})
 
-    first = devices[0, 0]
+    first = mesh.first_local
     excess = []
-    tiles = []
-    for r in range(ny):
-        row = []
-        for c in range(nx):
-            r0, c0 = r * tile_h, c * tile_w
-            grid = (r0, c0, tile_h, tile_w)
-            if region is not None:
-                bg = _background(inputs[0], opts, frame, slice(r0, r0 + tile_h),
-                                 slice(c0, c0 + tile_w), devices[r, c])
-                grid = _overlap(region, r0, c0, tile_h, tile_w)
-                if grid is None:
-                    row.append(bg)
-                    continue
-            gy, gx, gh, gw = grid
-            ctx = RenderContext(
-                device=devices[r, c], width=width, height=height, opts=opts,
-                filters=program_filters, t=float(t), frame=float(frame),
-                grid_shape=(gh, gw), row_offset=gy, col_offset=gx)
+    tiles = {}
+    for r, c in local:
+        r0, c0 = r * tile_h, c * tile_w
+        grid = (r0, c0, tile_h, tile_w)
+        if region is not None:
+            bg = _background(background[r, c], opts, frame)
+            grid = _overlap(region, r0, c0, tile_h, tile_w)
+            if grid is None:
+                tiles[r0, c0] = bg
+                continue
+        gy, gx, gh, gw = grid
+        ctx = RenderContext(
+            device=devices[r, c], width=width, height=height, opts=opts,
+            filters=program_filters, t=float(t), frame=float(frame),
+            grid_shape=(gh, gw), row_offset=gy, col_offset=gx)
 
-            def hook(e, ctx=ctx):
-                # samples inside while loops are not checked, as in the
-                # reference (whose traced excess cannot leave the loop)
-                if ctx.loop_depth == 0:
-                    excess.append(e.to(first, non_blocking=True))
+        def hook(e, ctx=ctx):
+            # samples inside while loops are not checked, as in the
+            # reference (whose traced excess cannot leave the loop)
+            if ctx.loop_depth == 0:
+                excess.append(e.to(first, non_blocking=True))
 
-            ctx.inputs = [TiledInput(
-                pixels=ext[r][c], name=f"in{k}",
-                global_height=height, global_width=width if nx > 1 else 0,
-                row_base=r0 - halo_y,
-                col_base=c0 - halo_x if nx > 1 else 0,
-                halo_y=halo_y, halo_x=halo_x,
-                violation_hook=hook if check else None)
-                for k, ext in enumerate(blocks_per_input)]
-            out = render_frame(ctx, fdef, user_values(ctx, fdef, params))
-            if region is not None:
-                bg[gy - r0:gy - r0 + gh, gx - c0:gx - c0 + gw] = out
-                out = bg
-            row.append(out)
-        tiles.append(row)
+        ctx.inputs = [TiledInput(
+            pixels=ext[r, c], name=f"in{k}",
+            global_height=height, global_width=width if nx > 1 else 0,
+            row_base=r0 - halo_y,
+            col_base=c0 - halo_x if nx > 1 else 0,
+            halo_y=halo_y, halo_x=halo_x,
+            violation_hook=hook if check else None)
+            for k, ext in enumerate(blocks_per_input)]
+        out = render_frame(ctx, fdef, user_values(ctx, fdef, params))
+        if region is not None:
+            bg[gy - r0:gy - r0 + gh, gx - c0:gx - c0 + gw] = out
+            out = bg
+        tiles[r0, c0] = out
     worst = torch.stack(excess).max() if excess else None
-    return assemble(tiles, first), worst
+    if mesh.spans_processes:
+        if check:
+            if worst is None:
+                worst = torch.tensor(NO_SAMPLE, dtype=torch.int32, device=first)
+            worst = all_reduce_max(worst)
+        return LocalFrame(tiles, (height, width, 4)), worst
+    return assemble([[tiles[r * tile_h, c * tile_w] for c in range(nx)] for r in range(ny)],
+                    first), worst
 
 
 class TiledRenderer:
@@ -265,7 +345,10 @@ class TiledRenderer:
     check=True raises MMRuntimeError when any sample outside a loop's steps
     reached beyond the halo. opts.region renders the selection in place on
     the full canvas; supersample_scheme="corners" is refused, as in the
-    reference (its corner row and column would need their own halo)."""
+    reference (its corner row and column would need their own halo). Over
+    a mesh that spans processes every rank calls it alike (the same
+    params, halo and check): a call gives this rank's shard.LocalFrame,
+    and a violation anywhere raises the same error on every rank."""
 
     def __init__(self, mesh, program_filters, fdef, width: int, height: int,
                  opts, halo, params=None, check: bool = True):
@@ -285,7 +368,7 @@ class TiledRenderer:
         self.mesh = mesh
         self.config = (program_filters, fdef, width, height, opts)
 
-    def __call__(self, inputs: list, t: float = 0.0, frame: float = 0.0) -> torch.Tensor:
+    def __call__(self, inputs: list, t: float = 0.0, frame: float = 0.0):
         out, excess = render_frame_tiled(
             self.mesh, *self.config, inputs, self.halo, self.params, t=t,
             frame=frame, check=self.check)

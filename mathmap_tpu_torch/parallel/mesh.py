@@ -2,11 +2,13 @@
 `mathmap_tpu/parallel/mesh.py`).
 
 The JAX package shards a render over a `jax.sharding.Mesh` inside one
-program (`shard_map`). Here one process drives every tile: a mesh is an
-ndarray of `torch.device`s, each tile's tensors live on its device, and a
-device may appear more than once (a 4-tile mesh of one card runs the
+program (`shard_map`). Here one process drives every tile it owns: a mesh
+is an ndarray of `torch.device`s, each tile's tensors live on its device,
+and a device may appear more than once (a 4-tile mesh of one card runs the
 multi-device path on one GPU; the CPU tests build the reference's (1,8,1)
-and (1,2,4) meshes from "cpu" entries). Axis names:
+and (1,2,4) meshes from "cpu" entries). A mesh that spans processes
+(parallel/distributed.global_mesh) also names each entry's owning rank;
+a process owns every entry of a mesh made by `make_mesh`. Axis names:
 
     "f" — frame batch: a multi-frame render_sharded splits its frames
           over it in contiguous blocks; a one-frame render uses the
@@ -50,17 +52,27 @@ class Mesh:
     def spans_processes(self) -> bool:
         return self.ranks is not None
 
+    def owner(self, index) -> int:
+        """The rank that owns the entry at `index` (f, y, x)."""
+        return self.rank if self.ranks is None else int(self.ranks[index])
+
     def is_local(self, index) -> bool:
         """Whether this process owns the entry at `index` (f, y, x)."""
-        return self.ranks is None or int(self.ranks[index]) == self.rank
+        return self.owner(index) == self.rank
+
+    def local_entries(self, f: int | None = None) -> list:
+        """This rank's entry indices (f, y, x) in mesh order; with `f`,
+        those of frame slice f only."""
+        return [i for i in np.ndindex(self.devices.shape)
+                if self.is_local(i) and (f is None or i[0] == f)]
 
     @property
     def first_local(self) -> torch.device:
         """The first device, in mesh order, that this process owns."""
-        for index in np.ndindex(self.devices.shape):
-            if self.is_local(index):
-                return self.devices[index]
-        raise ValueError(f"rank {self.rank} owns no device of this mesh")
+        local = self.local_entries()
+        if not local:
+            raise ValueError(f"rank {self.rank} owns no device of this mesh")
+        return self.devices[local[0]]
 
 
 def _device(d) -> torch.device:

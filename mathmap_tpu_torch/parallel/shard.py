@@ -14,8 +14,11 @@ k renders its block of frames over its own (rows, cols) tiles.
 Over a mesh that spans processes (parallel/distributed.global_mesh) each
 rank evaluates only the tiles of its own devices, and a frame is a
 `LocalFrame` of those tiles (distributed.local_slice_of): the
-single-controller design, applied per rank. Nothing crosses processes,
-since every rank has the inputs whole.
+single-controller design, applied per rank. A sweep gives each rank the
+frame shards of its entries, as a `LocalFrame` too. No pixel crosses
+processes here, since every rank has the inputs whole (the input-sharded
+render, parallel/halo.py, is the one that exchanges blocks between
+ranks).
 """
 
 from __future__ import annotations
@@ -35,9 +38,12 @@ def _check_divisible(total: int, parts: int, what: str):
 
 
 class LocalFrame:
-    """This process's tiles of a frame rendered over a mesh that spans
-    processes: `tiles` maps each tile's global (row, col) origin to its
-    (tile_h, tile_w, 4) tensor, in mesh order; `shape` is the frame's."""
+    """This process's part of a render over a mesh that spans processes:
+    for one frame, `tiles` maps each tile's global (row, col) origin to its
+    (tile_h, tile_w, 4) tensor; for a sweep of F frames over nf frame
+    slices, each shard's (frame, row, col) origin to its (F / nf, tile_h,
+    tile_w, 4) tensor. In mesh order; `shape` is the whole result's, (H, W,
+    4) or (F, H, W, 4)."""
 
     def __init__(self, tiles: dict, shape: tuple):
         self.tiles = tiles
@@ -109,26 +115,38 @@ def render_frame_sharded(mesh, program_filters, fdef, width: int, height: int,
 
 
 def render_frames_sharded(mesh, program_filters, fdef, width: int, height: int,
-                          opts, inputs: list, params: dict, ts) -> torch.Tensor:
+                          opts, inputs: list, params: dict, ts):
     """A sweep of len(ts) frames: frame i at t = ts[i] with its `frame`
     internal i, the frames split over the mesh's frame axis in contiguous
     blocks and each frame's grid over its slice's (y, x) tiles -> (F, H, W,
     4) on the mesh's first device. The frame count must divide by the
-    frame axis."""
+    frame axis. Over a mesh that spans processes, each rank renders the
+    tiles of its own entries of every frame (t, `frame` and the rand()
+    counters stay global) -> a LocalFrame of (F / nf, tile_h, tile_w, 4)
+    frame shards keyed by their (frame, row, col) origin."""
     validate_params(fdef, params, opts.static_params)
     _check_grid(mesh, opts, width, height)
-    if mesh.spans_processes:
-        raise ValueError("a sweep of frames over a mesh that spans processes is not "
-                         "supported: render its frames one at a time")
     n = len(ts)
     nf = axis_size(mesh, FRAME_AXIS)
     _check_divisible(n, nf, "num_frames")
     per_slice = n // nf
-    devices = mesh.devices
-    first = devices[0, 0, 0]
     dtype = torch.uint8 if opts.output_dtype == "uint8" else torch.float32
-    out = torch.empty((n, height, width, 4), dtype=dtype, device=first)
     replicas = {}
+    if mesh.spans_processes:
+        tile_h, tile_w = height // axis_size(mesh, ROW_AXIS), width // axis_size(mesh, COL_AXIS)
+        shards = {(f * per_slice, r * tile_h, c * tile_w):
+                  torch.empty((per_slice, tile_h, tile_w, 4), dtype=dtype,
+                              device=mesh.devices[f, r, c])
+                  for f, r, c in mesh.local_entries()}
+        for i in range(n):
+            f0 = i - i % per_slice
+            part = _render_tiles(mesh, i // per_slice, replicas, program_filters, fdef, width,
+                                 height, opts, inputs, params, float(ts[i]), float(i))
+            for (r0, c0), tile in part.tiles.items():
+                shards[f0, r0, c0][i - f0] = tile
+        return LocalFrame(shards, (n, height, width, 4))
+    first = mesh.devices[0, 0, 0]
+    out = torch.empty((n, height, width, 4), dtype=dtype, device=first)
     for i in range(n):
         _render_tiles(mesh, i // per_slice, replicas, program_filters, fdef, width,
                       height, opts, inputs, params, float(ts[i]), float(i), out=out[i])
