@@ -172,8 +172,24 @@ Phases, each printing its own lines:
    rank (else a line says why it did not run). The workers are this
    script (`--distributed-worker`); their launches before the timing are
    the path's.
+25. float64 spec: the reference's eight top-level names resolve on the
+   port; Filter.render(interpret=True) is a CPU tensor, and interpret=True
+   with device="cuda", and on_error="interpret", raise ValueError. Then
+   the card's float32 render (Filter.render without a device; tiled pond
+   through render_tiled on a (1,4,1) mesh of cuda:0) and the CPU's
+   float32 route (interpret=True) are each held against the reference's
+   float64 spec (interpret=True, precision="f64"), their worst errors
+   printed side by side: fisheye, twirl, pond, twirl bicubic, mandelbrot,
+   a curve filter and tiled pond at 1920x1080 on a smooth u8 image;
+   quat_julia, voronoi and turbulence at 480x270. The card must stay
+   within 2e-4 of the spec (tests/test_fuzz.py's bound for float32
+   against float64; the escape-time mandelbrot and quat_julia: at most 2%
+   of pixels beyond tests/test_parity.py's 5e-5 + 1e-4 |spec|), every
+   output finite, each card render launching its kernels (B1, B2, B3,
+   B4); for voronoi, which of the card and the CPU is nearer the spec
+   where the two differ.
 
-Every main path (phases 5, 6, 8, 9, 11-24) runs with the four launch
+Every main path (phases 5, 6, 8, 9, 11-25) runs with the four launch
 counts set to 0 just before it and read just after; the kernels line
 gives each kernel's launches by path. Then the timings: phase 10's and
 11's, B3's bound (this run's pixel iterations x the distinct ops of an
@@ -2976,6 +2992,139 @@ def phase_distributed(mt, B4, dev, work: Path, card: str) -> tuple:
     return tuple(total)
 
 
+#: the reference's top-level names that the port once lacked
+SURFACE_NAMES = ("read_image", "write_image", "to_float_rgba", "to_uint8", "Curve",
+                 "Gradient", "InputImage", "__version__")
+#: the reference's bound for a float32 render against its float64 spec
+#: (tests/test_fuzz.py, test_random_expression_supersampled_and_f64)
+SPEC_ATOL = 2e-4
+#: tests/test_parity.py's rule for the escape-time filters: at most 2% of
+#: the pixels beyond 5e-5 + 1e-4 * |spec|
+CHAOTIC_ATOL, CHAOTIC_RTOL, CHAOTIC_SHARE = 5e-5, 1e-4, 0.02
+#: a curve for the curve filter's LUT (64 rising samples)
+SPEC_CURVE = np.cumsum(np.random.RandomState(8).rand(64)).astype(np.float32)
+SPEC_CURVE /= SPEC_CURVE[-1]
+
+
+def spec_cases(mt, filters, st, lib):
+    """(label, filter, numpy inputs, render keywords, kernels the card
+    render must launch, escape-time?, tiled mesh shape or None) of the
+    float64 spec phase: the main path's sizes (1920x1080, u8 in) for the
+    distortion suite, mandelbrot, the curve filter and tiled pond; 480x270
+    for quat_julia, voronoi and turbulence (voronoi's card-vs-CPU watch
+    size)."""
+    (w, h), (rw, rh) = SIZES[0], REDUCED
+    img = smooth_image(w, h, seed=41)[1]
+    curve = mt.compile_file(str(ROOT / "filters" / "Colors" / "curve_adjust.mm"))
+    bicubic = mt.RenderOptions(interpolation="bicubic")
+    small = [smooth_image(rw, rh, seed=43)[1] for _ in lib["quat_julia"].image_params]
+    return [
+        ("fisheye", filters["fisheye"], [img], {}, ("B1",), False, None),
+        ("twirl", filters["twirl"], [img], {}, ("B1",), False, None),
+        ("pond", filters["pond"], [img], {}, ("B1",), False, None),
+        ("twirl bicubic", filters["twirl"], [img], {"options": bicubic}, ("B1",), False,
+         None),
+        ("mandelbrot", filters["mandelbrot"], [], {"width": w, "height": h},
+         ("B2", "B3"), True, None),
+        ("curve_adjust", curve, [img], {"params": {"c": SPEC_CURVE}}, ("B1", "B2"), False,
+         None),
+        ("pond tiled (1,4,1)", filters["pond"], [img], {}, ("B4",), False, (1, 4, 1)),
+        ("quat_julia", lib["quat_julia"], small, {"width": rw, "height": rh}, ("B3",),
+         True, None),
+        ("voronoi", st["voronoi"], [], {"width": rw, "height": rh}, ("B2",), False, None),
+        ("turbulence", st["turbulence"], [], {"width": rw, "height": rh}, (), False, None),
+    ]
+
+
+def phase_float64_spec(mt, K, L, WL, B4, dev, filters, st, lib, card: str) -> dict:
+    """The public surface and the reference's float64 spec on the card's
+    machine. The eight names resolve; render(interpret=True) is a CPU
+    tensor; interpret=True with device="cuda", and on_error="interpret",
+    raise ValueError. Then each case of spec_cases renders on the card
+    (Filter.render without a device: the card by default; render_tiled on
+    a mesh of cuda:0), on the CPU's float32 route (interpret=True) and as
+    the float64 spec (interpret=True, precision="f64"), and prints the
+    card's and the CPU route's worst errors against the spec side by side.
+    The card must stay within SPEC_ATOL of the spec (escape-time filters:
+    tests/test_parity.py's 98% pixel rule), every output finite, and each
+    card render must launch its kernels. Voronoi also prints, over the
+    pixels where the card and the CPU differ, which of the two is nearer
+    the spec. Returns {label: card's worst error}."""
+    t0 = time.perf_counter()
+    for name in SURFACE_NAMES:
+        if getattr(mt, name) is None:
+            raise AssertionError(f"mathmap_tpu_torch.{name} does not resolve")
+    twirl = filters["twirl"]
+    probe = smooth_image(64, 48, seed=40)[1]
+    out = twirl.render(probe, interpret=True)
+    if out.device.type != "cpu" or out.dtype != torch.float32:
+        raise AssertionError(f"render(interpret=True): {out.device} {out.dtype}")
+    for kw in ({"interpret": True, "device": "cuda"}, {"on_error": "interpret"}):
+        try:
+            twirl.render(probe, **kw)
+        except ValueError:
+            continue
+        raise AssertionError(f"render(**{kw}) did not raise ValueError")
+    print(f"float64 spec: {len(SURFACE_NAMES)} top-level names resolve; "
+          f"render(interpret=True) -> cpu float32; interpret=True with device='cuda' "
+          f"and on_error='interpret' raise ValueError")
+    wrappers = (K.sample_image, L.apply_lut, WL.while_loop, B4.sample_tiled)
+    specs = {}
+    worst = {}
+    for label, f, inputs, kw, kernels, chaotic, mesh in spec_cases(mt, filters, st, lib):
+        key = (id(f), tuple(id(a) for a in inputs), repr(kw))
+        before = launch_counts(*wrappers)
+        if mesh is None:
+            got = f.render(*inputs, **kw)
+        else:
+            got = f.render_tiled(*(torch.from_numpy(a).to(dev) for a in inputs),
+                                 mesh=card_mesh(mt, dev, mesh), **kw)
+        torch.cuda.synchronize()
+        launched = [n for n, b, a in zip(("B1", "B2", "B3", "B4"), before,
+                                         launch_counts(*wrappers)) if a > b]
+        if got.device.type != dev.type or not set(kernels) <= set(launched):
+            raise AssertionError(f"float64 spec {label}: card render on {got.device} "
+                                 f"launched {launched}, expected {kernels}")
+        if key not in specs:
+            ts = time.perf_counter()
+            spec = f.render(*inputs, interpret=True, precision="f64", **kw)
+            ts = time.perf_counter() - ts
+            cpu = f.render(*inputs, interpret=True, **kw)
+            if spec.dtype != torch.float64 or cpu.dtype != torch.float32:
+                raise AssertionError(f"float64 spec {label}: {spec.dtype}, {cpu.dtype}")
+            specs[key] = (spec.numpy(), cpu.double().numpy(), ts)
+        spec, cpu, ts = specs[key]
+        got = got.cpu().double().numpy()
+        for name, a in (("card", got), ("cpu f32", cpu), ("spec", spec)):
+            if not np.isfinite(a).all():
+                raise AssertionError(f"float64 spec {label}: {name} output not finite")
+        err_card, err_cpu = np.abs(got - spec), np.abs(cpu - spec)
+        worst[label] = float(err_card.max())
+        beyond = float((err_card > CHAOTIC_ATOL + CHAOTIC_RTOL * np.abs(spec))
+                       .any(axis=-1).mean())
+        rule = (f"{beyond:.4%} of pixels beyond {CHAOTIC_ATOL:g} + {CHAOTIC_RTOL:g}|spec| "
+                f"(<= {CHAOTIC_SHARE:.0%})" if chaotic
+                else f"<= {SPEC_ATOL:g}")
+        h, w = spec.shape[:2]
+        apart = (got != cpu).any(axis=-1)
+        print(f"float64 spec {label} {w}x{h}: worst |card - spec| {worst[label]:.3e}, "
+              f"|cpu f32 - spec| {float(err_cpu.max()):.3e} ({rule}); card and cpu f32 "
+              f"differ at {int(apart.sum())} pixels (worst {float(np.abs(got - cpu).max()):.3e}); "
+              f"launched {'+'.join(launched) or 'none'}; spec render {ts:.2f} s")
+        if (beyond > CHAOTIC_SHARE) if chaotic else (worst[label] > SPEC_ATOL):
+            raise AssertionError(f"float64 spec {label}: card beyond the spec ({rule})")
+        if label == "voronoi":
+            card_near = (err_card.max(-1) < err_cpu.max(-1)) & apart
+            cpu_near = (err_cpu.max(-1) < err_card.max(-1)) & apart
+            print(f"float64 spec voronoi watch: of the {int(apart.sum())} pixels where the "
+                  f"card and the CPU f32 route differ, the card is nearer the spec at "
+                  f"{int(card_near.sum())}, the CPU at {int(cpu_near.sum())}; their worst "
+                  f"errors there: card {float(err_card[apart].max(initial=0.0)):.3e}, CPU "
+                  f"{float(err_cpu[apart].max(initial=0.0)):.3e}")
+    print(f"float64 spec phase: {time.perf_counter() - t0:.1f} s [{card}]")
+    return worst
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--distributed-worker"]:
         rank, n, coord, out_dir, backend, jobs = sys.argv[2:8]
@@ -3061,6 +3210,7 @@ def main() -> int:
         path("selftest", phase_selftest, mt, dev)
         path("artifact", phase_artifact, mt, K, L, WL, build, dev, filters, work, card)
         path("preview", phase_preview, mt, K, dev, card)
+        path("float64 spec", phase_float64_spec, mt, K, L, WL, B4, dev, filters, st, lib, card)
         # the fleet's launches are its worker processes' own counts
         by_path["distributed"] = path("distributed", phase_distributed, mt, B4, dev, work,
                                       card)

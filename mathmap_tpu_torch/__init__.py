@@ -28,11 +28,14 @@ render service (`python -m mathmap_tpu_torch.serve`) and the preview app
 (imgio/). `generators/` exports a filter as an artifact (.mmxa, a
 `torch.export` program that loads without the compiler), a script or its
 program's text, and `parallel/distributed.py` splits a render over the
-ranks of a `torch.distributed` group.
+ranks of a `torch.distributed` group. `render(interpret=True)` renders on
+the CPU through the kernels' plain versions, and `precision="f64"` there
+is the reference's float64 spec (runtime/promotion.py).
 
     import mathmap_tpu_torch as mt
     f = mt.compile_file("filters/Distorts/twirl.mm")
-    out = f.render(image, device="cuda")     # (H, W, 4) float32 tensor
+    out = f.render(image)                    # (H, W, 4) float32 on the card
+    spec = f.render(image, interpret=True, precision="f64")  # CPU, float64
     g = mt.default_db().compile("dream_pond")  # a composition
 """
 
@@ -49,12 +52,17 @@ _sys.setrecursionlimit(max(_sys.getrecursionlimit(), 20000))
 _EXPORTS = {
     "Filter": "api", "compile_file": "api", "compile_source": "api", "shared": "api",
     "ExpressionDB": "expression_db", "default_db": "expression_db",
+    "read_image": "imgio.images", "write_image": "imgio.images",
+    "to_float_rgba": "imgio.images", "to_uint8": "imgio.images",
     "make_mesh": "parallel.mesh",
     "RenderOptions": "runtime.options",
+    "Curve": "runtime.value", "Gradient": "runtime.value", "InputImage": "runtime.value",
     "MMError": "utils.errors", "MMNameError": "utils.errors",
     "MMRuntimeError": "utils.errors", "MMSyntaxError": "utils.errors",
     "MMTypeError": "utils.errors",
 }
+
+__version__ = "0.1.0"
 
 
 def __getattr__(name):
@@ -79,11 +87,19 @@ __all__ = [
     "compile",
     "compile_source",
     "compile_file",
+    "read_image",
+    "write_image",
+    "to_float_rgba",
+    "to_uint8",
     "make_mesh",
     "RenderOptions",
+    "Curve",
+    "Gradient",
+    "InputImage",
     "MMError",
     "MMSyntaxError",
     "MMTypeError",
     "MMNameError",
     "MMRuntimeError",
+    "__version__",
 ]

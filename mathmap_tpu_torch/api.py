@@ -4,13 +4,15 @@ on the device the caller names (the port of `mathmap_tpu/api.py`).
 The same `.mm` sources compile to a `Filter` whose `render()` evaluates the
 filter over the whole pixel grid on `device` ("cuda" by default): eager
 elementwise torch ops, with origVal going through the hand-written CUDA
-sampler on the GPU (kernels/sample_image.py). `render_batch()` renders N
+sampler on the GPU (kernels/sample_image.py). `render(interpret=True)` is
+the CPU route, the kernels' plain versions, and with `precision="f64"` the
+reference's float64 spec. `render_batch()` renders N
 independent jobs, `render_animation()` and `render_frames()` a t-sweep;
 `render_sharded()` and `render_tiled()` split the grid (and a sweep's
 frames) over a mesh of devices (parallel/); `RenderOptions.region` renders a
 selection. Nothing falls back to the CPU:
 asking for "cuda", or for the default mesh, on a machine without a GPU
-raises.
+raises, and so does the reference's `on_error="interpret"`.
 """
 
 from __future__ import annotations
@@ -140,23 +142,51 @@ class Filter:
     def render(self, *inputs, width: int | None = None, height: int | None = None,
                t: float = 0.0, frame: float = 0.0,
                options: RenderOptions | None = None, params: dict | None = None,
-               device="cuda") -> torch.Tensor:
-        """Render one frame -> (H, W, 4) tensor on `device`: float32 in
-        [0, 1], or uint8 with options.output_dtype='uint8'. With
-        options.region = (x, y, w, h) only that selection is evaluated, with
-        the full canvas's coordinates -> (h, w, 4), the full render's crop.
+               interpret: bool = False, precision: str = "f32", on_error: str = "raise",
+               device=None) -> torch.Tensor:
+        """Render one frame -> (H, W, 4) tensor on `device` ("cuda" unless
+        `interpret`): float32 in [0, 1], or uint8 with
+        options.output_dtype='uint8'. With options.region = (x, y, w, h)
+        only that selection is evaluated, with the full canvas's
+        coordinates -> (h, w, 4), the full render's crop.
 
         inputs: (H, W, C) numpy arrays or (H, W, 4) float32/uint8 tensors,
         bound to the filter's image parameters in order; a 4-D one is an
         ANIMATED (T, H, W, 4) input, sampled at frame `frame` unless
         origValXY names another. The output size defaults to the first
-        input's (512x512 without inputs)."""
-        dev = resolve_device(device)
+        input's (512x512 without inputs).
+
+        `interpret=True` renders on the CPU route, the kernels' plain
+        versions (the reference's NumPy oracle path; a device other than
+        the CPU raises ValueError). There `precision="f64"` renders the
+        reference's float64 spec: the evaluation runs in float64 and the
+        output is float64 (uint8 still packs to uint8); any other value is
+        float32. Without `interpret` the render is float32 whatever
+        `precision` says, as the reference's jit path ignores it.
+        `on_error="interpret"`, the reference's silent CPU fallback after a
+        failed device render, raises ValueError: a failure here always
+        raises."""
+        if on_error == "interpret":
+            raise ValueError(
+                "on_error='interpret' (a silent CPU fallback after a failed device "
+                "render) is not supported: render with interpret=True to ask for "
+                "the CPU")
+        dtype = torch.float32
+        if interpret:
+            if device is not None and torch.device(device).type != "cpu":
+                raise ValueError(
+                    f"interpret=True renders on the CPU, but device={device!r} was "
+                    f"given: pass one of interpret=True and device=")
+            dev = torch.device("cpu")
+            if precision == "f64":
+                dtype = torch.float64
+        else:
+            dev = resolve_device("cuda" if device is None else device)
         ins = [_stage_input(a, dev) for a in inputs]
         width, height = _resolve_size(ins, width, height)
         return render(self.filters, self.fdef, width, height,
                       options or RenderOptions(), dev, ins, params or {},
-                      t=t, frame=frame)
+                      t=t, frame=frame, dtype=dtype)
 
     def render_batch(self, *batched_inputs, ts=None, frames=None,
                      width: int | None = None, height: int | None = None,

@@ -28,7 +28,9 @@ def apply_lut_reference(lut: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
     a (K,) or (K, C) float32 `lut` at positions `pos` (any shape) ->
     (C, *pos.shape) float32 on `pos`'s device, C = 1 for a (K,) LUT. The
     index is clamped into [0, K-1] after the float -> int conversion, so a
-    NaN position reads row 0 and yields NaN."""
+    NaN position reads row 0 and yields NaN. At float64 positions the
+    rows' difference stays float32 and the result is float64, as in the
+    oracle's float64 spec."""
     k = int(lut.shape[0])
     table = lut.reshape(k, -1)
     xf = torch.clamp(pos, 0.0, 1.0) * (k - 1)
@@ -47,8 +49,12 @@ def _check(lut, pos):
         raise ValueError(f"lut must be (K,) or (K, 4), got {tuple(lut.shape)}")
     if lut.shape[0] < 1:
         raise ValueError("lut needs at least one row")
-    if lut.dtype != torch.float32 or pos.dtype != torch.float32:
-        raise TypeError(f"lut and pos must be float32, got {lut.dtype}, {pos.dtype}")
+    # float64 positions: the CPU's float64 spec render, where the float32
+    # LUT is interpolated at them as in the reference's oracle
+    spec = pos.device.type == "cpu" and pos.dtype == torch.float64
+    if lut.dtype != torch.float32 or not (pos.dtype == torch.float32 or spec):
+        raise TypeError(f"lut and pos must be float32 (pos float64 on the CPU), got "
+                        f"{lut.dtype}, {pos.dtype}")
     if lut.device != pos.device:
         raise ValueError(f"lut and pos must share a device, got {lut.device}, {pos.device}")
 
@@ -110,7 +116,8 @@ torch.library.register_fake("mathmap::apply_lut")(_apply_lut_fake)
 
 def apply_lut(lut: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
     """Apply a (K,) curve or (K, 4) gradient LUT at `pos` -> planar
-    (C, *pos.shape) float32, C = 1 or 4.
+    (C, *pos.shape) float32, C = 1 or 4 (float64 at the float64 positions
+    of a CPU spec render).
 
     The custom op `mathmap::apply_lut`, which an exported program calls
     too: a CPU tensor goes to the plain version; a CUDA tensor launches the

@@ -194,7 +194,11 @@ def interpolate(gather, x, y, w: int, h: int, interpolation: str, edge_x: str,
 def sample_image_reference(pixels, x, y, interpolation: str, edge_x: str,
                            edge_y: str, edge_color) -> torch.Tensor:
     """The plain PyTorch sampler -> (4, H, W) float32, on the device of
-    its inputs."""
+    its inputs. Given float64 coordinates (the CPU's float64 spec render)
+    it computes as the reference's oracle does in float64: the taps keep
+    the image's dtype (a uint8 tap is u/255 in float32) and the weights
+    are float64, so the result is float64 except where a float32 image's
+    nearest taps are returned as they are."""
     h, w = int(pixels.shape[0]), int(pixels.shape[1])
     return torch.stack(interpolate(_gather(pixels), x, y, w, h, interpolation, edge_x,
                                    edge_y, edge_color, pixels.device))
@@ -203,14 +207,19 @@ def sample_image_reference(pixels, x, y, interpolation: str, edge_x: str,
 def _check(pixels, x, y, interpolation, edge_x, edge_y, edge_color):
     if pixels.dim() != 3 or pixels.shape[2] != 4:
         raise ValueError(f"pixels must be (H, W, 4), got {tuple(pixels.shape)}")
-    if pixels.dtype not in (torch.float32, torch.uint8):
+    # the float64 spec render (interpret=True, precision="f64") samples on
+    # the CPU only: the kernel is float32
+    spec = pixels.device.type == "cpu" and x.dtype == torch.float64
+    if pixels.dtype not in ((torch.float32, torch.uint8, torch.float64) if spec
+                            else (torch.float32, torch.uint8)):
         raise TypeError(f"pixels must be float32 or uint8, got {pixels.dtype}")
     if x.dim() != 2 or x.shape != y.shape:
         raise ValueError(
             f"x and y must be (H, W) grids of one shape, got "
             f"{tuple(x.shape)} and {tuple(y.shape)}")
-    if x.dtype != torch.float32 or y.dtype != torch.float32:
-        raise TypeError(f"x and y must be float32, got {x.dtype}, {y.dtype}")
+    if y.dtype != x.dtype or not (x.dtype == torch.float32 or spec):
+        raise TypeError(f"x and y must be float32 (float64 on the CPU), got "
+                        f"{x.dtype}, {y.dtype}")
     if not (x.device == y.device == pixels.device):
         raise ValueError(
             f"pixels, x and y must share a device, got {pixels.device}, "
@@ -308,7 +317,9 @@ torch.library.register_fake("mathmap::sample_image")(_sample_image_fake)
 def sample_image(pixels, x, y, interpolation: str, edge_x: str, edge_y: str,
                  edge_color) -> torch.Tensor:
     """Sample `pixels` ((Hi, Wi, 4) float32 or uint8) at world coordinate
-    grids `x`, `y` ((H, W) float32) -> planar (4, H, W) float32.
+    grids `x`, `y` ((H, W) float32) -> planar (4, H, W) float32. On the
+    CPU, float64 coordinates (and float64 pixels) take the plain version's
+    float64 path, the reference's float64 spec.
 
     The custom op `mathmap::sample_image`, which an exported program
     (generators/artifact.py) calls too: a CPU tensor goes to the plain

@@ -1,8 +1,11 @@
 """The evaluator's transcendental functions, `sqrt` and `pow`, one rule per
 device.
 
-On a float32 CPU tensor each function is numpy's float32 ufunc, the
-function the reference's NumPy oracle computes with. torch's CPU kernels
+On a float32 or float64 CPU tensor each function is numpy's ufunc, the
+function the reference's NumPy oracle computes with, in its dtype: float32
+for the oracle's default precision, float64 for its float64 spec
+(`render(interpret=True, precision="f64")`), numpy's promotion deciding a
+mixed call. torch's CPU kernels
 differ from those by an ulp at some inputs (its vectorised sqrt is not
 correctly rounded, its pow and trig are within an ulp), which a filter can
 amplify past the oracle's tolerance: rose_curve's cos(petals * a) at a
@@ -33,8 +36,7 @@ torch.library.define("mathmap::libm", "(str name, Tensor[] args) -> Tensor")
 
 
 def _libm_cpu(name, args):
-    out = _NUMPY[name](*(a.numpy() for a in args))
-    return torch.from_numpy(np.asarray(out, dtype=np.float32))
+    return torch.from_numpy(np.asarray(_NUMPY[name](*(a.numpy() for a in args))))
 
 
 torch.library.impl("mathmap::libm", "CPU")(_libm_cpu)
@@ -48,16 +50,16 @@ def _libm_fake(name, args):
 torch.library.register_fake("mathmap::libm")(_libm_fake)
 
 
-def _cpu_float32(args) -> bool:
+def _cpu_float(args) -> bool:
     return all(isinstance(a, torch.Tensor) and a.device.type == "cpu"
-               and a.dtype == torch.float32 for a in args)
+               and a.dtype in (torch.float32, torch.float64) for a in args)
 
 
 def _function(name: str):
     torch_fn = getattr(torch, name)
 
     def fn(*args):
-        if _cpu_float32(args):
+        if _cpu_float(args):
             return torch.ops.mathmap.libm(name, list(args))
         return torch_fn(*args)
 

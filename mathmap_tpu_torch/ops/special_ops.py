@@ -19,10 +19,13 @@ and log(pi) as `be.sqrt(2.0 * _PI)` and the like: under NumPy 2 those are
 float64 scalars, which promote the float32 arrays they meet, so the NumPy
 oracle returns gamma, lgamma and beta (and everything computed from them)
 in float64, while the jit path's weak types keep float32. This port keeps
-float32 throughout: the constants are rounded to float32 once, where the
-jit path rounds them. That reproduces the goldens of every library entry
-that calls these functions (gamma_spiral) and the oracle within the
-parity tolerance (rtol=1e-4, atol=1e-5; tests/test_torch_vector_special.py).
+float32 throughout its float32 renders: the constants are Python floats,
+rounded to float32 where they meet it, as the jit path rounds them. That
+reproduces the goldens of every library entry that calls these functions
+(gamma_spiral) and the oracle within the parity tolerance (rtol=1e-4,
+atol=1e-5; tests/test_torch_vector_special.py). The float64 spec render
+(`render(interpret=True, precision="f64")`) takes the oracle's float64
+constants instead (`_constants`).
 """
 
 from __future__ import annotations
@@ -63,6 +66,15 @@ def _rdiv(c: float, t):
     return torch.tensor(c, dtype=t.dtype, device=t.device) / t
 
 
+def _constants(ev):
+    """(sqrt(2 pi), log(2 pi), log(pi)): Python floats in a float32 render;
+    in the float64 spec render the oracle's float64 scalars, 0-d float64
+    tensors that promote a float32 argument as NumPy's do."""
+    if ev.ctx.dtype == torch.float64:
+        return tuple(ev.lit(v) for v in (_SQRT_2PI, _LOG_2PI, _LOG_PI))
+    return _SQRT_2PI, _LOG_2PI, _LOG_PI
+
+
 def _lanczos(x):
     """The reflection mask, z = (x or 1 - x) - 1, the series and t."""
     reflect = x < 0.5
@@ -74,23 +86,24 @@ def _lanczos(x):
     return reflect, z, acc, t
 
 
-def _gamma_real(x):
+def _gamma_real(x, consts):
     """Lanczos gamma for real x; gamma(x) = pi / (sin(pi x) gamma(1 - x))
-    for x < 0.5."""
+    for x < 0.5. `consts`: `_constants(ev)`."""
     reflect, z, acc, t = _lanczos(x)
-    g = _SQRT_2PI * libm.pow(t, z + 0.5) * torch.exp(-t) * acc
+    g = consts[0] * libm.pow(t, z + 0.5) * torch.exp(-t) * acc
     return torch.where(reflect, _rdiv(_PI, libm.sin(_PI * x) * g), g)
 
 
-def _lgamma_real(x):
+def _lgamma_real(x, consts):
     """log|gamma(x)| in log form: the same series and reflection, summed in
     logs (log(abs(gamma(x))) overflows float32 past x ~ 35)."""
+    _, log_2pi, log_pi = consts
     reflect, z, acc, t = _lanczos(x)
-    lg = 0.5 * _LOG_2PI + (z + 0.5) * torch.log(t) - t + torch.log(torch.abs(acc))
-    return torch.where(reflect, _LOG_PI - torch.log(torch.abs(libm.sin(_PI * x))) - lg, lg)
+    lg = 0.5 * log_2pi + (z + 0.5) * torch.log(t) - t + torch.log(torch.abs(acc))
+    return torch.where(reflect, log_pi - torch.log(torch.abs(libm.sin(_PI * x))) - lg, lg)
 
 
-def _gamma_complex(re, im):
+def _gamma_complex(re, im, consts):
     """Lanczos gamma in split re/im form (valid for Re(z) >= 0.5)."""
     zr, zi = re - 1.0, im
     ar = torch.zeros_like(zr) + _LANCZOS_C[0]
@@ -109,8 +122,8 @@ def _gamma_complex(re, im):
     ei = pr * log_ti + pi_ * log_tr
     m = torch.exp(er - tr)
     cosv, sinv = libm.cos(ei - ti), libm.sin(ei - ti)
-    gr = _SQRT_2PI * m * (cosv * ar - sinv * ai)
-    gi = _SQRT_2PI * m * (cosv * ai + sinv * ar)
+    gr = consts[0] * m * (cosv * ar - sinv * ai)
+    gi = consts[0] * m * (cosv * ai + sinv * ar)
     return gr, gi
 
 
@@ -118,23 +131,24 @@ def _gamma_complex(re, im):
 def _gamma(ev, args, span):
     (a,) = need_args(args, 1, "gamma", span)
     if a.tag == "ri":
-        return TupleValue("ri", _gamma_complex(a.arrays[0], a.arrays[1]))
+        return TupleValue("ri", _gamma_complex(a.arrays[0], a.arrays[1], _constants(ev)))
     if a.is_opaque or a.length != 1:
         raise MMTypeError("'gamma' expects a single value or ri: tuple", span)
-    return TupleValue(NIL, (_gamma_real(a.arrays[0]),))
+    return TupleValue(NIL, (_gamma_real(a.arrays[0], _constants(ev)),))
 
 
 @builtin("lgamma")
 def _lgamma(ev, args, span):
     (a,) = need_args(args, 1, "lgamma", span)
-    return TupleValue(NIL, (_lgamma_real(a.scalar(span)),))
+    return TupleValue(NIL, (_lgamma_real(a.scalar(span), _constants(ev)),))
 
 
 @builtin("beta")
 def _beta(ev, args, span):
     a, b = need_args(args, 2, "beta", span)
     x, y = a.scalar(span), b.scalar(span)
-    return TupleValue(NIL, (_gamma_real(x) * _gamma_real(y) / _gamma_real(x + y),))
+    c = _constants(ev)
+    return TupleValue(NIL, (_gamma_real(x, c) * _gamma_real(y, c) / _gamma_real(x + y, c),))
 
 
 # ---------------------------------------------------------------------------

@@ -754,14 +754,15 @@ class PreviewState:
             self._filter_cache[source] = filt
         return filt
 
-    def set_input(self, data: bytes):
-        """Replace the input image from uploaded file bytes. Multi-frame
+    def set_input(self, png_bytes: bytes):
+        """Replace the input image from uploaded file bytes (PNG, PAM or
+        PPM; other formats need Pillow). Multi-frame
         files (animated GIFs) become ANIMATED (T, H, W, 4) inputs: the
         preview's frame and origValXY(x, y, frame) index them. It is
         staged on the device at the next render."""
         from .imgio.images import read_animation
 
-        stack = read_animation(io.BytesIO(data), as_uint8=True)
+        stack = read_animation(io.BytesIO(png_bytes), as_uint8=True)
         new_input = stack if stack.shape[0] > 1 else stack[0]
         with self.lock:
             self.input_image = new_input

@@ -11,6 +11,11 @@ bit. PyTorch runs eagerly,
 so there is nothing to compile or cache: `render` takes the whole
 configuration on every call, and a batch of jobs or an animation's frames
 is one loop of such renders (`iter_jobs`).
+
+`render(..., dtype=torch.float64)` on the CPU is the reference's float64
+spec, `render_oracle(precision="f64")`: grids, literals, `t` and `frame`
+in float64, inputs converted as the oracle converts them, and NumPy's
+promotion (runtime/promotion.py) deciding what else becomes float64.
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ import torch
 from ..kernels.sample_image import u8_to_float
 from ..lang import astnodes as A
 from ..utils.errors import MMRuntimeError
+from .promotion import NumpyPromotion
 from .tracer import Evaluator, RenderContext, coerce_rgba
 from .uservals import convert_userval, default_userval
 from .value import InputImage, image_value
@@ -155,8 +161,8 @@ def _corners_rgba(ctx: RenderContext, fdef: A.FilterDef, uservals: dict) -> torc
 def render_frame(ctx: RenderContext, fdef: A.FilterDef, uservals: dict,
                  out: torch.Tensor | None = None):
     """Render one frame, one tile of it or one region of it -> ctx.shape +
-    (4,) float32 in [0,1] (uint8 when opts.output_dtype='uint8'), written
-    into `out` when given."""
+    (4,) in [0,1], float32 (float64 in the float64 spec render), or uint8
+    when opts.output_dtype='uint8', written into `out` when given."""
     s = ctx.opts.supersample
     if s > 1 and ctx.opts.supersample_scheme == "corners":
         rgba = _corners_rgba(ctx, fdef, uservals)
@@ -196,23 +202,38 @@ def validate_params(fdef: A.FilterDef, params: dict, static_names) -> None:
             f"(curve/gradient/image values stay traced)")
 
 
+def spec_input(a: torch.Tensor) -> torch.Tensor:
+    """An input of the float64 spec render, converted as the reference's
+    oracle converts it: uint8 to float32 /255 first, then float64."""
+    return (u8_to_float(a) if a.dtype == torch.uint8 else a).to(torch.float64)
+
+
 def render(program_filters: dict, fdef: A.FilterDef, width: int, height: int,
            opts, device: torch.device, inputs, params: dict, t: float = 0.0,
-           frame: float = 0.0, out: torch.Tensor | None = None) -> torch.Tensor:
+           frame: float = 0.0, out: torch.Tensor | None = None,
+           dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Render one frame of `fdef` on `device` -> (H, W, 4), or (h, w, 4)
     when opts.region is set. `inputs`: (H, W, 4) float32 or uint8 tensors
     on the device, or animated (T, H, W, 4) stacks of them, one per image
     parameter in order. `out`: a tensor of the output's shape and dtype to
-    write the frame into."""
+    write the frame into. `dtype=torch.float64` (CPU only) renders the
+    float64 spec: float64 output, or uint8 packed from it."""
     validate_params(fdef, params, opts.static_params)
+    if dtype == torch.float64:
+        if device.type != "cpu":
+            raise ValueError(f"the float64 spec renders on the CPU, not {device}")
+        inputs = [spec_input(a) for a in inputs]
     ctx = RenderContext(
         device=device, width=width, height=height, opts=opts,
-        filters=program_filters, t=float(t), frame=float(frame),
+        filters=program_filters, t=float(t), frame=float(frame), dtype=dtype,
         inputs=[InputImage(pixels=a, name=f"in{i}")
                 for i, a in enumerate(inputs)],
         **region_fields(resolve_region(opts, width, height)),
     )
-    return render_frame(ctx, fdef, user_values(ctx, fdef, params), out)
+    if dtype != torch.float64:
+        return render_frame(ctx, fdef, user_values(ctx, fdef, params), out)
+    with NumpyPromotion():
+        return render_frame(ctx, fdef, user_values(ctx, fdef, params), out)
 
 
 def user_values(ctx: RenderContext, fdef: A.FilterDef, params: dict) -> dict:

@@ -631,8 +631,10 @@ class Evaluator:
         loop = None
         # a loop inside another loop's step draws with its enclosing salt,
         # which the kernel does not take: it never goes to the kernel, as in
-        # the reference
+        # the reference; nor does a loop of the float64 spec render, which
+        # the reference's oracle runs as the masked loop (B3 is float32)
         if (opts.pallas_while != "off" and self.salt_extra is None
+                and self.ctx.dtype == torch.float32
                 and WL.eligible(node, self.env, self.ctx.filters)):
             deps = WL.dependencies(node, init_env, carried, shape)
             if deps is not None:

@@ -17,7 +17,9 @@ from .value import (Curve, Gradient, InputImage, TupleValue, curve_value, gradie
 
 
 def _tuple(ctx, tag: str, values, const=None) -> TupleValue:
-    return TupleValue(tag, tuple(torch.tensor(float(v), dtype=ctx.dtype,
+    """Numeric, bool and color values are float32 0-d tensors in every
+    render, the float64 spec's included, as in the reference."""
+    return TupleValue(tag, tuple(torch.tensor(float(v), dtype=torch.float32,
                                               device=ctx.device)
                                  for v in values), const=const)
 
