@@ -188,8 +188,25 @@ Phases, each printing its own lines:
    output finite, each card render launching its kernels (B1, B2, B3,
    B4); for voronoi, which of the card and the CPU is nearer the spec
    where the two differ.
+26. exported loops (the loops kernel B3 refuses, which an artifact holds
+   as torch's while loop) at 3840x2160 on cuda:0: ridged_noise with
+   `octaves` and `scale` as runtime inputs, rendered at octaves 1, 4 and 6
+   and at two scales; a feedback loop over the input image (a runtime int
+   trip count, origVal at a scaled xy every step: B1 inside the loop,
+   launched once a step, the steps rounded up to whole while_unroll
+   groups); rand() in a loop with atan (which B3 refuses) nested in a loop
+   with a param-driven trip count, so the inner draws take the outer
+   iteration as a tensor salt. Each exported and loaded; every render,
+   render_batch (4 jobs) and render_animation (4 frames) equal to the live
+   card render bit for bit with the same (B1, B2, B3) launches. Fault C4:
+   the Perlin table's cache is emptied before the exports, so the first
+   table is asked for under torch.export; after them a live 1920x1080
+   turbulence render is a real CUDA tensor equal to the one taken before,
+   and ridged_noise exports a second time. Timings: export and load
+   seconds, the artifact's and the live render's fenced medians and
+   cudaStreamSynchronize calls a render.
 
-Every main path (phases 5, 6, 8, 9, 11-25) runs with the four launch
+Every main path (phases 5, 6, 8, 9, 11-26) runs with the four launch
 counts set to 0 just before it and read just after; the kernels line
 gives each kernel's launches by path. Then the timings: phase 10's and
 11's, B3's bound (this run's pixel iterations x the distinct ops of an
@@ -2568,6 +2585,144 @@ def phase_artifact(mt, K, L, WL, build, dev, filters, work: Path, card):
           "the live render bit for bit")
 
 
+#: a feedback loop over the input image: a runtime int trip count (per
+#: pixel through x * 0), origVal at a scaled xy every step; B3 refuses the
+#: body (it samples an image), so an artifact holds the loop as torch's
+#: while loop with B1 inside
+FEEDBACK = ("filter feedback (image in, int n: 0-20 (6), float k: 0-2 (0.97)) c = in(xy); "
+            "i = 0; p = xy; while i < n + x * 0 do p = p * k; c = (c + in(p)) * 0.5; "
+            "i = i + 1 end; c end")
+#: rand() in a loop that B3 refuses (atan) inside a loop whose trip count is
+#: a param: in an artifact both are while loops, and the inner draws are
+#: salted with the outer iteration number, a tensor there
+NESTED_RAND = ("filter nested_rand (int n: 1-9 (3)) s = 0; i = 0; while i < n do j = 0; "
+               "while j < 2 + x * 0 do s = s + atan(rand(0, 1) + j); j = j + 1 end; "
+               "i = i + 1 end; grayColor(s / 8) end")
+
+
+def host_syncs(call) -> int:
+    """cudaStreamSynchronize calls in one call() after a warm-up call
+    (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    return sum(e.name == "cudaStreamSynchronize" for e in prof.events())
+
+
+def phase_artifact_loops(mt, K, L, WL, dev, st, work: Path, card):
+    """Artifacts of loops that kernel B3 refuses, at 3840x2160 on cuda:0:
+    each loop is torch's while loop in the exported program
+    (kernels/while_loop.py::while_loop_exported). ridged_noise (`octaves`
+    and `scale` runtime inputs), FEEDBACK (B1 in the loop) and NESTED_RAND
+    (tensor salts): every render, render_batch (4 jobs) and
+    render_animation (4 frames) equal to the live card render bit for bit
+    with the same (B1, B2, B3) launches; FEEDBACK's B1 launches in the loop
+    are its steps rounded up to whole while_unroll groups. Then fault C4:
+    the Perlin table's cache was emptied before the exports, and a live
+    turbulence render after them is a real CUDA tensor equal to the one
+    taken before; ridged_noise exports again. Timings: export and load
+    seconds, artifact and live fenced medians, syncs a render."""
+    from torch._subclasses.fake_tensor import FakeTensor
+
+    from mathmap_tpu_torch.generators.artifact import export_artifact, load_artifact
+    from mathmap_tpu_torch.ops import noise
+
+    w, h = SIZES[1]
+    turbulence = st["turbulence"]
+    small = dict(width=SIZES[0][0], height=SIZES[0][1], t=0.3, device=dev)
+    before = turbulence.render(**small)
+    # the next Perlin table is made under torch.export (fault C4's start)
+    noise._table.cache_clear()
+    _, u8 = smooth_image(w, h, seed=47)
+    img = K.u8_to_float(torch.from_numpy(u8).to(dev))
+    unroll = mt.RenderOptions().while_unroll
+    cases = (
+        ("ridged_noise", st["ridged_noise"], [], [
+            {"octaves": o, "scale": s} for o, s in ((4, 120.0), (1, 120.0), (6, 120.0),
+                                                      (4, 310.0))]),
+        ("feedback", mt.compile(FEEDBACK), [img],
+         [{"n": n, "k": 0.97} for n in (6, 0, 3, 13)]),
+        ("nested rand", mt.compile(NESTED_RAND), [], [{"n": n} for n in (3, 1, 5)]),
+    )
+    for name, f, ins, settings in cases:
+        path = work / f"{name.replace(' ', '_')}.mmxa"
+        t0 = time.perf_counter()
+        export_artifact(f, str(path), w, h, params=settings[0], batch_sizes=(ARTIFACT_JOBS,),
+                        anim_frames=ARTIFACT_JOBS, device=dev)
+        export_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        art = load_artifact(str(path))
+        load_s = time.perf_counter() - t0
+        n_loops = sum(n.target is torch.ops.higher_order.while_loop
+                      for n in art._program.graph.nodes)
+        if not n_loops:
+            raise AssertionError(f"artifact {name}: no while_loop in the exported program")
+        b1 = []
+        for p in settings:
+            got, launches = launched(K, L, WL, lambda: art.render(*ins, params=p, t=0.3))
+            want, live = launched(K, L, WL, lambda: f.render(*ins, params=p, t=0.3, width=w,
+                                                            height=h, device=dev))
+            if not torch.equal(got, want):
+                raise AssertionError(f"artifact {name} {p}: render differs from the live one")
+            if launches != live:
+                raise AssertionError(f"artifact {name} {p}: (B1, B2, B3) launches {launches}, "
+                                     f"the live render's {live}")
+            b1.append(launches[0])
+        if name == "feedback":
+            # n = 0 runs no step: its launches are the ones outside the loop
+            outside = b1[[p["n"] for p in settings].index(0)]
+            steps = {p["n"]: c - outside for p, c in zip(settings, b1)}
+            for n, c in steps.items():
+                if c != -(-n // unroll) * unroll:
+                    raise AssertionError(f"artifact feedback n={n}: {c} B1 launches in the "
+                                         f"loop, expected {-(-n // unroll) * unroll}")
+            print(f"artifact feedback {w}x{h}: B1 launches inside the exported loop by trip "
+                  f"count n {steps} (while_unroll {unroll}; {outside} outside it)")
+        p = settings[0]
+        ts = [0.1 * i for i in range(ARTIFACT_JOBS)]
+        stacks = [torch.stack([a] * ARTIFACT_JOBS) for a in ins]
+        jobs = [p] * ARTIFACT_JOBS
+        got = art.render_batch(*stacks, params=jobs, ts=ts)
+        want = f.render_batch(*stacks, ts=ts, params=jobs, width=w, height=h, device=dev)
+        if not torch.equal(got, want):
+            raise AssertionError(f"artifact {name}: render_batch differs from the live one")
+        got = art.render_animation(*ins, params=p)
+        want = f.render_animation(*ins, num_frames=ARTIFACT_JOBS, params=p, width=w,
+                                  height=h, device=dev)
+        if not torch.equal(got, want):
+            raise AssertionError(f"artifact {name}: render_animation differs from the live one")
+
+        def art_render():
+            return art.render(*ins, params=p, t=0.3)
+
+        def live_render():
+            return f.render(*ins, params=p, t=0.3, width=w, height=h, device=dev)
+
+        art_ms, live_ms = fenced_median_ms(art_render), fenced_median_ms(live_render)
+        print(f"artifact {name} {w}x{h}: export {export_s:.2f} s, load {load_s:.2f} s, "
+              f"{n_loops} while_loop at the top of the program; {len(settings)} param "
+              f"settings {settings}, each render equal to the live render bit for bit with "
+              f"the same launches, render_batch ({ARTIFACT_JOBS} jobs) and render_animation "
+              f"({ARTIFACT_JOBS} frames) too; at {p}: render {art_ms:.3f} ms, "
+              f"{host_syncs(art_render)} syncs, against the live render's {live_ms:.3f} ms, "
+              f"{host_syncs(live_render)} syncs [{card}]")
+    after = turbulence.render(**small)
+    if isinstance(after, FakeTensor) or type(after) is not torch.Tensor or not after.is_cuda:
+        raise AssertionError(f"C4: a live turbulence render after the exports is a "
+                             f"{type(after).__name__} on {after.device}")
+    if not torch.equal(after, before):
+        raise AssertionError("C4: turbulence after the exports differs from before them")
+    export_artifact(st["ridged_noise"], str(work / "ridged_again.mmxa"), w, h,
+                    params={"octaves": 4, "scale": 120.0}, device=dev)
+    print(f"C4: after the exports a live turbulence {small['width']}x{small['height']} render "
+          f"is a torch.Tensor on {after.device} equal to the one before them bit for bit, "
+          f"and ridged_noise exported a second time")
+
+
 def phase_preview(mt, K, dev, card):
     """The preview app on 127.0.0.1 with cuda:0: /render (twirl), /animate
     (4 frames), /compose (grayscale -> twirl) and /render of a region over a
@@ -3211,6 +3366,7 @@ def main() -> int:
         path("artifact", phase_artifact, mt, K, L, WL, build, dev, filters, work, card)
         path("preview", phase_preview, mt, K, dev, card)
         path("float64 spec", phase_float64_spec, mt, K, L, WL, B4, dev, filters, st, lib, card)
+        path("artifact loops", phase_artifact_loops, mt, K, L, WL, dev, st, work, card)
         # the fleet's launches are its worker processes' own counts
         by_path["distributed"] = path("distributed", phase_distributed, mt, B4, dev, work,
                                       card)

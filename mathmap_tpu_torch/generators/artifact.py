@@ -16,10 +16,16 @@ list as text), with `mathmap::libm` for the CPU's numpy transcendentals
 register those ops, and nothing else of the package: no parser, evaluator
 or builtin table.
 
-A loop's kernel is generated from its op list, so loading an artifact
-with a loop on the card builds it with nvcc the first time (seconds; the
-library is cached on disk by a hash of its source, kernels/build.py), at
-load time, not at the first render.
+A loop goes into the program as the live render runs it: unrolled when
+its trip count folds at trace time, as kernel B3's op when B3 takes it,
+and otherwise (a body that calls noise, an image, a user filter, atan or
+a special function, or holds another loop) as torch's `while_loop` op,
+whose body graph holds the masked steps of the live route and calls B1 and
+B2 as ops (kernels/while_loop.py::while_loop_exported). A B3 kernel is
+generated from its op list, so loading an artifact with such a loop on the
+card builds it with nvcc the first time (seconds; the library is cached on
+disk by a hash of its source, kernels/build.py), at load time, not at the
+first render.
 
 The file keeps the reference's framing: `MMXA1\\n`, a `<I` manifest
 length, the manifest, then u64-length-prefixed blobs (here one: the frame

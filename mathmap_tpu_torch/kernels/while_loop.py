@@ -28,6 +28,11 @@ loop with the lax route's `while_unroll` gating), stepping `run_program`
 over the whole grid and merging each step under the mask: the same values
 as stepping the evaluator's closure, which the tests hold bit for bit.
 
+A loop the kernel does not take runs as that masked loop, stepping the
+evaluator's closure; its `any()` check reads the mask on the host, which a
+program traced by torch.export cannot do, so there `while_loop_exported`
+writes it as torch's `while_loop` op with the same gated steps.
+
 What bounds the kernel: operations (pixels x iterations x ops per
 iteration), then the carried and dependency bytes read and written once,
 and warp divergence (a warp runs until its slowest pixel exits).
@@ -179,6 +184,78 @@ def while_loop_reference(step, flat0, mask0, max_iters: int, unroll: int, it_bas
             flat, mask = step(flat, mask, it_base + i + 1)
             i += 1
     return flat, i
+
+
+def while_loop_exported(step, flat0, mask0, max_iters: int, unroll: int, it_base: int = 0):
+    """The masked loop of while_loop_reference inside a program that
+    torch.export traces -> the final flat carry. Its `any()` check cannot
+    run on the host there, so the loop is torch's while loop (the
+    higher-order op `while_loop`, which the exported program keeps and
+    runs), the reference's lax route (mathmap_tpu/runtime/tracer.py): the
+    carry is (i, mask, *flat), every iteration runs `unroll` masked steps,
+    step k gated to the pixels in the mask while i + k < max_iters and
+    numbered it_base + i + k + 1, a 0-d int64 tensor. A gated step leaves
+    every pixel as it was, so the values are while_loop_reference's bit for
+    bit. The carry is materialised as contiguous (H, W) tensors, the layout
+    the op wants at every step. A loaded program runs the op as a host loop
+    over the body's graph, reading the condition once an iteration, as the
+    live masked loop reads its `any()`."""
+    shape = mask0.shape
+    carry = (torch.zeros((), dtype=torch.int64, device=mask0.device),
+             *(torch.broadcast_to(t, shape).clone(memory_format=torch.contiguous_format)
+               for t in (mask0, *flat0)))
+
+    def cond(i, mask, *flat):
+        return mask.any() & (i < max_iters)
+
+    def body(i, mask, *flat):
+        for k in range(unroll):
+            flat, mask = step(flat, mask & ((i + k) < max_iters), it_base + i + (k + 1))
+        return (i + unroll, mask, *flat)
+
+    return _while_op(cond, body, carry)[2:]
+
+
+def _while_op(cond, body, carry: tuple) -> tuple:
+    """torch's `while_loop` op over `carry` inside a torch.export trace,
+    with every tensor that `body` reads but does not take as an argument
+    passed to the op as an input.
+
+    torch's own `while_loop` lifts such tensors by tracing the body with
+    dynamo, which refuses the evaluator (a step mutates the render
+    context). So the body is traced here, as the op would trace it, into a
+    graph in which each of those tensors is a constant: a tensor of the
+    enclosing trace (x, y, an image, a param) or one the body made from
+    Python data (a literal, the Perlin table). An exported program may
+    hold neither inside a loop's graph, so each becomes a placeholder of
+    the graph and the tensor an input of the op: the enclosing trace sees
+    its own value or lifts the constant to the program's constants.
+    `cond` reads only the carry."""
+    from torch._higher_order_ops.utils import reenter_make_fx
+    from torch._higher_order_ops.while_loop import while_loop_op
+    from torch.fx.experimental.proxy_tensor import disable_proxy_modes_tracing
+
+    with disable_proxy_modes_tracing():
+        gm = reenter_make_fx(lambda *c: tuple(body(*c)))(*(t.clone() for t in carry))
+    graph = gm.graph
+    last = [n for n in graph.nodes if n.op == "placeholder"][-1]
+    lifted: dict = {}  # attribute -> (its tensor, the placeholder that replaces it)
+    for node in list(graph.nodes):
+        value = getattr(gm, node.target, None) if node.op == "get_attr" else None
+        if isinstance(value, torch.Tensor):
+            if node.target not in lifted:
+                with graph.inserting_after(last):
+                    last = graph.placeholder(f"lifted_{len(lifted)}")
+                last.meta.update(node.meta)
+                lifted[node.target] = (value, last)
+            node.replace_all_uses_with(lifted[node.target][1])
+            graph.erase_node(node)
+    for name in lifted:
+        delattr(gm, name)
+    gm.recompile()
+    n = len(carry)
+    return while_loop_op(lambda *args: cond(*args[:n]), gm, carry,
+                         tuple(value for value, _ in lifted.values()))
 
 
 # ---------------------------------------------------------------------------

@@ -3,9 +3,11 @@ branch of `mathmap_tpu/ops/noise.py`).
 
 Ken Perlin's improved noise (2002) over his reference permutation table,
 doubled to 512 entries. Each table lookup P(i) is a direct gather from an
-int32 copy of the table on the render device, made once per device; the
-reference's TPU one-hot contraction is not ported. Every op is eager torch:
-on the card noise has no kernel of its own.
+int32 copy of the table on the render device, made once per device for
+live renders and afresh inside a trace (torch.export), where it becomes a
+constant of the program; the reference's TPU one-hot contraction is not
+ported. Every op is eager torch: on the card noise has no kernel of its
+own.
 """
 
 from __future__ import annotations
@@ -42,7 +44,11 @@ PERM = (
 
 def perm_table(device) -> torch.Tensor:
     """The doubled 512-entry table as int32 on `device`, made once per
-    device."""
+    device. Under torch.export or torch.compile a tensor made here is the
+    tracer's, not a real one: it is made afresh for the program and never
+    kept, so a later live render or export gets a real table."""
+    if torch.compiler.is_compiling():
+        return torch.tensor(PERM + PERM, dtype=torch.int32, device=device)
     return _table(torch.device(device))
 
 

@@ -14,7 +14,10 @@ whose result can pass 2^32. A constant above 2^31 multiplies as its
 negative 32-bit representative, so no int64 product can overflow
 (|v * c| <= (2^32 - 1) * 2^31 < 2^63) and the mask keeps the low 32 bits,
 which are the same for both representatives. The scalar parts (the salts)
-are Python ints, exact at any size.
+are Python ints, exact at any size, except inside a loop that an exported
+program runs as torch's while loop (runtime/tracer.py): there the iteration
+number, and so a loop salt, is a 0-d int64 tensor in [0, 2^32), which takes
+the grid's masked int64 steps and gives the same value as the int.
 """
 
 from __future__ import annotations
@@ -36,10 +39,11 @@ def draw_salt(seed: int, counter: int) -> int:
     return (seed * GOLDEN + counter * COUNTER) & M32
 
 
-def mix_salt(outer: int, inner: int) -> int:
+def mix_salt(outer, inner):
     """A nested loop's iteration salt: the enclosing loop's salt `outer`
-    combined with this loop's iteration number `inner`."""
-    return (outer * GOLDEN + inner) & M32
+    combined with this loop's iteration number `inner` (either may be a
+    0-d int64 tensor below 2^32; then so is the salt)."""
+    return (_mul32(outer, GOLDEN) + inner) & M32
 
 
 def rand_index(shape, width: int, row_offset: int, col_offset: int, device) -> torch.Tensor:
@@ -50,18 +54,22 @@ def rand_index(shape, width: int, row_offset: int, col_offset: int, device) -> t
     return (iy[:, None] * width + ix[None, :]) & M32
 
 
-def _mul32(v: torch.Tensor, c: int) -> torch.Tensor:
-    """v * c mod 2^32 for v in [0, 2^32) held in int64."""
+def _mul32(v, c: int):
+    """v * c mod 2^32 for v in [0, 2^32): an int, or a tensor held in
+    int64."""
+    if not isinstance(v, torch.Tensor):
+        return (v * c) & M32
     return (v * (c - (1 << 32) if c >> 31 else c)) & M32
 
 
-def rand_uniform(index: torch.Tensor, salt: int, salt_extra: int | None = None) -> torch.Tensor:
+def rand_uniform(index: torch.Tensor, salt: int, salt_extra=None) -> torch.Tensor:
     """One draw in [0, 1) at every pixel of `index` (rand_index()): the
-    draw's `salt` (draw_salt()), then the loop's iteration salt, then three
-    xorshift-multiply rounds; the top 24 bits as float32 times 2^-24."""
+    draw's `salt` (draw_salt()), then the loop's iteration salt (an int or
+    a 0-d int64 tensor), then three xorshift-multiply rounds; the top 24
+    bits as float32 times 2^-24."""
     v = index ^ salt
     if salt_extra is not None:
-        v = v ^ ((salt_extra * GOLDEN) & M32)
+        v = v ^ _mul32(salt_extra, GOLDEN)
     v = v ^ (v >> 16)
     v = _mul32(v, MIX1)
     v = v ^ (v >> 15)

@@ -11,7 +11,8 @@ the hand-written sampler kernel.
 
 `while` loops run in `_eval_While`: unrolled when the trip count folds to
 a constant, else through the generated kernel B3 (kernels/while_loop.py)
-when the loop is eligible, else as the masked eager loop. Curves and
+when the loop is eligible, else as the masked eager loop, which a program
+traced by torch.export holds as torch's while loop instead. Curves and
 gradients apply through kernel B2 (ops/color_ops.py).
 
 rand() draws from a counter hash of the global pixel index (ops/rand.py):
@@ -44,7 +45,8 @@ from ..utils.errors import MMNameError, MMRuntimeError, MMTypeError
 _2PI = 2.0 * math.pi
 
 #: route of every while loop evaluated in this process, in order:
-#: ("unroll", steps), ("kernel", max_iters) or ("masked", steps)
+#: ("unroll", steps), ("kernel", max_iters), ("masked", steps) or, traced
+#: by torch.export, ("while_loop", max_iters)
 TRACE_LOOP_PATHS: list = []
 
 #: operator token -> builtin name
@@ -126,8 +128,9 @@ class Evaluator:
         self.y = y
         self.env = env
         self._cache: dict = {}
-        #: the iteration salt of the loop step this evaluation is in (an int
-        #: below 2^32; None outside loops): every iteration draws afresh
+        #: the iteration salt of the loop step this evaluation is in (below
+        #: 2^32: an int, or a 0-d int64 tensor inside an exported while
+        #: loop; None outside loops): every iteration draws afresh
         self.salt_extra = salt_extra
 
     # ------------------------------------------------------------------
@@ -152,7 +155,8 @@ class Evaluator:
     def _mix_salt(self, loop_i):
         """The salt of iteration `loop_i` of a loop evaluated here: the
         iteration number, mixed with the enclosing loop's salt when this
-        evaluation is itself inside a loop."""
+        evaluation is itself inside a loop. Either may be a 0-d int64
+        tensor (an exported while loop's iteration number)."""
         if self.salt_extra is None:
             return loop_i
         return mix_salt(self.salt_extra, loop_i)
@@ -426,7 +430,9 @@ class Evaluator:
         then the loop runs on one of three routes, recorded in
         TRACE_LOOP_PATHS: the static-trip-count unroll when the condition
         const-folds, the generated kernel B3 for an eligible loop (its plain
-        version on the CPU), or the masked eager loop."""
+        version on the CPU), or the masked eager loop; under torch.export
+        the masked loop is torch's while loop ("while_loop"), whose steps
+        the exported program runs with the same values."""
         names = sorted(A.assigned_names(node.body) | A.assigned_names(node.cond))
         # rand(): the unroll and the kernel fix a step's counters when they
         # evaluate or trace it, the masked loop draws step by step; so every
@@ -580,7 +586,8 @@ class Evaluator:
             return repack(env, flat, mask, ctx.shape), cond_mask
 
         def step(flat, mask, loop_i, tile=None, consts=None):
-            """Iteration `loop_i` (counted from 1) under `mask` -> (new flat,
+            """Iteration `loop_i` (counted from 1; an int, or a 0-d int64
+            tensor in an exported while loop) under `mask` -> (new flat,
             next mask). mask=None steps every pixel and returns the
             condition unmerged. `tile` = (ctx, x, y, base_env,
             make_evaluator) evaluates the step there: kernels/while_loop.py
@@ -672,13 +679,16 @@ class Evaluator:
                 loop.it_base = n_done
                 flat_out = loop_kernel(loop, flat0, mask0, max_iters - n_done)
                 TRACE_LOOP_PATHS.append(("kernel", max_iters))
+            elif torch.compiler.is_exporting():
+                # the masked loop's check reads the mask on the host: an
+                # exported program holds it as torch's while loop, whose
+                # traced body's blurs must not outlive it
+                cache = dict(self.ctx.native_cache)
+                flat_out = WL.while_loop_exported(
+                    step, flat0, mask0, max_iters - n_done, opts.while_unroll, n_done)
+                self.ctx.native_cache = cache
+                TRACE_LOOP_PATHS.append(("while_loop", max_iters))
             else:
-                if torch.compiler.is_exporting():
-                    # its convergence check reads the mask on the host
-                    raise MMRuntimeError(
-                        "this loop runs as the masked eager loop, which an exported "
-                        "program cannot hold: only a loop that kernel B3 runs (or the "
-                        "static unroll) exports", node.span)
                 flat_out, steps = WL.while_loop_reference(
                     step, flat0, mask0, max_iters - n_done, opts.while_unroll, n_done)
                 TRACE_LOOP_PATHS.append(("masked", n_done + steps))

@@ -362,13 +362,31 @@ def test_exported_mandelbrot_calls_the_loop_op_and_equals_the_live_render(tmp_pa
         np.testing.assert_allclose(got.numpy(), oracle, rtol=RTOL, atol=ATOL)
 
 
-def test_a_masked_loop_refuses_to_export(tmp_path):
-    """A loop that runs as the masked eager loop reads its mask on the host:
-    its export raises naming the route instead of baking one trip count."""
+def test_a_masked_loop_exports(tmp_path):
+    """A loop that runs as the masked eager loop (atan keeps it off kernel
+    B3; `x * 0` keeps its trip count per pixel) exports as torch's
+    `while_loop` op instead of raising: the artifact equals the live CPU
+    render bit for bit and the oracle, at three t values for the source
+    without params and three (n, t) settings with its trip count a
+    runtime input."""
     src = ("filter m () s = 0; i = 0; while i < 3 + x * 0 do s = s + atan(y); "
            "i = i + 1 end; grayColor(s) end")
-    with pytest.raises(mt.MMRuntimeError, match="masked eager loop"):
-        export_artifact(mt.compile(src), str(tmp_path / "m.mmxa"), 16, 8, device="cpu")
+    with_n = ("filter mn (int n: 0-9 (3)) s = 0; i = 0; while i < n + x * 0 do "
+              "s = s + atan(y + t); i = i + 1 end; grayColor(s / 9) end")
+    for name, source, p_export, settings in (
+            ("m", src, {}, [({}, 0.0), ({}, 0.3), ({}, 0.7)]),
+            ("mn", with_n, {"n": 3}, [({"n": 3}, 0.0), ({"n": 1}, 0.3), ({"n": 7}, 0.7)])):
+        f = mt.compile(source)
+        art = _export(f, tmp_path / f"{name}.mmxa", 16, 8, params=p_export)
+        assert any(n.target is torch.ops.higher_order.while_loop
+                   for n in art._program.graph.nodes)
+        assert "mathmap.while_loop.default" not in _ops(art)
+        for p, t in settings:
+            got = art.render(params=p, t=t)
+            assert torch.equal(got, _live(f, width=16, height=8, params=p, t=t))
+            oracle = np.asarray(mm.compile(source).render(width=16, height=8, params=p, t=t,
+                                                          interpret=True))
+            np.testing.assert_allclose(got.numpy(), oracle, rtol=RTOL, atol=ATOL)
 
 
 def test_static_params_are_baked(tmp_path):

@@ -9,7 +9,8 @@
   lava, marble, ridged_noise, rust, turbulence, voronoi, warp_noise, wood)
   at 64x48 at two seeds and with supersample=2, rtol=1e-4, atol=1e-5;
 - the loops that call noise (ridged_noise's octaves, voronoi's 3x3 scan)
-  never take kernel B3 (noise is not one of its builtins).
+  never take kernel B3 (noise is not one of its builtins);
+- fault C4: exports of a noise filter leave the table's cache real.
 """
 
 import numpy as np
@@ -81,6 +82,27 @@ def test_the_table_is_made_once_per_device():
     assert N.perm_table(torch.device("cpu")) is t
     assert t.dtype == torch.int32 and t.shape == (512,)
     np.testing.assert_array_equal(t.numpy(), ref_noise._PERM_NP)
+
+
+def test_an_export_leaves_no_traced_table_behind(tmp_path):
+    """Fault C4: a Perlin table first asked for under torch.export was a
+    tracer's fake tensor, which the per-device cache kept: the next export
+    of a noise filter failed and a live render returned a fake tensor. With
+    the cache empty (as in a process whose first noise call is an export),
+    ridged_noise exports twice, and a live noise render after that is a
+    real tensor equal to the one before."""
+    from mathmap_tpu_torch.generators.artifact import export_artifact
+
+    turbulence = _library_filter("turbulence")
+    before = turbulence.render(width=24, height=16, t=0.3, interpret=True)
+    N._table.cache_clear()
+    for k in range(2):
+        export_artifact(_library_filter("ridged_noise"), str(tmp_path / f"r{k}.mmxa"), 64, 48,
+                        device="cpu")
+    after = turbulence.render(width=24, height=16, t=0.3, interpret=True)
+    assert type(after) is torch.Tensor
+    assert torch.equal(after, before)
+    assert type(N.perm_table("cpu")) is torch.Tensor
 
 
 @pytest.mark.parametrize("src", ["grayColor(0.5 + 0.5 * noise([x / 7, y / 5, t]))",
