@@ -1,0 +1,9 @@
+"""The harness's own tests run on the CPU at small sizes. They import the
+benchmark as the package `bench_torch` from the checkout's root."""
+
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[2]
+if str(ROOT) not in sys.path:
+    sys.path.insert(0, str(ROOT))
