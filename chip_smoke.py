@@ -707,7 +707,7 @@ def phase_loop_vs_plain(mt, WL, tracer, dev, filters, sin_filter, rand_walk):
 def phase_distortion_path(mt, K, dev, filters):
     """Every render goes through the sampler kernel; 1080p matches the CPU
     port."""
-    K.sample_image.launches = 0
+    zero_launches(LAUNCH_B1)
     renders = 0
     for (w, h) in SIZES:
         f32, u8 = smooth_image(w, h, seed=3)
@@ -721,13 +721,13 @@ def phase_distortion_path(mt, K, dev, filters):
                           ("u8", u8_dev, {}, "uint8")]
             for dname, img, params, out_dtype in cases:
                 opts = mt.RenderOptions(output_dtype=out_dtype)
-                before = K.sample_image.launches
+                before = launch_count(LAUNCH_B1)
                 out = f.render(img, params=params, options=opts, device=dev)
                 torch.cuda.synchronize()
                 renders += 1
-                if K.sample_image.launches != before + 1:
+                if launch_count(LAUNCH_B1) != before + 1:
                     raise AssertionError(
-                        f"{name} {w}x{h}: {K.sample_image.launches - before} "
+                        f"{name} {w}x{h}: {launch_count(LAUNCH_B1) - before} "
                         f"sampler launches in one render, expected 1")
                 if tuple(out.shape) != (h, w, 4) or out.device != dev:
                     raise AssertionError(f"{name}: bad output {tuple(out.shape)} on {out.device}")
@@ -748,7 +748,7 @@ def phase_distortion_path(mt, K, dev, filters):
                 else:
                     err = check_close(tag, out.cpu(), ref)
                     print(f"distortion path {tag}: max abs err {err:.3e} vs the CPU render")
-    launches = K.sample_image.launches
+    launches = launch_count(LAUNCH_B1)
     if launches != renders:
         raise AssertionError(f"{launches} sampler launches for {renders} renders")
     print(f"distortion path: {renders} GPU renders, {launches} sampler kernel launches")
@@ -937,8 +937,8 @@ def phase_generative_path(mt, L, WL, dev, filters):
     1080p matches the CPU port."""
     from mathmap_tpu_torch.runtime.render import pack_uint8
 
-    L.apply_lut.launches = 0
-    WL.while_loop.launches = 0
+    zero_launches(LAUNCH_B2)
+    zero_launches(LAUNCH_B3)
     renders = 0
     cpu = {}
     for (w, h) in SIZES:
@@ -948,12 +948,12 @@ def phase_generative_path(mt, L, WL, dev, filters):
             cases += [("julia", {}, "float32"), ("burning_ship", {}, "float32")]
         for name, params, out_dtype in cases:
             opts = mt.RenderOptions(output_dtype=out_dtype)
-            before = (L.apply_lut.launches, WL.while_loop.launches)
+            before = (launch_count(LAUNCH_B2), launch_count(LAUNCH_B3))
             out = filters[name].render(width=w, height=h, params=params,
                                        options=opts, device=dev)
             torch.cuda.synchronize()
             renders += 1
-            counts = (L.apply_lut.launches - before[0], WL.while_loop.launches - before[1])
+            counts = (launch_count(LAUNCH_B2) - before[0], launch_count(LAUNCH_B3) - before[1])
             tag = (f"{name:12s} {w}x{h} {out_dtype:7s} out, "
                    f"{'default' if not params else 'zoomed'} params")
             if counts != (1, 1):
@@ -985,7 +985,7 @@ def phase_generative_path(mt, L, WL, dev, filters):
                 n_px = int(((got - ref).abs() > 0).any(-1).sum())
                 print(f"generative path {tag}: max abs err {err:.3e} vs the CPU "
                       f"render, {n_px} pixels differ")
-    counts = (L.apply_lut.launches, WL.while_loop.launches)
+    counts = (launch_count(LAUNCH_B2), launch_count(LAUNCH_B3))
     if counts != (renders, renders):
         raise AssertionError(f"{counts} LUT and loop kernel launches for {renders} renders")
     print(f"generative path: {renders} GPU renders, {counts[0]} LUT kernel launches, "
@@ -1236,7 +1236,7 @@ def phase_tiled_path(mt, B4, dev, filters):
     one B4 launch per tile, the unsharded card render's values; the 1080p
     tiled renders of a smooth image against the port's CPU tiled render; a
     sample past the halo raises."""
-    B4.sample_tiled.launches = 0
+    zero_launches(LAUNCH_B4)
     renders = 0
     gw, gh = SIZES[1]
     _, u8 = seeded_image(gw, gh, seed=12)
@@ -1246,15 +1246,15 @@ def phase_tiled_path(mt, B4, dev, filters):
         want = f.render(img, params=params, t=0.3, device=dev)
         for shape in TILED_MESHES:
             mesh = card_mesh(mt, dev, shape)
-            before = B4.sample_tiled.launches
+            before = launch_count(LAUNCH_B4)
             out = f.render_tiled(img, mesh=mesh, params=params, t=0.3)
             torch.cuda.synchronize()
             renders += 1
             tiles = mesh.devices.size
             tag = (f"tiled {name:6s} {'default' if not params else 'amplitude=25'} "
                    f"{gw}x{gh} u8 in, mesh {tuple(mesh.devices.shape)}")
-            if B4.sample_tiled.launches - before != tiles:
-                raise AssertionError(f"{tag}: {B4.sample_tiled.launches - before} B4 "
+            if launch_count(LAUNCH_B4) - before != tiles:
+                raise AssertionError(f"{tag}: {launch_count(LAUNCH_B4) - before} B4 "
                                      f"launches for {tiles} tiles")
             if tuple(out.shape) != (gh, gw, 4) or out.device != want.device:
                 raise AssertionError(f"{tag}: bad output {tuple(out.shape)} on {out.device}")
@@ -1278,7 +1278,7 @@ def phase_tiled_path(mt, B4, dev, filters):
             n_px = int(((out.cpu() - ref).abs() > 0).any(-1).sum())
             print(f"tiled path {tag}: max abs err {err:.3e} vs the CPU tiled render, "
                   f"{n_px} pixels differ")
-    launches = B4.sample_tiled.launches
+    launches = launch_count(LAUNCH_B4)
     try:
         mt.compile_source("origVal(xy + xy:[0, 40])").render_tiled(
             img, halo=4, mesh=card_mesh(mt, dev, (1, 4, 1)))
@@ -1302,11 +1302,11 @@ def phase_sharded_path(mt, K, L, WL, dev, filters):
     for name, inputs, shape, size in cases:
         f = filters[name]
         want = f.render(*inputs, device=dev, **size)
-        before = (K.sample_image.launches, L.apply_lut.launches, WL.while_loop.launches)
+        before = (launch_count(LAUNCH_B1), launch_count(LAUNCH_B2), launch_count(LAUNCH_B3))
         out = f.render_sharded(*inputs, mesh=card_mesh(mt, dev, shape), **size)
         torch.cuda.synchronize()
         counts = tuple(a - b for a, b in zip(
-            (K.sample_image.launches, L.apply_lut.launches, WL.while_loop.launches), before))
+            (launch_count(LAUNCH_B1), launch_count(LAUNCH_B2), launch_count(LAUNCH_B3)), before))
         expected = (4, 0, 0) if name == "pond" else (0, 4, 4)
         tag = f"sharded {name} {gw}x{gh} mesh {shape}"
         if counts != expected:
@@ -1317,8 +1317,44 @@ def phase_sharded_path(mt, K, L, WL, dev, filters):
               f"vs the unsharded card render, {n_px} pixels differ")
 
 
-def launch_counts(*wrappers) -> tuple:
-    return tuple(w.launches for w in wrappers)
+#: the program's launch counters (utils/trace.py) of kernels B1-B4
+LAUNCH_B1, LAUNCH_B2, LAUNCH_B3, LAUNCH_B4 = (
+    "launch.sample_image", "launch.apply_lut", "launch.while_loop", "launch.sample_tiled")
+#: each counter's value when zero_launches last named it
+_LAUNCH_ZERO: dict = {}
+
+
+def launch_count(name: str) -> int:
+    """A kernel's launches since zero_launches last named its counter."""
+    from mathmap_tpu_torch.utils.trace import counter
+
+    return counter(name) - _LAUNCH_ZERO.get(name, 0)
+
+
+def zero_launches(*names) -> None:
+    """Count each named kernel's launches from 0 from here."""
+    from mathmap_tpu_torch.utils.trace import counter
+
+    for name in names:
+        _LAUNCH_ZERO[name] = counter(name)
+
+
+def set_launches(name: str, value: int) -> None:
+    """Make launch_count(name) read `value` from here."""
+    from mathmap_tpu_torch.utils.trace import counter
+
+    _LAUNCH_ZERO[name] = counter(name) - value
+
+
+def launch_counts(*names) -> tuple:
+    return tuple(launch_count(n) for n in names)
+
+
+def nvcc_builds() -> int:
+    """nvcc runs in this process (the program's `build.nvcc` counter)."""
+    from mathmap_tpu_torch.utils.trace import counter
+
+    return counter("build.nvcc")
 
 
 def stochastic_inputs(f, w: int, h: int, dev, seed: int) -> list:
@@ -1379,8 +1415,8 @@ def phase_stochastic_path(mt, K, L, WL, dev, st) -> int:
     frame's shape; then each at REDUCED size against the port's CPU render,
     bit for bit for BIT_EXACT, within RTOL, ATOL for the others, differing
     pixels counted. Returns B3's launches in the 4K renders."""
-    K.sample_image.launches = L.apply_lut.launches = WL.while_loop.launches = 0
-    wrappers = (K.sample_image, L.apply_lut, WL.while_loop)
+    zero_launches(LAUNCH_B1, LAUNCH_B2, LAUNCH_B3)
+    wrappers = (LAUNCH_B1, LAUNCH_B2, LAUNCH_B3)
     w, h = SIZES[1]
     for name, (_, expected) in STOCHASTIC.items():
         inputs = stochastic_inputs(st[name], w, h, dev, seed=40)
@@ -1423,7 +1459,7 @@ def phase_stochastic_meshes(mt, K, B4, WL, dev, st):
     (sharded) launch per tile, and the unsharded card render's values (a
     draw hashes the global pixel index); rand_walk's tiles identical."""
     w, h = SIZES[1]
-    wrappers = (K.sample_image, B4.sample_tiled, WL.while_loop)
+    wrappers = (LAUNCH_B1, LAUNCH_B4, LAUNCH_B3)
     for name in ("jitter", "static_tv", "rand_walk"):
         f = st[name]
         inputs = stochastic_inputs(f, w, h, dev, seed=60)
@@ -1634,11 +1670,11 @@ def phase_batch(mt, K, L, WL, dev, filters):
     mandelbrot (B3 and B2 once a frame) and moire (no kernel). Every job
     equals its lone card render bit for bit (time_batch times them)."""
     w, h = SIZES[1]
-    wrappers = (K.sample_image, L.apply_lut, WL.while_loop)
+    wrappers = (LAUNCH_B1, LAUNCH_B2, LAUNCH_B3)
     mandel, twirl = filters["mandelbrot"], filters["twirl"]
     params = batch_params()
     frames = [0.0] * BATCH_JOBS
-    builds, launchers = WL.while_loop.builds, len(WL._LAUNCHERS)
+    builds, launchers = nvcc_builds(), len(WL._LAUNCHERS)
     before = launch_counts(*wrappers)
     out = mandel.render_batch(width=w, height=h, params=params, frames=frames, device=dev)
     torch.cuda.synchronize()
@@ -1646,7 +1682,7 @@ def phase_batch(mt, K, L, WL, dev, filters):
     tag = f"batch mandelbrot {w}x{h} {BATCH_JOBS} jobs"
     if counts != (0, BATCH_JOBS, BATCH_JOBS):
         raise AssertionError(f"{tag}: (B1, B2, B3) launches {counts}")
-    if (WL.while_loop.builds, len(WL._LAUNCHERS)) != (builds, launchers):
+    if (nvcc_builds(), len(WL._LAUNCHERS)) != (builds, launchers):
         raise AssertionError(f"{tag}: the batch built its loop again")
     if tuple(out.shape) != (BATCH_JOBS, h, w, 4) or not bool(torch.isfinite(out).all()):
         raise AssertionError(f"{tag}: bad output {tuple(out.shape)}")
@@ -1655,7 +1691,7 @@ def phase_batch(mt, K, L, WL, dev, filters):
     if differ:
         raise AssertionError(f"{tag}: {differ} jobs differ from their lone renders")
     print(f"{tag} (zoom 1..3 on the cardioid's boundary): (B1, B2, B3) launches {counts}, "
-          f"while_loop.builds {builds} before and after; every job equals its lone render "
+          f"nvcc builds {builds} before and after; every job equals its lone render "
           f"bit for bit")
     _, u8 = seeded_image(w, h, seed=16)
     img = torch.from_numpy(u8).to(dev)
@@ -1742,10 +1778,10 @@ def phase_animation(mt, K, dev, filters):
     f = filters["ripple"]
     opts = mt.RenderOptions(supersample=ANIMATION_SUPERSAMPLE)
     n = ANIMATION_FRAMES
-    before = K.sample_image.launches
+    before = launch_count(LAUNCH_B1)
     out = f.render_animation(img, num_frames=n, options=opts, device=dev)
     torch.cuda.synchronize()
-    launches = K.sample_image.launches - before
+    launches = launch_count(LAUNCH_B1) - before
     tag = f"animation ripple {w}x{h} supersample={ANIMATION_SUPERSAMPLE}, {n} frames"
     per_frame = ANIMATION_SUPERSAMPLE ** 2
     if launches != n * per_frame:
@@ -1809,10 +1845,10 @@ def phase_animated_inputs(mt, K, sampling, dev):
     want = K.u8_to_float(stack)
     near = mt.RenderOptions(interpolation="nearest")
     ident = mt.compile_source("origVal(xy)")
-    before = K.sample_image.launches
+    before = launch_count(LAUNCH_B1)
     out = ident.render_animation(stack, num_frames=T, options=near, device=dev)
     torch.cuda.synchronize()
-    if K.sample_image.launches - before != T or not torch.equal(out, want):
+    if launch_count(LAUNCH_B1) - before != T or not torch.equal(out, want):
         raise AssertionError("animated input: origVal(xy) does not return each frame")
     print(f"animated input {T}x{w}x{h} u8: origVal(xy) nearest through render_animation "
           f"returns each frame exactly, {T} B1 launches")
@@ -1830,10 +1866,10 @@ def phase_animated_inputs(mt, K, sampling, dev):
           f"(no copy): frame 3 exactly; B1 vs plain max abs err {err:.3e}")
     worst = err
     plane = mt.compile_source(PER_PIXEL_WARP)
-    before = K.sample_image.launches
+    before = launch_count(LAUNCH_B1)
     out = plane.render(stack, device=dev)
     torch.cuda.synchronize()
-    if K.sample_image.launches != before:
+    if launch_count(LAUNCH_B1) != before:
         raise AssertionError("per-pixel frame plane: the gather route launched B1")
     # the independent version: B1 on each selected frame at the warp's
     # coordinates, chosen per pixel by the plane's selector
@@ -1843,11 +1879,11 @@ def phase_animated_inputs(mt, K, sampling, dev):
     wx = (gx * 0.9 + 1.3).contiguous()
     wy = (gy * 0.8 - 0.7).contiguous()
     opts = mt.RenderOptions()
-    counted = K.sample_image.launches
+    counted = launch_count(LAUNCH_B1)
     by_frame = {k: K.sample_image(stack[k], wx, wy, opts.interpolation, opts.edge_x,
                                   opts.edge_y, opts.edge_color).permute(1, 2, 0)
                 for k in (0, 2)}
-    K.sample_image.launches = counted  # comparison launches are not the path's
+    set_launches(LAUNCH_B1, counted)  # comparison launches are not the path's
     want_plane = torch.where((gx >= 0)[..., None], by_frame[2], by_frame[0]).clamp(0, 1)
     err = check_close("per-pixel frame plane vs B1 on each frame", out, want_plane)
     ref = plane.render(stack_np, device="cpu")
@@ -1890,10 +1926,10 @@ def phase_frame_axis(mt, K, B4, sampling, dev, filters):
     lone = [f.render(stack, t=float(ts[i]), frame=float(i), device=dev) for i in range(n)]
     for shape in ((4, 1, 1), (2, 2, 1)):
         tiles = shape[1] * shape[2]
-        before = K.sample_image.launches
+        before = launch_count(LAUNCH_B1)
         out = f.render_sharded(stack, mesh=card_mesh(mt, dev, shape), num_frames=n)
         torch.cuda.synchronize()
-        launches = K.sample_image.launches - before
+        launches = launch_count(LAUNCH_B1) - before
         tag = f"frame axis: render_sharded ripple {n}x{w}x{h} u8 stack, mesh {shape}"
         if launches != n * tiles or tuple(out.shape) != (n, h, w, 4):
             raise AssertionError(f"{tag}: {launches} B1 launches, shape {tuple(out.shape)}")
@@ -1904,7 +1940,7 @@ def phase_frame_axis(mt, K, B4, sampling, dev, filters):
         print(f"{tag}: {launches} B1 launches ({tiles} a frame), max abs err {max(errs):.3e} "
               f"vs the lone card renders, {n_px} pixels differ")
     mesh = card_mesh(mt, dev, (1, 4, 1))
-    before = B4.sample_tiled.launches
+    before = launch_count(LAUNCH_B4)
     errs, n_px = [], 0
     with KernelCapture(sampling, "tiled_kernel") as cap:
         for i in range(n):
@@ -1913,7 +1949,7 @@ def phase_frame_axis(mt, K, B4, sampling, dev, filters):
             errs.append(check_close(f"render_tiled animated frame {i}", out, want))
             n_px += int((out != want).any(-1).sum())
     torch.cuda.synchronize()
-    launches = B4.sample_tiled.launches - before
+    launches = launch_count(LAUNCH_B4) - before
     if launches != 4 * n:
         raise AssertionError(f"animated render_tiled: {launches} B4 launches for 4 tiles x "
                              f"{n} frames")
@@ -1984,8 +2020,8 @@ def phase_library_path(mt, K, L, WL, build, sampling, color_ops, tracer, dev, li
     counts among them, equal the eager loop's on the same card tensors.
     Returns quat_julia's 4K B3 launches and its kernel's max abs err against
     the eager loop."""
-    wrappers = (K.sample_image, L.apply_lut, WL.while_loop)
-    builds = len(build.BUILDS)
+    wrappers = (LAUNCH_B1, LAUNCH_B2, LAUNCH_B3)
+    builds = nvcc_builds()
     failures, expected = [], {}
     w, h = REDUCED
     for name, f in lib.items():
@@ -2047,8 +2083,8 @@ def phase_library_path(mt, K, L, WL, build, sampling, color_ops, tracer, dev, li
                 failures.append(f"{tag}: routes {routes}, {differ} carried values differ "
                                 f"from the eager loop (kernel route, identical required)")
         print(line)
-    if len(build.BUILDS) != builds:
-        failures.append(f"library path: {len(build.BUILDS) - builds} nvcc builds after "
+    if nvcc_builds() != builds:
+        failures.append(f"library path: {nvcc_builds() - builds} nvcc builds after "
                         f"phase 1, none expected")
     if failures:
         raise AssertionError("library path:\n  " + "\n  ".join(failures))
@@ -2138,7 +2174,7 @@ def phase_region(mt, K, L, WL, B4, dev, filters, st):
     w, h = SIZES[1]
     _, u8 = smooth_image(w, h, seed=21)
     img = torch.from_numpy(u8).to(dev)
-    wrappers = (K.sample_image, L.apply_lut, WL.while_loop)
+    wrappers = (LAUNCH_B1, LAUNCH_B2, LAUNCH_B3)
     cases = [(name, [img], {}, out) for name in ("fisheye", "twirl")
              for out in ("float32", "uint8")]
     cases += [("mandelbrot", [], {}, "float32"), ("mandelbrot", [], {}, "uint8"),
@@ -2168,10 +2204,10 @@ def phase_region(mt, K, L, WL, B4, dev, filters, st):
     mask = region_mask(h, w, REGION, dev)
     for out_dtype in ("float32", "uint8"):
         o = mt.RenderOptions(region=REGION, output_dtype=out_dtype)
-        before = B4.sample_tiled.launches
+        before = launch_count(LAUNCH_B4)
         got = f.render_tiled(img, mesh=mesh, options=o)
         torch.cuda.synchronize()
-        tiles = B4.sample_tiled.launches - before
+        tiles = launch_count(LAUNCH_B4) - before
         lone = f.render(img, options=o, device=dev)
         tag = f"region pond tiled {REGION_MESH} {w}x{h} {REGION} {out_dtype} out"
         th = h // REGION_MESH[1]
@@ -2203,11 +2239,11 @@ def phase_corners(mt, K, dev, filters):
     o = mt.RenderOptions(supersample=2, supersample_scheme="corners")
     w, h = SIZES[0]
     img = torch.from_numpy(smooth_image(w, h, seed=15)[1]).to(dev)
-    before = K.sample_image.launches
+    before = launch_count(LAUNCH_B1)
     out = f.render(img, options=o, device=dev)
     torch.cuda.synchronize()
-    if K.sample_image.launches - before != 2:
-        raise AssertionError(f"corners ripple {w}x{h}: {K.sample_image.launches - before} "
+    if launch_count(LAUNCH_B1) - before != 2:
+        raise AssertionError(f"corners ripple {w}x{h}: {launch_count(LAUNCH_B1) - before} "
                              f"B1 launches, expected 2")
     if tuple(out.shape) != (h, w, 4) or not bool(torch.isfinite(out).all()):
         raise AssertionError(f"corners ripple {w}x{h}: bad output")
@@ -2288,10 +2324,10 @@ def phase_cli(mt, K, B4, dev, work: Path):
         same(f"--param-sweep step {i}", work / f"sw_{i:04d}.png",
              f_tw.render(inp, frame=float(i), params={"angle": a}, options=u8, device=dev))
     reg = (w // 6 + 1, h // 9 + 3, w // 2 - 7, h // 2 + 5)  # unaligned
-    before = B4.sample_tiled.launches
+    before = launch_count(LAUNCH_B4)
     run([pond, str(src), str(work / "tr.png"), "--tiled", "--region",
          f"{reg[0]},{reg[1]},{reg[2]}x{reg[3]}"])
-    if B4.sample_tiled.launches == before:
+    if launch_count(LAUNCH_B4) == before:
         raise AssertionError("cli --tiled --region: no B4 launch")
     same("--tiled --region", work / "tr.png", f_pond.render_tiled(
         inp, mesh=mt.make_mesh(), options=mt.RenderOptions(region=reg, output_dtype="uint8")))
@@ -2380,7 +2416,7 @@ def phase_serve(mt, K, dev, card):
 
     try:
         svc.warmup("twirl", w, h, batch_sizes=(1,))
-        launches = K.sample_image.launches
+        launches = launch_count(LAUNCH_B1)
         t0 = time.perf_counter()
         with ThreadPoolExecutor(SERVE_REQUESTS) as pool:
             replies = list(pool.map(post, [
@@ -2388,7 +2424,7 @@ def phase_serve(mt, K, dev, card):
                  "inputs": [body], "binary": True} for a in angles]))
         wall = time.perf_counter() - t0
         stats = svc.snapshot()
-        launches = K.sample_image.launches - launches
+        launches = launch_count(LAUNCH_B1) - launches
     finally:
         httpd.shutdown()
         httpd.server_close()
@@ -2474,11 +2510,11 @@ TIMING_GO = "timing.go"  # written when the fleet may time its frames
 
 def launched(K, L, WL, call):
     """(result of call(), its (B1, B2, B3) launches)."""
-    before = (K.sample_image.launches, L.apply_lut.launches, WL.while_loop.launches)
+    before = (launch_count(LAUNCH_B1), launch_count(LAUNCH_B2), launch_count(LAUNCH_B3))
     out = call()
     torch.cuda.synchronize()
     return out, tuple(b - a for a, b in zip(before, (
-        K.sample_image.launches, L.apply_lut.launches, WL.while_loop.launches)))
+        launch_count(LAUNCH_B1), launch_count(LAUNCH_B2), launch_count(LAUNCH_B3))))
 
 
 def phase_artifact(mt, K, L, WL, build, dev, filters, work: Path, card):
@@ -2526,13 +2562,13 @@ def phase_artifact(mt, K, L, WL, build, dev, filters, work: Path, card):
                 build.generated_paths(src)[1].unlink(missing_ok=True)
                 WL._LAUNCHERS.pop(src, None)
             build.generated_library.cache_clear()
-            builds = WL.while_loop.builds
+            builds = nvcc_builds()
             t0 = time.perf_counter()
             art = load_artifact(str(path))
             built_s = time.perf_counter() - t0
-            if WL.while_loop.builds != builds + len(sources):
+            if nvcc_builds() != builds + len(sources):
                 raise AssertionError(f"artifact {name}: load built "
-                                     f"{WL.while_loop.builds - builds} loop kernels")
+                                     f"{nvcc_builds() - builds} loop kernels")
             built = f", {built_s:.2f} s with its B3 library built by nvcc"
         got, launches = launched(K, L, WL, lambda: art.render(*ins, params=p, t=0.3))
         want = f.render(*ins, params=p, t=0.3, width=w, height=h, device=dev)
@@ -2747,13 +2783,13 @@ def phase_preview(mt, K, dev, card):
     twirl = (ROOT / "filters" / "Distorts" / "twirl.mm").read_text()
 
     def post(path, req):
-        before = K.sample_image.launches
+        before = launch_count(LAUNCH_B1)
         r = urllib.request.Request(base + path, json.dumps(req).encode(), method="POST")
         with urllib.request.urlopen(r, timeout=300) as resp:
             out = json.loads(resp.read())
         if out.get("error"):
             raise AssertionError(f"preview {path}: {out['error']}")
-        if K.sample_image.launches == before:
+        if launch_count(LAUNCH_B1) == before:
             raise AssertionError(f"preview {path}: no B1 launch")
         return out
 
@@ -2848,12 +2884,11 @@ def distributed_worker(rank: int, n: int, coord: str, out_dir: str, backend: str
     torch.cuda.set_device(index)
     dev = torch.device("cuda", index)
     distributed.initialize(coord, num_processes=n, process_id=rank, backend=backend)
-    wrappers = (K.sample_image, L.apply_lut, WL.while_loop, B4.sample_tiled)
+    wrappers = (LAUNCH_B1, LAUNCH_B2, LAUNCH_B3, LAUNCH_B4)
     report = {"rank": rank, "backend": dist.get_backend(), "jobs": {}}
 
     def job(name, call):
-        for w in wrappers:
-            w.launches = 0
+        zero_launches(*wrappers)
         result = call()
         torch.cuda.synchronize()
         report["jobs"][name] = dict(result, launches=launch_counts(*wrappers))
@@ -2874,7 +2909,7 @@ def distributed_worker(rank: int, n: int, coord: str, out_dir: str, backend: str
         for (r0, _c0), tile in frame.tiles.items():
             np.save(Path(out_dir) / f"{backend}_rank{rank}_row{r0}.npy", tile.cpu().numpy())
         return {"rows": sorted(r0 for r0, _ in frame.tiles),
-                "b1_all_ranks": summed(K.sample_image.launches)}
+                "b1_all_ranks": summed(launch_count(LAUNCH_B1))}
 
     gw, gh = SIZES[1]
     u8 = seeded_image(gw, gh, seed=DISTRIBUTED_SEED)[1]
@@ -2885,7 +2920,7 @@ def distributed_worker(rank: int, n: int, coord: str, out_dir: str, backend: str
         with KernelCapture(sampling, "tiled_kernel") as cap:
             frame = pond.render_tiled(u8, mesh=mesh, t=0.3)
         return {"hashes": tile_hashes(frame.tiles), "sampler_calls": len(cap.calls),
-                "b4_all_ranks": summed(B4.sample_tiled.launches)}
+                "b4_all_ranks": summed(launch_count(LAUNCH_B4))}
 
     def timing():
         """5 fenced tiled frames: the frame, the exchange and the reduction
@@ -3037,10 +3072,10 @@ def phase_distributed(mt, B4, dev, work: Path, card: str) -> tuple:
     u8 = seeded_image(gw, gh, seed=DISTRIBUTED_SEED)[1]
     pond = mt.compile_file(str(ROOT / "filters" / "Distorts" / "pond.mm"))
     mesh141 = card_mesh(mt, dev, (1, 4, 1))
-    B4.sample_tiled.launches = 0
+    zero_launches(LAUNCH_B4)
     one = pond.render_tiled(u8, mesh=mesh141, t=0.3)
     torch.cuda.synchronize()
-    one_b4 = B4.sample_tiled.launches
+    one_b4 = launch_count(LAUNCH_B4)
     want = {"tiled": tile_hashes(mesh_tiles(one, (1, 4, 1)))}
     mid = twirl.render_sharded(u8, mesh=mesh141, params={"angle": 3.0})
     want["chain"] = tile_hashes(mesh_tiles(pond.render_tiled(mid, mesh=mesh141, t=0.3),
@@ -3223,7 +3258,7 @@ def phase_float64_spec(mt, K, L, WL, B4, dev, filters, st, lib, card: str) -> di
     print(f"float64 spec: {len(SURFACE_NAMES)} top-level names resolve; "
           f"render(interpret=True) -> cpu float32; interpret=True with device='cuda' "
           f"and on_error='interpret' raise ValueError")
-    wrappers = (K.sample_image, L.apply_lut, WL.while_loop, B4.sample_tiled)
+    wrappers = (LAUNCH_B1, LAUNCH_B2, LAUNCH_B3, LAUNCH_B4)
     specs = {}
     worst = {}
     for label, f, inputs, kw, kernels, chaotic, mesh in spec_cases(mt, filters, st, lib):
@@ -3330,12 +3365,11 @@ def main() -> int:
     worst_b4 = phase_tiled_vs_plain(B4, dev)
     # each main path with every launch count set to 0 just before it and
     # read just after (B1, B2, B3, B4)
-    wrappers = (K.sample_image, L.apply_lut, WL.while_loop, B4.sample_tiled)
+    wrappers = (LAUNCH_B1, LAUNCH_B2, LAUNCH_B3, LAUNCH_B4)
     by_path = {}
 
     def path(name, phase, *args):
-        for wrapper in wrappers:
-            wrapper.launches = 0
+        zero_launches(*wrappers)
         result = phase(*args)
         torch.cuda.synchronize()
         by_path[name] = launch_counts(*wrappers)
@@ -3393,8 +3427,11 @@ def main() -> int:
         time_cli_frame(mt, dev, work, card)
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    print(f"nvcc builds in this run: {len(build.BUILDS)}, "
-          f"{sum(s for _, s in build.BUILDS):.2f} s in all")
+    from mathmap_tpu_torch.utils.trace import snapshot
+
+    built = snapshot()["spans"].get("mm.build", {})
+    print(f"nvcc builds in this run: {nvcc_builds()}; kernel libraries built or loaded "
+          f"(mm.build): {built.get('count', 0)}, {built.get('total_ns', 0) / 1e9:.2f} s in all")
     print(f"chip_smoke: {time.perf_counter() - t0:.1f} s")
     print(card)
 

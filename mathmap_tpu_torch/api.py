@@ -17,6 +17,7 @@ raises, and so does the reference's `on_error="interpret"`.
 
 from __future__ import annotations
 
+import functools
 import os
 
 import numpy as np
@@ -28,6 +29,7 @@ from .lang.parser import parse
 from .runtime.options import RenderOptions
 from .runtime.render import animation_ts, iter_jobs, render, render_jobs
 from .utils.errors import MMError, MMNameError
+from .utils.trace import span
 
 
 def resolve_device(device) -> torch.device:
@@ -59,14 +61,19 @@ def platform_device() -> torch.device:
 def _stage_input(a, device: torch.device) -> torch.Tensor:
     """numpy or torch image -> (H, W, 4) float32/uint8 tensor on `device`;
     a 4-D one is an ANIMATED input -> (T, H, W, 4). uint8 stays uint8 on
-    the device (the sampler converts each tap)."""
+    the device (the sampler converts each tap). An input on the host is a
+    copy that waits for the device's queue (a `mm.sync.stage` span); one
+    already on the device is used as it is."""
     if isinstance(a, torch.Tensor):
         if a.dim() not in (3, 4) or a.shape[-1] != 4 or a.dtype not in (torch.float32,
                                                                          torch.uint8):
             raise ValueError(
                 f"tensor inputs must be (H, W, 4) or animated (T, H, W, 4) float32 or "
                 f"uint8, got {tuple(a.shape)} {a.dtype}")
-        return a.to(device).contiguous()
+        if a.device.type != "cpu":
+            return a.to(device).contiguous()
+        with span("mm.sync.stage"):
+            return a.to(device).contiguous()
     return inputs_from_numpy([a], device)[0]
 
 
@@ -116,6 +123,20 @@ def shared(value):
     return Shared(value)
 
 
+_CALL = span("mm.call")
+
+
+def _call_span(method):
+    """A public render entry as one `mm.call` span, from entry to return."""
+
+    @functools.wraps(method)
+    def entry(*args, **kwargs):
+        with _CALL:
+            return method(*args, **kwargs)
+
+    return entry
+
+
 class Filter:
     """A compiled MathMap filter (plus the filter environment of its file)."""
 
@@ -139,6 +160,7 @@ class Filter:
         return [p for p in self.fdef.params if p.kind == "image"]
 
     # -- rendering ------------------------------------------------------------
+    @_call_span
     def render(self, *inputs, width: int | None = None, height: int | None = None,
                t: float = 0.0, frame: float = 0.0,
                options: RenderOptions | None = None, params: dict | None = None,
@@ -188,6 +210,7 @@ class Filter:
                       options or RenderOptions(), dev, ins, params or {},
                       t=t, frame=frame, dtype=dtype)
 
+    @_call_span
     def render_batch(self, *batched_inputs, ts=None, frames=None,
                      width: int | None = None, height: int | None = None,
                      options: RenderOptions | None = None, params=None,
@@ -242,6 +265,7 @@ class Filter:
         return render_jobs(self.filters, self.fdef, width, height, opts, dev, ins, mask,
                            params, ts, frames)
 
+    @_call_span
     def render_animation(self, *inputs, num_frames: int, width: int | None = None,
                          height: int | None = None, options: RenderOptions | None = None,
                          params: dict | None = None, device="cuda") -> torch.Tensor:
@@ -258,9 +282,17 @@ class Filter:
                       height: int | None = None, options: RenderOptions | None = None,
                       params: dict | None = None, device="cuda"):
         """Animation as a generator: yields the (H, W, 4) frames of
-        render_animation's t-sweep one at a time, from inputs staged once."""
-        yield from iter_jobs(*self._sweep(inputs, num_frames, width, height, options,
+        render_animation's t-sweep one at a time, from inputs staged once.
+        Each step, from the generator's resumption to its yield, is one
+        `mm.call` span (the first one stages the inputs)."""
+        with _CALL:
+            jobs = iter_jobs(*self._sweep(inputs, num_frames, width, height, options,
                                           params, device))
+            frame = next(jobs, None)
+        while frame is not None:
+            yield frame
+            with _CALL:
+                frame = next(jobs, None)
 
     def _sweep(self, inputs, num_frames, width, height, options, params, device):
         """The job arguments of a t-sweep of `num_frames` frames, its inputs
@@ -273,6 +305,7 @@ class Filter:
                 params or {}, animation_ts(num_frames, opts.periodic),
                 np.arange(num_frames, dtype=np.float32))
 
+    @_call_span
     def render_sharded(self, *inputs, mesh=None, num_frames: int = 1,
                        width: int | None = None, height: int | None = None,
                        options: RenderOptions | None = None, ts=None, t: float = 0.0,
@@ -308,6 +341,7 @@ class Filter:
         return render_frames_sharded(mesh, self.filters, self.fdef, width, height, opts,
                                      ins, params or {}, np.asarray(ts, np.float32))
 
+    @_call_span
     def render_tiled(self, *input_images, halo: int | tuple | str = "auto",
                      mesh=None, width: int | None = None,
                      height: int | None = None,
@@ -369,7 +403,8 @@ def compile_source(source: str, main: str | None = None) -> Filter:
     """Compile MathMap source. `main` selects a filter by name; default is
     the last filter in the file."""
     try:
-        program = parse(source)
+        with span("mm.compile"):
+            program = parse(source)
     except MMError as exc:
         if exc.source is None:
             exc.source = source

@@ -36,6 +36,7 @@ from .convert import inputs_from_numpy
 from .imgio.images import (image_size, read_animation, read_image, to_uint8, write_animation,
                            write_image)
 from .runtime.options import EDGE_BEHAVIORS, INTERPOLATIONS, RenderOptions
+from .utils import trace
 from .utils.errors import MMError
 
 def build_arg_parser() -> argparse.ArgumentParser:
@@ -424,6 +425,16 @@ def _run_artifact(args, input_paths, out_path, device, log) -> int:
     return 0
 
 
+def _synchronize(device) -> None:
+    """Wait for every visible GPU's queued work (a mesh may span several);
+    nothing on the CPU."""
+    import torch
+
+    if device.type == "cuda":
+        for i in range(torch.cuda.device_count()):
+            torch.cuda.synchronize(i)
+
+
 def _device(args):
     """--interpret: the CPU; else the front ends' device (a one-line exit
     for a bad MMTPU_PLATFORM or a missing GPU)."""
@@ -540,6 +551,7 @@ def main(argv=None) -> int:
         return read_image(p)
 
     t_read = time.perf_counter()
+    at_read = trace.snapshot()
     inputs = [read_input(p) for p in input_paths]
     log(f"decode: {time.perf_counter() - t_read:.3f}s  ({len(inputs)} input(s))")
     width = height = None
@@ -602,6 +614,7 @@ def main(argv=None) -> int:
         return 0
     try:
         with _profiler(args.profile):
+            at_render = trace.snapshot()
             t1 = time.perf_counter()
             run = _Run(args, filt, inputs, width, height, opts, params, device)
             if args.param_sweep is not None:
@@ -642,17 +655,26 @@ def main(argv=None) -> int:
                         continue
                     write_image(path, run.frame(t, i))
                     frames_done += 1
+            _synchronize(device)
             dt = time.perf_counter() - t1
     except MMError as exc:
         print(exc.format(), file=sys.stderr)
         return 1
-    log(f"render: {dt:.3f}s  {frames_done} frame(s)  "
-        f"{frames_done * ch * cw / 1e6 / max(dt, 1e-9):.2f} Mpix/s")
+    # the frame loop's image reads and writes are their own phases
+    after = trace.snapshot()
+    in_loop = trace.since(at_render, after)
+    render_s = dt - trace.total_s(in_loop, "mm.image.read") - trace.total_s(in_loop,
+                                                                             "mm.image.write")
+    log(f"render: {render_s:.3f}s  {frames_done} frame(s)  "
+        f"{frames_done * ch * cw / 1e6 / max(render_s, 1e-9):.2f} Mpix/s")
     if args.stats:
-        from .utils.log import RenderStats
-
-        print(RenderStats(width=cw, height=ch, frames=frames_done, parse_s=t1 - t0,
-                          render_s=dt).to_json())
+        io = trace.since(at_read, after)
+        write = io["spans"].get("mm.image.write", {})
+        print(trace.RenderStats(
+            width=cw, height=ch, frames=frames_done, parse_s=t1 - t0, render_s=render_s,
+            phases={"decode_s": trace.total_s(io, "mm.image.read"),
+                    "encode_s": trace.total_s(io, "mm.png.encode"),
+                    "write_s": write.get("self_ns", 0) / 1e9}).to_json())
     return 0
 
 

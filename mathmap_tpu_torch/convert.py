@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from .runtime.options import RenderOptions
+from .utils.trace import span
 
 _FIELDS = frozenset(f.name for f in dataclasses.fields(RenderOptions))
 
@@ -55,13 +56,16 @@ def inputs_from_numpy(arrays, device) -> list:
     ANIMATED (T, H, W, C) stack -> (T, H, W, 4). uint8 stays uint8 (the
     sampler converts each tap by /255, the reference's in-render rule, and
     a u8 stack stays u8 on the device); every other dtype becomes
-    float32."""
+    float32. Each copy waits for the device's queue (a `mm.sync.stage`
+    span)."""
     out = []
     for a in arrays:
         arr = np.asarray(a)
         if arr.dtype != np.uint8:
             arr = arr.astype(np.float32)
-        out.append(torch.from_numpy(np.ascontiguousarray(_rgba(arr))).to(device))
+        host = torch.from_numpy(np.ascontiguousarray(_rgba(arr)))
+        with span("mm.sync.stage"):
+            out.append(host.to(device))
     return out
 
 

@@ -20,6 +20,7 @@ import os
 
 import numpy as np
 
+from ..utils.trace import span
 from .png import PNGUnsupported, decode_png, encode_png, is_png
 
 _PNM = (".ppm", ".pam", ".pnm")
@@ -34,9 +35,11 @@ def _pil():
 
 
 def _host(arr) -> np.ndarray:
-    """A numpy view of `arr`; a torch tensor is copied to the host."""
+    """A numpy view of `arr`; a torch tensor is copied to the host, which
+    waits for the device (a `mm.sync.readback` span)."""
     if hasattr(arr, "detach"):
-        arr = arr.detach().cpu().numpy()
+        with span("mm.sync.readback"):
+            arr = arr.detach().cpu().numpy()
     return np.asarray(arr)
 
 
@@ -162,11 +165,13 @@ def _decode_bytes(data: bytes) -> np.ndarray:
 
 
 def read_image(path: str) -> np.ndarray:
-    """Read an image file -> float32 (H,W,4) RGBA in [0,1]."""
-    if path.lower().endswith(_PNM):
-        return to_float_rgba(read_pnm(path))
-    with open(path, "rb") as f:
-        return to_float_rgba(_decode_bytes(f.read()))
+    """Read an image file -> float32 (H,W,4) RGBA in [0,1]. A
+    `mm.image.read` span: the file read and its decode."""
+    with span("mm.image.read"):
+        if path.lower().endswith(_PNM):
+            return to_float_rgba(read_pnm(path))
+        with open(path, "rb") as f:
+            return to_float_rgba(_decode_bytes(f.read()))
 
 
 def read_animation(file, as_uint8: bool = False) -> np.ndarray:
@@ -175,19 +180,21 @@ def read_animation(file, as_uint8: bool = False) -> np.ndarray:
     A PNG, PAM or PPM is one frame, (1, H, W, 4). Multi-frame files whose
     frames disagree in size keep only the frames of frame 0's geometry.
     as_uint8=True returns the decoded (T, H, W, 4) uint8 (the renders
-    convert u8 on the device, so a u8 stack ships 4x fewer bytes)."""
-    if isinstance(file, (str, os.PathLike)) and str(file).lower().endswith(_PNM):
-        frames = read_pnm(str(file))[None]
-    else:
-        if isinstance(file, (str, os.PathLike)):
-            with open(file, "rb") as f:
-                data = f.read()
+    convert u8 on the device, so a u8 stack ships 4x fewer bytes). A
+    `mm.image.read` span."""
+    with span("mm.image.read"):
+        if isinstance(file, (str, os.PathLike)) and str(file).lower().endswith(_PNM):
+            frames = read_pnm(str(file))[None]
         else:
-            data = file.read()
-        frames = _decode_frames(data)
-    if as_uint8:
-        return frames
-    return np.stack([to_float_rgba(f) for f in frames])
+            if isinstance(file, (str, os.PathLike)):
+                with open(file, "rb") as f:
+                    data = f.read()
+            else:
+                data = file.read()
+            frames = _decode_frames(data)
+        if as_uint8:
+            return frames
+        return np.stack([to_float_rgba(f) for f in frames])
 
 
 def _decode_frames(data: bytes) -> np.ndarray:
@@ -234,19 +241,28 @@ def encode_gif(frames, fps: float = 25.0, palette: bool = True, disposal: int = 
 
 
 def write_animation(path: str, frames, fps: float = 25.0) -> None:
-    """Write an (F, H, W, 4) float sequence as an animated GIF (Pillow)."""
+    """Write an (F, H, W, 4) float sequence as an animated GIF (Pillow).
+    The encode and the file write are a `mm.image.write` span."""
     if not path.lower().endswith(".gif"):
         raise ValueError("write_animation writes .gif files")
-    data = encode_gif(frames, fps)
-    with open(path, "wb") as f:
-        f.write(data)
+    frames = _host(frames)
+    with span("mm.image.write"):
+        data = encode_gif(frames, fps)
+        with open(path, "wb") as f:
+            f.write(data)
 
 
 def write_image(path: str, arr) -> None:
     """Write a float (H,W,4) RGBA array in [0,1] (or uint8) to an image
     file: PNG by encode_png, PAM and PPM by the writers below, anything
-    else through Pillow (JPEG drops the alpha)."""
+    else through Pillow (JPEG drops the alpha). The encode and the file
+    write, after the pixels are on the host, are a `mm.image.write` span."""
     data = to_uint8(arr)
+    with span("mm.image.write"):
+        _write_uint8(path, data)
+
+
+def _write_uint8(path: str, data: np.ndarray) -> None:
     lower = path.lower()
     if lower.endswith(".png"):
         png = encode_png(data)

@@ -20,6 +20,8 @@ import zlib
 
 import numpy as np
 
+from ..utils.trace import span
+
 _SIG = b"\x89PNG\r\n\x1a\n"
 #: bytes per pixel of each supported colour type at bit depth 8
 _CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
@@ -41,8 +43,14 @@ def encode_png(arr: np.ndarray, level: int = 1) -> bytes:
     localhost/LAN responses), 1 (default) matches Pillow-level-1 sizes at
     a fraction of the time. Rows use the Sub filter (left-neighbor delta)
     except at level 0, where filtering is skipped — store mode gains
-    nothing from it.
+    nothing from it. A `mm.png.encode` span.
     """
+    with span("mm.png.encode"):
+        return _encode_png(arr, level)
+
+
+def _encode_png(arr: np.ndarray, level: int = 1) -> bytes:
+    """encode_png's work."""
     arr = np.asarray(arr)
     if arr.dtype != np.uint8 or arr.ndim != 3 or arr.shape[2] not in (3, 4):
         raise ValueError(
@@ -155,7 +163,13 @@ def decode_png(data: bytes) -> np.ndarray:
     one matching gray or RGB value transparent, or gives the palette's
     entries their alpha (255 past the table). Raises PNGUnsupported for a
     PNG outside the contract (see the module docstring) and ValueError for
-    a damaged one."""
+    a damaged one. A `mm.png.decode` span."""
+    with span("mm.png.decode"):
+        return _decode_png(data)
+
+
+def _decode_png(data: bytes) -> np.ndarray:
+    """decode_png's work."""
     if not is_png(data):
         raise ValueError("not a PNG file")
     ihdr = plte = trns = None

@@ -20,6 +20,7 @@ import functools
 
 import torch
 
+from ..utils.trace import count
 from . import build
 
 
@@ -99,7 +100,7 @@ def _apply_lut_cuda(lut, pos):
         raise RuntimeError(
             f"apply_lut kernel launch failed: cudaError {err} "
             f"({build.error_string(err)})")
-    apply_lut.launches += 1
+    count("launch.apply_lut")
     return out
 
 
@@ -129,6 +130,3 @@ def apply_lut(lut: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"no LUT kernel for device {pos.device}")
     return torch.ops.mathmap.apply_lut(lut, pos)
 
-
-#: kernel launches since the count was last set to 0 (CPU calls never count)
-apply_lut.launches = 0

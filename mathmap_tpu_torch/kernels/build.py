@@ -25,6 +25,8 @@ import time
 from dataclasses import dataclass
 from pathlib import Path
 
+from ..utils.trace import count, span
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 #: `-Xptxas=-v` only reports each kernel's registers and spills (Library.log)
@@ -34,8 +36,6 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 #: a loop body must round like the eager torch ops, one op at a time), and
 #: the precise libm and IEEE division/sqrt (nvcc's defaults, no fast math)
 GENERATED_FLAGS = NVCC_FLAGS + ("--fmad=false",)
-#: (library file name, nvcc seconds) of every build run in this process
-BUILDS: list = []
 
 
 @dataclass(frozen=True)
@@ -72,7 +72,13 @@ def _digest(sources) -> str:
 
 def _build(path: Path, flags, sources) -> Library:
     """Load `path`, running nvcc on `sources` first when it is not on disk;
-    raises with nvcc's stderr when the build fails."""
+    raises with nvcc's stderr when the build fails. A `mm.build` span; each
+    nvcc run adds 1 to the counter `build.nvcc`."""
+    with span("mm.build"):
+        return _build_and_load(path, flags, sources)
+
+
+def _build_and_load(path: Path, flags, sources) -> Library:
     seconds, log = 0.0, ""
     if not path.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -90,7 +96,7 @@ def _build(path: Path, flags, sources) -> Library:
                 f"{' '.join(cmd)}\n{proc.stderr}")
         os.replace(tmp, path)
         log = proc.stderr
-        BUILDS.append((path.name, seconds))
+        count("build.nvcc")
     return Library(ctypes.CDLL(str(path)), path, seconds, log)
 
 

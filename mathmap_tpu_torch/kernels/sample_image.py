@@ -32,7 +32,10 @@ import functools
 
 import torch
 
+from ..utils.trace import count, span
 from . import build
+
+_LITERAL = span("mm.sync.literal")
 
 INTERPOLATIONS = {"nearest": 0, "bilinear": 1, "bicubic": 2}
 EDGES = {"color": 0, "wrap": 1, "reflect": 2}
@@ -115,21 +118,25 @@ def u8_to_float(t: torch.Tensor) -> torch.Tensor:
     `render.float_inputs` rule; the CUDA kernel's three fused operations
     per tap give the same values bit for bit. The divisor is a tensor on
     `t`'s device: PyTorch's CUDA division by a Python scalar multiplies by
-    its reciprocal instead, which is 1 ulp off for some values."""
-    return t.to(torch.float32) / torch.tensor(255.0, device=t.device)
+    its reciprocal instead, which is 1 ulp off for some values. On a card
+    the divisor is a copy from the host that waits for the device's queue
+    (a `mm.sync.literal` span)."""
+    return t.to(torch.float32) / _LITERAL.tensor(255.0, torch.float32, t.device)
 
 
 def _gather(pixels):
     """The plain sampler's gather over an (H, W, 4) image: `gather(iy, ix)`
     maps in-range int index grids to 4 float32 channel grids, one flat
-    (H*W, 4) row per tap."""
+    (H*W, 4) row per tap. It converts uint8 taps by u8_to_float's rule, and
+    uploads its divisor outside any sync span: it stands for the card's
+    kernel, which converts in its loads and waits for nothing."""
     w = int(pixels.shape[1])
     flat = pixels.reshape(-1, 4)
 
     def gather(iy, ix):
         g = flat[(iy * w + ix).long()]
         if g.dtype == torch.uint8:
-            g = u8_to_float(g)
+            g = g.to(torch.float32) / torch.tensor(255.0, device=g.device)
         return [g[..., c] for c in range(4)]
 
     return gather
@@ -300,7 +307,7 @@ def _sample_image_cuda(pixels, x, y, interpolation, edge_x, edge_y, edge_color):
         raise RuntimeError(
             f"sample_image kernel launch failed: cudaError {err} "
             f"({build.error_string(err)})")
-    sample_image.launches += 1
+    count("launch.sample_image")
     return out
 
 
@@ -331,6 +338,3 @@ def sample_image(pixels, x, y, interpolation: str, edge_x: str, edge_y: str,
     return torch.ops.mathmap.sample_image(pixels, x, y, interpolation, edge_x, edge_y,
                                           [float(c) for c in edge_color])
 
-
-#: kernel launches since the count was last set to 0 (CPU calls never count)
-sample_image.launches = 0

@@ -32,6 +32,7 @@ import functools
 
 import torch
 
+from ..utils.trace import count
 from . import build
 from .sample_image import EDGES, INTERPOLATIONS, MAX_SOURCE_PIXELS, interpolate
 
@@ -192,9 +193,6 @@ def sample_tiled(ext, x, y, gh: int, gw: int, row_base: int, col_base: int,
         raise RuntimeError(
             f"sample_tiled kernel launch failed: cudaError {err} "
             f"({build.error_string(err)})")
-    sample_tiled.launches += 1
+    count("launch.sample_tiled")
     return out, excess
 
-
-#: kernel launches since the count was last set to 0 (CPU calls never count)
-sample_tiled.launches = 0

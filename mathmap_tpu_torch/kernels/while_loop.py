@@ -55,8 +55,11 @@ import torch
 
 from ..ops import libm
 from ..ops.rand import COUNTER, M32, draw_salt, rand_index, rand_uniform
+from ..utils.trace import count, span
 from . import build
 
+#: a wait of the loop's wrapper on the device
+_LOOP = span("mm.sync.loop")
 #: builtins a kernel body may call: the reference's SAFE_CALLS
 #: (while_kernel.py). Its other exclusions (the internals `a`/`ra` and the
 #: `ri:` overloads that reach atan2/sinh/cosh) were limits of the TPU's
@@ -173,13 +176,19 @@ class Loop:
 # the plain version
 # ---------------------------------------------------------------------------
 
-def while_loop_reference(step, flat0, mask0, max_iters: int, unroll: int, it_base: int = 0):
+def any_active(mask) -> bool:
+    """Whether any pixel of the mask still loops, read on the host."""
+    return bool(mask.any())
+
+
+def while_loop_reference(step, flat0, mask0, max_iters: int, unroll: int, it_base: int = 0,
+                         check=any_active):
     """The eager masked loop -> (final flat carry, steps run): `unroll`
-    masked steps per `any()` check, none past `max_iters`, numbered from
+    masked steps per `check(mask)`, none past `max_iters`, numbered from
     it_base + 1. A step past a pixel's exit leaves it as it was, so the
     count of checks changes no value."""
     flat, mask, i = flat0, mask0, 0
-    while i < max_iters and bool(mask.any()):
+    while i < max_iters and check(mask):
         for _ in range(min(unroll, max_iters - i)):
             flat, mask = step(flat, mask, it_base + i + 1)
             i += 1
@@ -354,7 +363,9 @@ class Program:
             if v.numel() != 1:
                 raise GeneratorError(
                     f"a {tuple(v.shape)} tensor inside a traced loop step")
-            return ("v", self.const(v.reshape(()).item()).index)
+            with _LOOP:
+                value = v.reshape(()).item()
+            return ("v", self.const(value).index)
         if isinstance(v, (bool, np.bool_)):
             return ("v", self.const(bool(v)).index)
         if isinstance(v, (int, float, np.integer, np.floating)):
@@ -871,7 +882,8 @@ def build_program(text: str):
     library built by nvcc (or found on disk) and loaded once."""
     entry = _program(text)
     if entry[1] is None:
-        entry[1] = emit_cuda(entry[0], entry[0].origin)
+        with span("mm.build"):
+            entry[1] = emit_cuda(entry[0], entry[0].origin)
     return _launcher(entry[1])
 
 
@@ -879,8 +891,6 @@ def _launcher(source: str):
     fn = _LAUNCHERS.get(source)
     if fn is None:
         lib = build.generated_library(source)
-        if lib.build_seconds > 0:
-            while_loop.builds += 1
         fn = lib.cdll.mm_while_loop
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p,  # ptrs, strides
                        ctypes.c_void_p, ctypes.c_void_p,  # scalars on the host, on the card
@@ -969,7 +979,7 @@ def _while_loop_cuda(program, grids, mask, scalars, max_iters, unroll, row0, col
         raise RuntimeError(
             f"while_loop kernel launch failed: cudaError {err} "
             f"({build.error_string(err)}) for the loop at {prog.origin}")
-    while_loop.launches += 1
+    count("launch.while_loop")
     return outs
 
 
@@ -993,7 +1003,7 @@ def _scalars(ctx, keys, device) -> torch.Tensor:
     if not any(isinstance(v, torch.Tensor) for v in vals):
         return torch.tensor(vals, dtype=torch.float32)
     return torch.stack([v.reshape(()) if isinstance(v, torch.Tensor)
-                        else torch.tensor(v, dtype=torch.float32, device=device) for v in vals])
+                        else _LOOP.tensor(v, torch.float32, device) for v in vals])
 
 
 def while_loop(loop: Loop, flat0: tuple, mask0: torch.Tensor, max_iters: int) -> tuple:
@@ -1024,9 +1034,3 @@ def while_loop(loop: Loop, flat0: tuple, mask0: torch.Tensor, max_iters: int) ->
         text, grids, mask0, scalars, int(max_iters), int(loop.unroll), ctx.row_offset,
         ctx.col_offset, ctx.width, loop.rand_salt, loop.it_base))
 
-
-#: kernel launches since the count was last set to 0 (CPU calls never count)
-while_loop.launches = 0
-#: generated kernels nvcc built in this process (a source found on disk or
-#: already loaded is not counted)
-while_loop.builds = 0

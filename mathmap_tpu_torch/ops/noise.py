@@ -19,6 +19,7 @@ import torch
 from ..runtime.value import TupleValue
 from ..typesys.tags import NIL
 from ..utils.errors import MMTypeError
+from ..utils.trace import span
 from .registry import builtin
 
 #: Ken Perlin's reference permutation (256 entries), the reference's _PERM
@@ -54,7 +55,8 @@ def perm_table(device) -> torch.Tensor:
 
 @functools.cache
 def _table(device: torch.device) -> torch.Tensor:
-    return torch.tensor(PERM + PERM, dtype=torch.int32, device=device)
+    with span("mm.sync.literal"):
+        return torch.tensor(PERM + PERM, dtype=torch.int32, device=device)
 
 
 def lattice(f: torch.Tensor) -> torch.Tensor:

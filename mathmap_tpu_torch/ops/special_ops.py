@@ -37,6 +37,7 @@ import torch
 from ..runtime.value import TupleValue
 from ..typesys.tags import NIL
 from ..utils.errors import MMTypeError
+from ..utils.trace import span
 from . import libm
 from .registry import builtin, need_args
 
@@ -58,12 +59,13 @@ _PI = math.pi
 _SQRT_2PI = math.sqrt(2.0 * _PI)
 _LOG_2PI = math.log(2.0 * _PI)
 _LOG_PI = math.log(_PI)
+_LITERAL = span("mm.sync.literal")
 
 
 def _rdiv(c: float, t):
     """c / t with c rounded to t's dtype first, as NumPy divides by a
     Python float; torch's `c / t` multiplies by t's reciprocal instead."""
-    return torch.tensor(c, dtype=t.dtype, device=t.device) / t
+    return _LITERAL.tensor(c, t.dtype, t.device) / t
 
 
 def _constants(ev):

@@ -50,6 +50,7 @@ from ..runtime.render import (float_inputs, pack_uint8, render_frame, resolve_re
 from ..runtime.tracer import RenderContext
 from ..runtime.value import InputImage, TiledInput
 from ..utils.errors import MMRuntimeError
+from ..utils.trace import span
 from .bounds import infer_displacement_bound
 from .distributed import all_reduce_max, exchange
 from .mesh import COL_AXIS, ROW_AXIS, assemble, axis_size
@@ -131,7 +132,8 @@ def _paint_edge_halo(ext, axis_idx: int, n_axis: int, halo: int, axis: int,
     lead = ext.narrow(axis, 0, halo) if axis_idx == 0 else None
     trail = ext.narrow(axis, ext_n - halo, halo) if axis_idx == n_axis - 1 else None
     if behavior == "color":
-        col = torch.tensor(edge_color, dtype=ext.dtype, device=ext.device)
+        with span("mm.sync.literal"):
+            col = torch.tensor(edge_color, dtype=ext.dtype, device=ext.device)
         for part in (lead, trail):
             if part is not None:
                 part.copy_(col.expand_as(part))
@@ -331,7 +333,8 @@ def render_frame_tiled(mesh, program_filters, fdef, width: int, height: int,
     if mesh.spans_processes:
         if check:
             if worst is None:
-                worst = torch.tensor(NO_SAMPLE, dtype=torch.int32, device=first)
+                with span("mm.sync.literal"):
+                    worst = torch.tensor(NO_SAMPLE, dtype=torch.int32, device=first)
             worst = all_reduce_max(worst)
         return LocalFrame(tiles, (height, width, 4)), worst
     return assemble([[tiles[r * tile_h, c * tile_w] for c in range(nx)] for r in range(ny)],
@@ -373,7 +376,8 @@ class TiledRenderer:
             self.mesh, *self.config, inputs, self.halo, self.params, t=t,
             frame=frame, check=self.check)
         if excess is not None:
-            worst = int(excess)  # the render's one sync
+            with span("mm.sync.readback"):
+                worst = int(excess)  # the render's one sync
             if worst > 0:
                 raise MMRuntimeError(
                     f"tiled render violated the bounded-displacement contract: "

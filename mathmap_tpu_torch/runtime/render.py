@@ -28,10 +28,16 @@ import torch
 from ..kernels.sample_image import u8_to_float
 from ..lang import astnodes as A
 from ..utils.errors import MMRuntimeError
+from ..utils.trace import span
 from .promotion import NumpyPromotion
 from .tracer import Evaluator, RenderContext, coerce_rgba
 from .uservals import convert_userval, default_userval
 from .value import InputImage, image_value
+
+_FRAME = span("mm.frame")
+_EVALUATE = span("mm.evaluate")
+#: the grids' four literals, each a copy that waits for the device's queue
+_GRID_LITERALS = span("mm.sync.literal", 4)
 
 
 def coordinate_grids(ctx: RenderContext, dx: float = 0.0, dy: float = 0.0):
@@ -45,14 +51,15 @@ def coordinate_grids(ctx: RenderContext, dx: float = 0.0, dy: float = 0.0):
     equals adding it."""
     h, w = ctx.shape
     dt, dev = ctx.dtype, ctx.device
-
-    def lit(v):
-        return torch.tensor(v, dtype=dt, device=dev)
-
+    with _GRID_LITERALS:
+        x_off = torch.tensor(0.5 + dx, dtype=dt, device=dev)
+        half_w = torch.tensor(ctx.width * 0.5, dtype=dt, device=dev)
+        half_h = torch.tensor(ctx.height * 0.5, dtype=dt, device=dev)
+        y_off = torch.tensor(0.5 + dy, dtype=dt, device=dev)
     cols = torch.arange(ctx.col_offset, ctx.col_offset + w, dtype=dt, device=dev)
     rows = torch.arange(ctx.row_offset, ctx.row_offset + h, dtype=dt, device=dev)
-    xs = cols + lit(0.5 + dx) - lit(ctx.width * 0.5)
-    ys = lit(ctx.height * 0.5) - (rows + lit(0.5 + dy))
+    xs = cols + x_off - half_w
+    ys = half_h - (rows + y_off)
     x = torch.broadcast_to(xs[None, :], (h, w))
     y = torch.broadcast_to(ys[:, None], (h, w))
     return x, y
@@ -134,10 +141,11 @@ def _eval_rgba(ctx: RenderContext, fdef: A.FilterDef, uservals: dict,
                dx: float = 0.0, dy: float = 0.0) -> list:
     """One unclipped evaluation of the filter over ctx's grid at subpixel
     offset (dx, dy) -> its 4 channel grids."""
-    x, y = coordinate_grids(ctx, dx, dy)
-    env = build_env(ctx, fdef, uservals)
-    ev = Evaluator(ctx, x, y, env)
-    return coerce_rgba(ev, ev.eval(fdef.body), fdef)
+    with _EVALUATE:
+        x, y = coordinate_grids(ctx, dx, dy)
+        env = build_env(ctx, fdef, uservals)
+        ev = Evaluator(ctx, x, y, env)
+        return coerce_rgba(ev, ev.eval(fdef.body), fdef)
 
 
 def _corners_rgba(ctx: RenderContext, fdef: A.FilterDef, uservals: dict) -> torch.Tensor:
@@ -265,9 +273,11 @@ def iter_jobs(program_filters: dict, fdef: A.FilterDef, width: int, height: int,
     for i in range(len(ts)):
         ins = [a if shared else a[i] for a, shared in zip(inputs, shared_mask)]
         job_params = params[i] if isinstance(params, (list, tuple)) else params
-        yield render(program_filters, fdef, width, height, opts, device, ins, job_params,
-                     t=float(ts[i]), frame=float(frames[i]),
-                     out=None if out is None else out[i])
+        with _FRAME:
+            frame = render(program_filters, fdef, width, height, opts, device, ins,
+                           job_params, t=float(ts[i]), frame=float(frames[i]),
+                           out=None if out is None else out[i])
+        yield frame
 
 
 def render_jobs(program_filters: dict, fdef: A.FilterDef, width: int, height: int,

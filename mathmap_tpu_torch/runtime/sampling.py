@@ -28,6 +28,9 @@ import torch
 from ..kernels.sample_image import _catmull_rom_weights, _tap, world_to_pixel
 from ..kernels.sample_image import sample_image as sample_kernel
 from ..kernels.sample_tiled import sample_tiled as tiled_kernel
+from ..utils.trace import span
+
+_LITERAL = span("mm.sync.literal")
 
 
 def _frame_plane(ev, img, frame):
@@ -57,8 +60,7 @@ def _sample_xla(ev, img, x, y, frames):
     h, w = img.global_shape
     gather = img.make_gather(frames)
     x, y = ev.grid(x), ev.grid(y)
-    col = [torch.tensor(float(c), dtype=torch.float32, device=x.device)
-           for c in opts.edge_color]
+    col = [_LITERAL.tensor(float(c), torch.float32, x.device) for c in opts.edge_color]
     px, py = world_to_pixel(x, y, w, h)
 
     def tap(ix, iy):

@@ -41,7 +41,10 @@ from ..runtime.value import ClosureImage, TupleValue, image_value
 from ..typesys import tags as tagmod
 from ..typesys.tags import NIL
 from ..utils.errors import MMNameError, MMRuntimeError, MMTypeError
+from ..utils.trace import span
 
+_LITERAL = span("mm.sync.literal")
+_LOOP = span("mm.sync.loop")
 _2PI = 2.0 * math.pi
 
 #: route of every while loop evaluated in this process, in order:
@@ -71,6 +74,13 @@ _CONST_FOLD_OPS = frozenset({
     "lerp", "smoothstep", "inintv",
     "conj", "rgbaColor", "rgbColor", "grayColor", "grayaColor", "gray",
 })
+
+
+def _any_active(mask) -> bool:
+    """The eager masked loop's check: the mask read on the host, a wait on
+    the device."""
+    with _LOOP:
+        return WL.any_active(mask)
 
 
 @dataclass
@@ -137,8 +147,9 @@ class Evaluator:
     # small helpers
     # ------------------------------------------------------------------
     def lit(self, v) -> torch.Tensor:
-        """A constant on the render device in the render dtype."""
-        return torch.tensor(v, dtype=self.ctx.dtype, device=self.ctx.device)
+        """A constant on the render device in the render dtype: on a card,
+        a copy from the host that waits for the device's queue."""
+        return _LITERAL.tensor(v, self.ctx.dtype, self.ctx.device)
 
     def grid(self, arr):
         """Broadcast a component to the full (H, W) grid."""
@@ -690,7 +701,8 @@ class Evaluator:
                 TRACE_LOOP_PATHS.append(("while_loop", max_iters))
             else:
                 flat_out, steps = WL.while_loop_reference(
-                    step, flat0, mask0, max_iters - n_done, opts.while_unroll, n_done)
+                    step, flat0, mask0, max_iters - n_done, opts.while_unroll, n_done,
+                    check=_any_active)
                 TRACE_LOOP_PATHS.append(("masked", n_done + steps))
         return finish(flat_out)
 

@@ -12,16 +12,19 @@ import torch
 from ..lang.astnodes import Param
 from ..typesys.tags import NIL
 from ..utils.errors import MMRuntimeError, MMTypeError
+from ..utils.trace import span
 from .value import (Curve, Gradient, InputImage, TupleValue, curve_value, gradient_value,
-                    image_value)
+                    image_value, to_device)
+
+_PARAM = span("mm.sync.param")
 
 
 def _tuple(ctx, tag: str, values, const=None) -> TupleValue:
     """Numeric, bool and color values are float32 0-d tensors in every
-    render, the float64 spec's included, as in the reference."""
-    return TupleValue(tag, tuple(torch.tensor(float(v), dtype=torch.float32,
-                                              device=ctx.device)
-                                 for v in values), const=const)
+    render, the float64 spec's included, as in the reference. Each is a
+    copy from the host, which on a card waits for the device's queue."""
+    arrays = tuple(_PARAM.tensor(float(v), torch.float32, ctx.device) for v in values)
+    return TupleValue(tag, arrays, const=const)
 
 
 def default_userval(ctx, p: Param) -> TupleValue:
@@ -94,7 +97,7 @@ def _curve(ctx, p: Param, value) -> Curve:
     """A Curve, a callable on the (K,) position ramp, or a 1-D LUT of at
     least 2 samples -> a Curve on the render device."""
     if isinstance(value, Curve):
-        return Curve(lut=value.lut.to(ctx.device, torch.float32), name=value.name)
+        return Curve(lut=to_device(value.lut.to(torch.float32), ctx.device), name=value.name)
     if callable(value):
         return Curve.from_function(ctx.device, value)
     lut = _lut_array(value)
@@ -102,21 +105,22 @@ def _curve(ctx, p: Param, value) -> Curve:
         raise MMTypeError(
             f"curve userval {p.name!r} needs a 1-D LUT of >=2 samples "
             f"(or a Curve / callable)", p.span)
-    return Curve(lut=lut.to(ctx.device).contiguous())
+    return Curve(lut=to_device(lut, ctx.device).contiguous())
 
 
 def _gradient(ctx, p: Param, value) -> Gradient:
     """A Gradient or an (N, 3) / (N, 4) array (RGB gets an opaque alpha)
     -> a Gradient on the render device."""
     if isinstance(value, Gradient):
-        return Gradient(lut=value.lut.to(ctx.device, torch.float32), name=value.name)
+        return Gradient(lut=to_device(value.lut.to(torch.float32), ctx.device),
+                        name=value.name)
     lut = _lut_array(value)
     if lut.dim() != 2 or lut.shape[1] not in (3, 4):
         raise MMTypeError(
             f"gradient userval {p.name!r} needs an (N,3) or (N,4) array", p.span)
     if lut.shape[1] == 3:
         lut = torch.cat([lut, torch.ones((lut.shape[0], 1), dtype=torch.float32)], dim=1)
-    return Gradient(lut=lut.to(ctx.device).contiguous())
+    return Gradient(lut=to_device(lut, ctx.device).contiguous())
 
 
 def _image(ctx, p: Param, value) -> InputImage:
@@ -126,7 +130,7 @@ def _image(ctx, p: Param, value) -> InputImage:
     a u8 image param, so it never feeds 0-255 values to the filter; any
     other dtype becomes float32."""
     if isinstance(value, InputImage):
-        return InputImage(pixels=value.pixels.to(ctx.device), name=value.name)
+        return InputImage(pixels=to_device(value.pixels, ctx.device), name=value.name)
     pix = value.detach() if isinstance(value, torch.Tensor) else torch.from_numpy(
         np.ascontiguousarray(value))
     if pix.dtype != torch.uint8:
@@ -135,4 +139,4 @@ def _image(ctx, p: Param, value) -> InputImage:
         raise MMTypeError(
             f"image userval {p.name!r} needs an (H,W,4) or animated "
             f"(T,H,W,4) array", p.span)
-    return InputImage(pixels=pix.to(ctx.device).contiguous(), name=p.name)
+    return InputImage(pixels=to_device(pix, ctx.device).contiguous(), name=p.name)

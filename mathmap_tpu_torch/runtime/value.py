@@ -25,6 +25,7 @@ import torch
 from ..kernels.sample_image import u8_to_float
 from ..kernels.sample_tiled import localize_period
 from ..utils.errors import MMTypeError
+from ..utils.trace import span
 from . import sampling
 
 
@@ -226,12 +227,21 @@ class ClosureImage(ImageBase):
         return ev.eval_filter_at(self.filter_def, self.args, x, y)
 
 
+def to_device(t: torch.Tensor, device) -> torch.Tensor:
+    """A param's LUT or image on `device`: a copy from the host, which on a
+    card waits for the device's queue (a `mm.sync.param` span)."""
+    if t.device.type != "cpu":
+        return t.to(device)
+    with span("mm.sync.param"):
+        return t.to(device)
+
+
 def _ramp(resolution: int, device) -> torch.Tensor:
     """np.linspace(0, 1, resolution, dtype=float32) on `device`, bit for
     bit: computed in float64 and rounded once, as numpy does (a float32
     torch.linspace differs from it in the last place)."""
-    return torch.from_numpy(
-        np.linspace(0.0, 1.0, resolution, dtype=np.float32)).to(device)
+    return to_device(torch.from_numpy(np.linspace(0.0, 1.0, resolution, dtype=np.float32)),
+                     device)
 
 
 @dataclass
@@ -249,8 +259,8 @@ class Curve:
     @staticmethod
     def from_function(device, fn: Callable[[torch.Tensor], Any],
                       resolution: int = 256) -> "Curve":
-        out = fn(_ramp(resolution, device))
-        return Curve(lut=torch.as_tensor(out, dtype=torch.float32, device=device))
+        out = torch.as_tensor(fn(_ramp(resolution, device)), dtype=torch.float32)
+        return Curve(lut=to_device(out, device))
 
 
 @dataclass

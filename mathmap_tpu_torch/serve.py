@@ -22,7 +22,9 @@
 
 Endpoints:
   GET  /healthz          {"ok": true, "platform": "cuda"|"cpu", "programs": N}
-  GET  /stats            counters + batch-size histogram + latency
+  GET  /stats            counters + batch-size histogram + latency, and
+                          under "trace" the process's spans and counters
+                          (utils/trace.snapshot)
   POST /warmup           {"filter": name|{"source": src}, "width", "height",
                           "batch_sizes": [1, 4, ...], ...options} -> renders
                           one batch of each size
@@ -69,6 +71,7 @@ from typing import Any
 import numpy as np
 
 from .runtime.options import RenderOptions
+from .utils import trace
 
 #: options forwarded from request JSON to RenderOptions. JSON arrays
 #: become tuples (edge_color, static_params, region: RenderOptions is
@@ -357,7 +360,9 @@ class RenderService:
 
     @staticmethod
     def _wait(job: _Job, timeout, what: str):
-        if not job.done.wait(timeout):
+        with trace.span("mm.serve.wait"):
+            done = job.done.wait(timeout)
+        if not done:
             raise TimeoutError(f"{what} timed out")
         if job.error is not None:
             raise job.error
@@ -428,6 +433,10 @@ class RenderService:
                 g.done.set()
 
     def _dispatch(self, group: list):
+        with trace.span("mm.serve.dispatch"):
+            self._render_group(group)
+
+    def _render_group(self, group: list):
         try:
             j0 = group[0]
             if j0.call is not None:
@@ -577,7 +586,7 @@ def make_handler(service: RenderService):
                 self._json(200, {"ok": True, "platform": service.platform,
                                  "programs": len(service._filters)})
             elif self.path == "/stats":
-                self._json(200, service.snapshot())
+                self._json(200, {**service.snapshot(), "trace": trace.snapshot()})
             elif self.path == "/artifacts":
                 self._json(200, {
                     name: {"width": a.manifest["width"], "height": a.manifest["height"],

@@ -23,8 +23,8 @@ import mathmap_tpu as mm
 import mathmap_tpu_torch as mt
 from mathmap_tpu.parallel.mesh import make_mesh as ref_make_mesh
 from mathmap_tpu_torch.convert import inputs_from_numpy, options_from_reference
-from mathmap_tpu_torch.kernels import sample_image as B1
 from mathmap_tpu_torch.runtime.value import InputImage
+from mathmap_tpu_torch.utils.trace import counter
 
 H, W, T = 16, 64, 3
 RTOL, ATOL = 1e-4, 1e-5
@@ -78,9 +78,9 @@ def test_per_pixel_frame_index_gather_path():
     """A per-pixel frame expression takes the two-axis gather, no kernel."""
     stack = _anim(2)
     port, ref = _both("origValXY(x, y, if x >= 0 then 2 else 0 end)")
-    before = B1.sample_image.launches
+    before = counter("launch.sample_image")
     out = port.render(stack, options=_port_opts(NEAREST), device="cpu").numpy()
-    assert B1.sample_image.launches == before
+    assert counter("launch.sample_image") == before
     right = (np.arange(W) + 0.5 - W / 2) >= 0
     np.testing.assert_array_equal(out[:, right], stack[2][:, right])
     np.testing.assert_array_equal(out[:, ~right], stack[0][:, ~right])
@@ -179,11 +179,11 @@ def test_single_frame_stack_pallas_path():
     """(1, H, W, 4) stacks (single-frame GIFs stay 4-D) sample their one
     frame through the sampler."""
     stack = np.random.RandomState(6).rand(1, 32, 64, 4).astype(np.float32)
-    before = B1.sample_image.launches
+    before = counter("launch.sample_image")
     out = mt.compile_source("origVal(xy)").render(stack, options=_port_opts(NEAREST),
                                                   device="cpu")
     np.testing.assert_array_equal(out.numpy(), stack[0])
-    assert B1.sample_image.launches == before  # the CPU runs the plain version
+    assert counter("launch.sample_image") == before  # the CPU runs the plain version
 
 
 def test_render_batch_input_validation():

@@ -28,6 +28,7 @@ from mathmap_tpu_torch.kernels import sample_image as K
 from mathmap_tpu_torch.kernels import sample_tiled as B4
 from mathmap_tpu_torch.kernels import while_loop as WL
 from mathmap_tpu_torch.runtime import tracer
+from mathmap_tpu_torch.utils.trace import counter
 
 pytestmark = pytest.mark.cuda
 
@@ -39,6 +40,8 @@ INTERPOLATIONS = ("nearest", "bilinear", "bicubic")
 EDGE_PAIRS = (("color", "color"), ("wrap", "wrap"), ("reflect", "reflect"),
               ("wrap", "reflect"), ("color", "wrap"))
 EDGE_COLOR = (0.25, 0.5, 0.75, 1.0)
+#: the launch counters of B1, B2 and B3
+_LAUNCH_COUNTERS = ("launch.sample_image", "launch.apply_lut", "launch.while_loop")
 
 
 @pytest.fixture
@@ -99,11 +102,11 @@ def test_cuda_kernel_matches_plain_version(cuda, interp, ex, ey, dtype, layout):
         x, y = x[:, :27].contiguous(), y[:, :27].contiguous()
     elif layout == "offset":
         x, y = _offset_view(x), _offset_view(y)
-    before = K.sample_image.launches
+    before = counter("launch.sample_image")
     got = K.sample_image(pix, x, y, interp, ex, ey, EDGE_COLOR)
     want = K.sample_image_reference(pix, x, y, interp, ex, ey, EDGE_COLOR)
     torch.cuda.synchronize()
-    assert K.sample_image.launches == before + 1
+    assert counter("launch.sample_image") == before + 1
     vec = K.vector_width(x.shape[1], x.data_ptr(), y.data_ptr(), got.data_ptr(), interp)
     assert vec == (LAYOUTS[layout] if interp in K.VECTOR_INTERPOLATIONS else 1)
     torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
@@ -148,10 +151,10 @@ def _smooth_image(w, h):
 def test_cuda_render_goes_through_the_kernel(cuda, name):
     f = mt.compile_file(os.path.join(ROOT, "filters", "Distorts", f"{name}.mm"))
     img = _smooth_image(64, 48)
-    before = K.sample_image.launches
+    before = counter("launch.sample_image")
     got = f.render(img, t=0.3, device=cuda)
     torch.cuda.synchronize()
-    assert K.sample_image.launches == before + 1
+    assert counter("launch.sample_image") == before + 1
     assert got.device.type == "cuda" and got.shape == (48, 64, 4)
     want = f.render(img, t=0.3, device="cpu")
     torch.testing.assert_close(got.cpu(), want, rtol=RTOL, atol=ATOL)
@@ -168,11 +171,11 @@ def test_cuda_lut_kernel_matches_plain_version(cuda, k, channels):
     pos = rs.uniform(-0.5, 1.5, (H, W)).astype(np.float32)
     pos[0, :2] = (0.0, 1.0)
     pos = torch.from_numpy(pos).to(cuda)
-    before = L.apply_lut.launches
+    before = counter("launch.apply_lut")
     got = L.apply_lut(lut, pos)
     want = L.apply_lut_reference(lut, pos)
     torch.cuda.synchronize()
-    assert L.apply_lut.launches == before + 1
+    assert counter("launch.apply_lut") == before + 1
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
 
 
@@ -199,22 +202,23 @@ def test_cuda_loop_kernel_matches_the_eager_loop(cuda, name):
     """Identical carried grids (escape counts included): --fmad=false and
     the eager ops' order make the kernel round like the eager loop."""
     f = mt.compile_file(os.path.join(ROOT, "filters", "Render", f"{name}.mm"))
-    before = WL.while_loop.launches
+    before = counter("launch.while_loop")
     (loop, flat0, mask0, max_iters, got), = _loop_calls(f, width=W, height=H, device=cuda)
     want, _ = WL.while_loop_reference(loop.step, flat0, mask0, max_iters, loop.unroll,
                                       loop.it_base)
     torch.cuda.synchronize()
-    assert WL.while_loop.launches == before + 1
+    assert counter("launch.while_loop") == before + 1
     for a, b in zip(got, want):
         assert torch.equal(a, b)
 
 
 def test_cuda_mandelbrot_render_launches_both_kernels(cuda):
     f = mt.compile_file(os.path.join(ROOT, "filters", "Render", "mandelbrot.mm"))
-    before = (L.apply_lut.launches, WL.while_loop.launches)
+    before = (counter("launch.apply_lut"), counter("launch.while_loop"))
     got = f.render(width=64, height=48, device=cuda)
     torch.cuda.synchronize()
-    assert (L.apply_lut.launches, WL.while_loop.launches) == (before[0] + 1, before[1] + 1)
+    assert ((counter("launch.apply_lut"), counter("launch.while_loop"))
+            == (before[0] + 1, before[1] + 1))
     want = f.render(width=64, height=48, device="cpu")
     torch.testing.assert_close(got.cpu(), want, rtol=RTOL, atol=ATOL)
 
@@ -318,11 +322,11 @@ def test_cuda_tiled_kernel_matches_plain_version(cuda, block, interp, ex, ey):
     geom = dict(gh=gh, gw=gw, row_base=r * th - hy, col_base=c * tw - hx if nx > 1 else 0,
                 col_sharded=nx > 1, interpolation=interp, edge_x=ex, edge_y=ey,
                 edge_color=EDGE_COLOR)
-    before = B4.sample_tiled.launches
+    before = counter("launch.sample_tiled")
     got, excess = B4.sample_tiled(ext, x, y, **geom)
     want, want_excess = B4.sample_tiled_reference(ext, x, y, **geom)
     torch.cuda.synchronize()
-    assert B4.sample_tiled.launches == before + 1
+    assert counter("launch.sample_tiled") == before + 1
     torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
     assert int(excess) == int(want_excess)
     unchecked, none = B4.sample_tiled(ext, x, y, check=False, **geom)
@@ -335,16 +339,16 @@ def test_cuda_tiled_pond_launches_the_tiled_kernel_per_tile(cuda):
     f = mt.compile_file(os.path.join(ROOT, "filters", "Distorts", "pond.mm"))
     img = torch.from_numpy((_smooth_image(96, 128) * 255 + 0.5).astype(np.uint8)).to(cuda)
     mesh = mt.make_mesh(1, 4, 1, devices=[cuda] * 4)
-    before = B4.sample_tiled.launches
+    before = counter("launch.sample_tiled")
     got = f.render_tiled(img, mesh=mesh)
     torch.cuda.synchronize()
-    assert B4.sample_tiled.launches == before + 4
+    assert counter("launch.sample_tiled") == before + 4
     want = f.render(img, device=cuda)
     torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
-    before = K.sample_image.launches
+    before = counter("launch.sample_image")
     sharded = f.render_sharded(img, mesh=mesh)
     torch.cuda.synchronize()
-    assert K.sample_image.launches == before + 4
+    assert counter("launch.sample_image") == before + 4
     torch.testing.assert_close(sharded, want, rtol=RTOL, atol=ATOL)
 
 
@@ -369,11 +373,11 @@ def test_cuda_tiled_and_sharded_renders_across_every_card(cuda):
     meshes = [mt.make_mesh()] + ([mt.make_mesh(1, n // 2, 2)] if n % 2 == 0 else [])
     for mesh in meshes:
         assert {d.index for d in mesh.devices.flat} == set(range(n))
-        before = B4.sample_tiled.launches
+        before = counter("launch.sample_tiled")
         got = pond.render_tiled(img, mesh=mesh)
         for i in range(n):
             torch.cuda.synchronize(i)
-        assert B4.sample_tiled.launches == before + n
+        assert counter("launch.sample_tiled") == before + n
         assert got.device == first
         torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
         torch.testing.assert_close(pond.render_sharded(img, mesh=mesh), want,
@@ -413,10 +417,10 @@ def test_cuda_rand_loop_tiles_draw_by_the_global_index(cuda):
     each with its tile's offsets, the unsharded render's pixels."""
     f = mt.compile_source(RAND_WALK)
     want = f.render(width=64, height=48, device=cuda)
-    before = WL.while_loop.launches
+    before = counter("launch.while_loop")
     got = f.render_sharded(width=64, height=48, mesh=mt.make_mesh(1, 2, 2, devices=[cuda] * 4))
     torch.cuda.synchronize()
-    assert WL.while_loop.launches == before + 4
+    assert counter("launch.while_loop") == before + 4
     assert torch.equal(got, want)
 
 
@@ -479,11 +483,10 @@ def test_cuda_region_is_the_full_render_cropped(cuda, name, folder, out_dtype):
     imgs = [torch.from_numpy(_source("u8")).to(cuda)] if f.image_params else []
     kw = dict(width=W, height=H, device=cuda)
     full = f.render(*imgs, options=mt.RenderOptions(output_dtype=out_dtype), **kw)
-    counts = [w.launches for w in (K.sample_image, L.apply_lut, WL.while_loop)]
+    counts = [counter(n) for n in _LAUNCH_COUNTERS]
     got = f.render(*imgs, options=mt.RenderOptions(output_dtype=out_dtype, region=REG), **kw)
     torch.cuda.synchronize()
-    launched = [w.launches - c for w, c in zip((K.sample_image, L.apply_lut, WL.while_loop),
-                                               counts)]
+    launched = [counter(n) - c for n, c in zip(_LAUNCH_COUNTERS, counts)]
     assert launched == ([1, 0, 0] if f.image_params else [0, 1, 1])
     x, y, w, h = REG
     assert got.shape == (h, w, 4)
@@ -597,10 +600,10 @@ def test_cuda_artifact_equals_the_live_render_through_the_ops(cuda, name, tmp_pa
                     device=cuda)
     art = load_artifact(path)
     assert art.platforms == ("cuda",)
-    before = [w.launches for w in (K.sample_image, L.apply_lut, WL.while_loop)]
+    before = [counter(n) for n in _LAUNCH_COUNTERS]
     got = art.render(*ins, params=p, t=0.35)
     torch.cuda.synchronize()
-    after = [w.launches for w in (K.sample_image, L.apply_lut, WL.while_loop)]
+    after = [counter(n) for n in _LAUNCH_COUNTERS]
     assert tuple(a - b for a, b in zip(after, before)) == launches
     want = f.render(*ins, params=p, t=0.35, width=WI, height=HI, device=cuda)
     assert torch.equal(got, want)

@@ -30,26 +30,27 @@ import numpy as np
 import mathmap_tpu_torch as mt
 import mathmap_tpu_torch.convert  # noqa: F401
 import mathmap_tpu_torch.kernels.build  # noqa: F401
-import mathmap_tpu_torch.kernels.sample_image as K
+import mathmap_tpu_torch.kernels.sample_image  # noqa: F401
+from mathmap_tpu_torch.utils.trace import counter
 
 f = mt.compile_file("filters/Distorts/fisheye.mm")
 img = np.random.RandomState(0).rand(16, 20, 4).astype(np.float32)
 out = f.render(img, device="cpu")
 assert tuple(out.shape) == (16, 20, 4), out.shape
-assert K.sample_image.launches == 0
+assert counter("launch.sample_image") == 0
 m = mt.compile_file("filters/Render/mandelbrot.mm").render(width=20, height=16, device="cpu")
 assert tuple(m.shape) == (16, 20, 4), m.shape
 import mathmap_tpu_torch.parallel.bounds  # noqa: F401
 import mathmap_tpu_torch.parallel.halo  # noqa: F401
 import mathmap_tpu_torch.parallel.shard  # noqa: F401
-import mathmap_tpu_torch.kernels.sample_tiled as B4
+import mathmap_tpu_torch.kernels.sample_tiled  # noqa: F401
 mesh = mt.make_mesh(1, 2, 2, devices=["cpu"] * 4)
 p = mt.compile_file("filters/Distorts/pond.mm")
 img = np.random.RandomState(1).rand(64, 48, 4).astype(np.float32)
 tiled = p.render_tiled(img, halo=(3, 3), mesh=mesh, params={"amplitude": 1.0})
 sharded = p.render_sharded(img, mesh=mesh)
 assert tuple(tiled.shape) == tuple(sharded.shape) == (64, 48, 4)
-assert B4.sample_tiled.launches == 0
+assert counter("launch.sample_tiled") == 0
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "mathmap_tpu", "PIL"))
 assert not loaded, loaded

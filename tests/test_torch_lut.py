@@ -17,6 +17,7 @@ import mathmap_tpu_torch as mt
 from mathmap_tpu_torch.convert import params_from_reference
 from mathmap_tpu_torch.kernels.apply_lut import apply_lut, apply_lut_reference
 from mathmap_tpu_torch.runtime.value import Curve, Gradient
+from mathmap_tpu_torch.utils.trace import counter
 
 RTOL, ATOL = 1e-4, 1e-5
 
@@ -47,9 +48,9 @@ def test_plain_version_equals_the_oracle_lut_take(k, channels):
 def test_wrapper_takes_the_plain_version_on_the_cpu():
     lut = torch.from_numpy(np.random.RandomState(1).rand(256, 4).astype(np.float32))
     pos = torch.from_numpy(_positions(2))
-    before = apply_lut.launches
+    before = counter("launch.apply_lut")
     assert torch.equal(apply_lut(lut, pos), apply_lut_reference(lut, pos))
-    assert apply_lut.launches == before  # CPU calls never count
+    assert counter("launch.apply_lut") == before  # CPU calls never count
 
 
 def test_zero_d_position_and_nan():

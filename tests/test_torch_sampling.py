@@ -20,6 +20,7 @@ from mathmap_tpu.runtime.tracer import RenderContext as RefContext
 from mathmap_tpu.runtime.value import InputImage as RefInputImage
 from mathmap_tpu_torch.kernels import build
 from mathmap_tpu_torch.kernels import sample_image as K
+from mathmap_tpu_torch.utils.trace import counter
 
 HI, WI = 24, 32  # source image, non-square
 H, W = 20, 28  # coordinate grid
@@ -70,10 +71,10 @@ def _reference(interp, ex, ey, pixels_f32, x, y):
 def test_plain_sampler_matches_reference(interp, ex, ey, dtype):
     src, src_f32 = _source(dtype)
     x, y = _coords()
-    before = K.sample_image.launches
+    before = counter("launch.sample_image")
     got = K.sample_image(torch.from_numpy(src), torch.from_numpy(x), torch.from_numpy(y),
                          interp, ex, ey, EDGE_COLOR)
-    assert K.sample_image.launches == before  # CPU tensors never launch
+    assert counter("launch.sample_image") == before  # CPU tensors never launch
     assert got.shape == (4, H, W) and got.dtype == torch.float32
     want = _reference(interp, ex, ey, src_f32, x, y)
     np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)

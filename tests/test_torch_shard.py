@@ -25,9 +25,9 @@ import torch
 import mathmap_tpu as mm
 import mathmap_tpu_torch as mt
 from mathmap_tpu.parallel.mesh import make_mesh as ref_make_mesh
-from mathmap_tpu_torch.kernels import sample_image as B1
 from mathmap_tpu_torch.lang.parser import parse
 from mathmap_tpu_torch.parallel.halo import auto_halo
+from mathmap_tpu_torch.utils.trace import counter
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 RTOL, ATOL = 1e-4, 1e-5
@@ -77,9 +77,9 @@ def test_render_sharded_matches_the_reference_and_the_unsharded_render(case, mes
     want = np.asarray(ref.render_sharded(*inputs, width=w, height=h,
                                          mesh=ref_make_mesh(*mesh_shape), **kw))
     port = _compile(mt, src)
-    before = B1.sample_image.launches
+    before = counter("launch.sample_image")
     got = port.render_sharded(*inputs, width=w, height=h, mesh=port_mesh(mesh_shape), **kw)
-    assert B1.sample_image.launches == before  # CPU tiles never launch
+    assert counter("launch.sample_image") == before  # CPU tiles never launch
     assert got.shape == (h, w, 4) and got.device.type == "cpu"
     np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
     unsharded = port.render(*inputs, width=w, height=h, device="cpu", **kw)

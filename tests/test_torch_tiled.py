@@ -24,7 +24,7 @@ import mathmap_tpu as mm
 import mathmap_tpu_torch as mt
 from mathmap_tpu.parallel.mesh import make_mesh as ref_make_mesh
 from mathmap_tpu_torch.convert import options_from_reference
-from mathmap_tpu_torch.kernels import sample_tiled as B4
+from mathmap_tpu_torch.utils.trace import counter
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 H, W = 32, 16
@@ -191,9 +191,9 @@ def test_check_raises_the_port_error_and_names_the_halo():
 def test_tiled_render_equals_the_unsharded_render_and_runs_no_kernel_on_the_cpu():
     f = mt.compile_file(os.path.join(ROOT, "filters", "Distorts", "pond.mm"))
     img = _u8(3, 128, 96)  # 32-row tiles hold pond's auto halo of 27 rows
-    before = B4.sample_tiled.launches
+    before = counter("launch.sample_tiled")
     got = f.render_tiled(img, mesh=port_mesh((1, 4, 1)))
-    assert B4.sample_tiled.launches == before
+    assert counter("launch.sample_tiled") == before
     np.testing.assert_array_equal(got.numpy(), f.render(img, device="cpu").numpy())
 
 

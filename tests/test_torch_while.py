@@ -25,6 +25,7 @@ import mathmap_tpu_torch as mt
 from mathmap_tpu_torch.kernels import while_loop as WL
 from mathmap_tpu_torch.ops.rand import rand_index
 from mathmap_tpu_torch.runtime import tracer
+from mathmap_tpu_torch.utils.trace import counter
 from test_torch_cuda import GENERATOR_BODIES, generator_source
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
@@ -389,6 +390,6 @@ def test_a_traced_value_cannot_drive_python_control_flow():
 
 def test_cpu_loops_never_count_launches():
     f = mt.compile_file(os.path.join(ROOT, "filters", "Render", "mandelbrot.mm"))
-    before = WL.while_loop.launches
+    before = counter("launch.while_loop")
     f.render(width=16, height=8, device="cpu")
-    assert WL.while_loop.launches == before
+    assert counter("launch.while_loop") == before
