@@ -205,10 +205,21 @@ Phases, each printing its own lines:
    and ridged_noise exports a second time. Timings: export and load
    seconds, the artifact's and the live render's fenced medians and
    cudaStreamSynchronize calls a render.
+27. B5 vs plain (run before phase 5): the frame's finish kernel against
+   its plain version (the eager chain it replaced) on the same CUDA
+   tensors, bit for bit, planes seeded with NaN, ±inf and -0.0, weights
+   1 and 1/9, float32 and uint8 out: at 3840x2160 and 1920x1080, into a
+   batch's slice, on moire's layout (a contiguous plane, a row and a
+   column broadcast and a constant), at the ragged 1919x1081 (the row's
+   end masked) and into an output one element off alignment (the narrow
+   instantiation, a store a channel); each case prints its
+   instantiation. Timed last: B5 at 4K and 1080p, float32 and uint8 out,
+   on contiguous planes and on moire's layout, in turns with the eager
+   chain (its plain ms), beside its bytes bound.
 
-Every main path (phases 5, 6, 8, 9, 11-26) runs with the four launch
-counts set to 0 just before it and read just after; the kernels line
-gives each kernel's launches by path. Then the timings: phase 10's and
+Every main path (phases 5, 6, 8, 9, 11-26) runs with the five launch
+counts (B1-B5) set to 0 just before it and read just after; the kernels
+line gives each kernel's launches by path. Then the timings: phase 10's and
 11's, B3's bound (this run's pixel iterations x the distinct ops of an
 iteration, integer ops at half rate, over the single-op issue rate SMs x
 128 lanes x clocks.max.sm, with the loop's SASS instruction count beside
@@ -1318,8 +1329,9 @@ def phase_sharded_path(mt, K, L, WL, dev, filters):
 
 
 #: the program's launch counters (utils/trace.py) of kernels B1-B4
-LAUNCH_B1, LAUNCH_B2, LAUNCH_B3, LAUNCH_B4 = (
-    "launch.sample_image", "launch.apply_lut", "launch.while_loop", "launch.sample_tiled")
+LAUNCH_B1, LAUNCH_B2, LAUNCH_B3, LAUNCH_B4, LAUNCH_B5 = (
+    "launch.sample_image", "launch.apply_lut", "launch.while_loop", "launch.sample_tiled",
+    "launch.finish_rgba")
 #: each counter's value when zero_launches last named it
 _LAUNCH_ZERO: dict = {}
 
@@ -2884,7 +2896,7 @@ def distributed_worker(rank: int, n: int, coord: str, out_dir: str, backend: str
     torch.cuda.set_device(index)
     dev = torch.device("cuda", index)
     distributed.initialize(coord, num_processes=n, process_id=rank, backend=backend)
-    wrappers = (LAUNCH_B1, LAUNCH_B2, LAUNCH_B3, LAUNCH_B4)
+    wrappers = (LAUNCH_B1, LAUNCH_B2, LAUNCH_B3, LAUNCH_B4, LAUNCH_B5)
     report = {"rank": rank, "backend": dist.get_backend(), "jobs": {}}
 
     def job(name, call):
@@ -3062,7 +3074,7 @@ def phase_distributed(mt, B4, dev, work: Path, card: str) -> tuple:
     4-frame sweep over (2, 2, 1), B2 and B3 on each rank. Every rank's
     tiles equal the one-process card render's over a mesh of the same
     shape bit for bit. Then the NCCL route at world size 1 and, with two
-    cards, the tiled pond on NCCL. Returns the (B1, B2, B3, B4) launches
+    cards, the tiled pond on NCCL. Returns the (B1, B2, B3, B4, B5) launches
     of every rank's counted jobs."""
     w, h = SIZES[0]
     img = torch.from_numpy(smooth_image(w, h, seed=45)[1]).to(dev)
@@ -3092,7 +3104,7 @@ def phase_distributed(mt, B4, dev, work: Path, card: str) -> tuple:
         want_error = str(e)
     else:
         raise AssertionError("a sample past the halo did not raise in one process")
-    total = [0, 0, 0, 0]
+    total = [0, 0, 0, 0, 0]
     # the gloo fleet and NCCL at world size 1 start together; the gloo
     # ranks time their frames once the other fleet has exited (TIMING_GO)
     go = work / TIMING_GO
@@ -3125,7 +3137,7 @@ def phase_distributed(mt, B4, dev, work: Path, card: str) -> tuple:
             if "twirl" in rep["jobs"]:
                 done = rep["jobs"]["twirl"]
                 tile_h = h // (n * DISTRIBUTED_TILES)
-                if (done["launches"] != [DISTRIBUTED_TILES, 0, 0, 0]
+                if (done["launches"] != [DISTRIBUTED_TILES, 0, 0, 0, DISTRIBUTED_TILES]
                         or done["b1_all_ranks"] != n * DISTRIBUTED_TILES):
                     raise AssertionError(f"{tag} twirl: {done}")
                 if done["rows"] != [(r * DISTRIBUTED_TILES + k) * tile_h
@@ -3162,7 +3174,7 @@ def phase_distributed(mt, B4, dev, work: Path, card: str) -> tuple:
         print(f"{tag} on {'cuda:0' if n == 1 or backend == 'gloo' else 'a card each'}: "
               f"{', '.join(reports[0]['jobs'])}: every rank's tiles equal to the "
               f"one-process card render's over a mesh of the same shape bit for bit; "
-              f"(B1, B2, B3, B4) launches by rank and job {launches}; "
+              f"(B1, B2, B3, B4, B5) launches by rank and job {launches}; "
               f"{wall:.1f} s wall with process start-up")
         if "check" in reports[0]["jobs"]:
             print(f"{tag}: a sample 40 rows away with halo 4 raises the same error on "
@@ -3315,6 +3327,127 @@ def phase_float64_spec(mt, K, L, WL, B4, dev, filters, st, lib, card: str) -> di
     return worst
 
 
+#: values seeded into B5's planes: NaN, ±inf, signed zeros, the clamp's
+#: ends and either side of them, the uint8 pack's rounding edges
+FINISH_SPECIALS = (float("nan"), float("inf"), float("-inf"), -0.0, 0.0, 1.0, -1e-8,
+                   1 + 1e-7, 0.5 / 255, 1.5 / 255, 127.5 / 255, 254.5 / 255, 3e38, -3e38)
+
+
+def finish_planes(w: int, h: int, dev, layout: str = "contiguous", seed: int = 11) -> list:
+    """Four (h, w) float32 planes on the card, values in [-0.5, 1.5) with
+    FINISH_SPECIALS seeded in: "contiguous" as a sampler's or LUT's output
+    unbinds them, or "moire" (a contiguous plane, a row broadcast, a column
+    broadcast and a constant: stride 0 on one axis or both)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def values(*shape):
+        v = torch.rand(shape, generator=g, device=dev) * 2.0 - 0.5
+        flat = v.view(-1)
+        n = min(flat.numel(), len(FINISH_SPECIALS))
+        at = torch.randperm(flat.numel(), generator=g, device=dev)[:n]
+        flat[at] = torch.tensor(FINISH_SPECIALS[:n], device=dev)
+        return v
+
+    if layout == "contiguous":
+        return list(values(4, h, w).unbind(0))
+    return [values(h, w), values(1, w).expand(h, w), values(h, 1).expand(h, w),
+            values(1, 1).expand(h, w)]
+
+
+def b5_instantiation(B5, out) -> str:
+    """B5's instantiation for this output: one store a pixel or a channel."""
+    wide = B5.wide_stores(out.data_ptr(), out.stride(0) * out.element_size(),
+                          out.dtype == torch.uint8)
+    return "wide" if wide else "narrow"
+
+
+def finish_bytes(planes, out) -> int:
+    """B5's bytes: each plane's distinct values read once (a broadcast
+    plane's row, column or value), the frame written once."""
+    read = 0
+    for a in planes:
+        n = 1
+        for size, stride in zip(a.shape, a.stride()):
+            n *= size if stride else 1
+        read += n * 4
+    return read + out.numel() * out.element_size()
+
+
+#: phase 27's cases: (label, w, h, plane layout, output: a new frame, a
+#: batch's slice or a view one element off alignment)
+FINISH_CASES = (("4k", 3840, 2160, "contiguous", "new"),
+                ("1080p", 1920, 1080, "contiguous", "new"),
+                ("1080p batch slice", 1920, 1080, "contiguous", "batch"),
+                ("moire 4k", 3840, 2160, "moire", "new"),
+                ("ragged", 1919, 1081, "contiguous", "new"),
+                ("unaligned out", 1920, 1080, "contiguous", "unaligned"))
+
+
+def phase_finish_vs_plain(B5, dev) -> float:
+    """Phase 27's check: B5 against its plain version bit for bit; each
+    case prints its instantiation. Returns the worst difference (0.0)."""
+    for label, w, h, layout, where in FINISH_CASES:
+        planes = finish_planes(w, h, dev, layout)
+        for u8 in (False, True):
+            dtype = torch.uint8 if u8 else torch.float32
+            for inv in (1.0, 1.0 / 9):
+                if where == "batch":
+                    out = torch.full((3, h, w, 4), 7, dtype=dtype, device=dev)[1]
+                elif where == "unaligned":
+                    out = torch.empty(h * w * 4 + 1, dtype=dtype, device=dev)[1:].view(h, w, 4)
+                else:
+                    out = torch.empty((h, w, 4), dtype=dtype, device=dev)
+                before = launch_count(LAUNCH_B5)
+                got = B5.finish_rgba(planes, inv, u8, None if where == "new" else out)
+                want = B5.finish_rgba_reference(planes, inv, u8)
+                torch.cuda.synchronize()
+                if launch_count(LAUNCH_B5) != before + 1:
+                    raise AssertionError(f"B5 {label}: not one launch")
+                bits = (lambda t: t) if u8 else (lambda t: t.view(torch.int32))
+                if not torch.equal(bits(got), bits(want)):
+                    raise AssertionError(f"B5 {label} {'u8' if u8 else 'f32'} inv {inv}: "
+                                         f"{int((bits(got) != bits(want)).sum())} values "
+                                         f"differ from the plain version")
+            print(f"B5 vs plain {label} {w}x{h} {'u8' if u8 else 'f32'} out: bit for bit "
+                  f"at inv 1 and 1/9, {b5_instantiation(B5, out)} stores")
+    return 0.0
+
+
+def time_b5(B5, dev, card) -> dict:
+    """Phase 27's timings: B5 in turns with the eager chain it replaced
+    (its plain ms) at each size, float32 and uint8 out, on contiguous
+    planes and moire's layout, beside the bytes bound. Returns the 4K
+    float32 contiguous record with the other 4K and 1080p times beside."""
+    records = {}
+    for (w, h) in SIZES:
+        for layout in ("contiguous", "moire"):
+            planes = finish_planes(w, h, dev, layout)
+            for u8 in (False, True):
+                out = torch.empty((h, w, 4), dtype=torch.uint8 if u8 else torch.float32,
+                                  device=dev)
+                kernel_ms, plain_ms = turns(
+                    lambda: B5.finish_rgba_reference(planes, 1.0, u8, out),
+                    lambda: B5.finish_rgba(planes, 1.0, u8, out), 20, 100)
+                n_bytes = finish_bytes(planes, out)
+                bound, by = bound_ms(n_bytes)
+                tag = f"{'u8' if u8 else 'f32'}"
+                print(f"timing B5 {w}x{h} {layout:10s} {tag:3s} out, "
+                      f"{b5_instantiation(B5, out)} stores: kernel {kernel_ms:.4f} ms, bound "
+                      f"{bound:.4f} ms ({n_bytes / 1e6:.1f} MB, {by}), "
+                      f"{100 * bound / kernel_ms:.1f}% of bound, plain (the eager chain) "
+                      f"{plain_ms:.4f} ms ({plain_ms / kernel_ms:.1f}x) [{card}]")
+                records[(w, h, layout, tag)] = dict(ms=kernel_ms, plain_ms=plain_ms,
+                                                    bound_ms=bound, bound_by=by)
+    w, h = SIZES[1]
+    record = dict(records[(w, h, "contiguous", "f32")])
+    record.update(u8_ms=records[(w, h, "contiguous", "u8")]["ms"],
+                  moire_ms=records[(w, h, "moire", "f32")]["ms"],
+                  ms_1080p=records[(SIZES[0][0], SIZES[0][1], "contiguous", "f32")]["ms"],
+                  u8_ms_1080p=records[(SIZES[0][0], SIZES[0][1], "contiguous", "u8")]["ms"],
+                  instantiation="finish_rgba_kernel<float32 out, wide stores>")
+    return record
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--distributed-worker"]:
         rank, n, coord, out_dir, backend, jobs = sys.argv[2:8]
@@ -3330,6 +3463,7 @@ def main() -> int:
     import mathmap_tpu_torch as mt
     from mathmap_tpu_torch.kernels import apply_lut as L
     from mathmap_tpu_torch.kernels import build
+    from mathmap_tpu_torch.kernels import finish_rgba as B5
     from mathmap_tpu_torch.kernels import sample_image as K
     from mathmap_tpu_torch.kernels import sample_tiled as B4
     from mathmap_tpu_torch.kernels import while_loop as WL
@@ -3363,9 +3497,10 @@ def main() -> int:
     worst_b3, worst_rand = phase_loop_vs_plain(mt, WL, tracer, dev, filters, sin_filter,
                                                rand_walk)
     worst_b4 = phase_tiled_vs_plain(B4, dev)
+    worst_b5 = phase_finish_vs_plain(B5, dev)
     # each main path with every launch count set to 0 just before it and
-    # read just after (B1, B2, B3, B4)
-    wrappers = (LAUNCH_B1, LAUNCH_B2, LAUNCH_B3, LAUNCH_B4)
+    # read just after (B1, B2, B3, B4, B5)
+    wrappers = (LAUNCH_B1, LAUNCH_B2, LAUNCH_B3, LAUNCH_B4, LAUNCH_B5)
     by_path = {}
 
     def path(name, phase, *args):
@@ -3404,7 +3539,7 @@ def main() -> int:
         # the fleet's launches are its worker processes' own counts
         by_path["distributed"] = path("distributed", phase_distributed, mt, B4, dev, work,
                                       card)
-        names = ("sample_image", "apply_lut", "while_loop", "sample_tiled")
+        names = ("sample_image", "apply_lut", "while_loop", "sample_tiled", "finish_rgba")
         launches = {name: {p: c[k] for p, c in by_path.items() if c[k]}
                     for k, name in enumerate(names)}
         for name, paths in launches.items():
@@ -3425,6 +3560,7 @@ def main() -> int:
         time_gaussian_blur(NF, dev, card)
         time_region_corners(mt, dev, filters, st, card)
         time_cli_frame(mt, dev, work, card)
+        b5 = time_b5(B5, dev, card)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     from mathmap_tpu_torch.utils.trace import snapshot
@@ -3463,6 +3599,10 @@ def main() -> int:
          "source": "mathmap_tpu_torch/csrc/sample_tiled.cu",
          "replaces": "mathmap_tpu/runtime/sampling.py:188",
          **counted("sample_tiled"), "max_abs_err": worst_b4, **b4},
+        {"name": "finish_rgba", "route": "cuda",
+         "source": "mathmap_tpu_torch/csrc/finish_rgba.cu",
+         "replaces": "none (the eager finish of runtime/render.py::render_frame)",
+         **counted("finish_rgba"), "max_abs_err": worst_b5, **b5},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

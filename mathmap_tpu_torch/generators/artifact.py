@@ -9,12 +9,13 @@ serialised `ExportedProgram`. The program takes the input images, one
 tensor per param leaf (a slider, a colour component, a curve or gradient
 LUT), `t` and `frame`, so a param value or a time changes at call time
 without a new export. The hand-written kernels are custom ops inside it:
-`mathmap::sample_image` (B1), `mathmap::apply_lut` (B2) and
+`mathmap::sample_image` (B1), `mathmap::apply_lut` (B2),
 `mathmap::while_loop` (B3, whose first argument is the loop's traced op
-list as text), with `mathmap::libm` for the CPU's numpy transcendentals
-(ops/libm.py). `load_artifact` imports torch, numpy and the modules that
-register those ops, and nothing else of the package: no parser, evaluator
-or builtin table.
+list as text) and, in a program traced on the card, `mathmap::finish_rgba`
+(B5, the frame's finish), with `mathmap::libm` for the CPU's numpy
+transcendentals (ops/libm.py). `load_artifact` imports torch, numpy and
+the modules that register those ops, and nothing else of the package: no
+parser, evaluator or builtin table.
 
 A loop goes into the program as the live render runs it: unrolled when
 its trip count folds at trace time, as kernel B3's op when B3 takes it,
@@ -50,6 +51,7 @@ import torch
 
 # register the custom ops an exported program calls
 from ..kernels import apply_lut as _b2  # noqa: F401
+from ..kernels import finish_rgba as _b5  # noqa: F401
 from ..kernels import sample_image as _b1
 from ..kernels import while_loop as _b3
 from ..ops import libm as _libm  # noqa: F401

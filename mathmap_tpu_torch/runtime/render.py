@@ -25,10 +25,12 @@ from dataclasses import replace
 import numpy as np
 import torch
 
+from ..kernels import finish_rgba as B5
+from ..kernels.finish_rgba import pack_uint8
 from ..kernels.sample_image import u8_to_float
 from ..lang import astnodes as A
 from ..utils.errors import MMRuntimeError
-from ..utils.trace import span
+from ..utils.trace import count, span
 from .promotion import NumpyPromotion
 from .tracer import Evaluator, RenderContext, coerce_rgba
 from .uservals import convert_userval, default_userval
@@ -129,14 +131,6 @@ def build_env(ctx: RenderContext, fdef: A.FilterDef, uservals: dict):
     return env
 
 
-def pack_uint8(rgba: torch.Tensor, out: torch.Tensor | None = None) -> torch.Tensor:
-    """Device-side 8-bit packing, the reference's rule: clip to [0,1],
-    ·255 + 0.5, floor. The explicit floor makes the float->int convert
-    exact. `out`: a uint8 tensor to cast into."""
-    x = torch.floor(torch.clamp(rgba, 0.0, 1.0) * 255.0 + 0.5)
-    return x.to(torch.uint8) if out is None else out.copy_(x)
-
-
 def _eval_rgba(ctx: RenderContext, fdef: A.FilterDef, uservals: dict,
                dx: float = 0.0, dy: float = 0.0) -> list:
     """One unclipped evaluation of the filter over ctx's grid at subpixel
@@ -170,8 +164,14 @@ def render_frame(ctx: RenderContext, fdef: A.FilterDef, uservals: dict,
                  out: torch.Tensor | None = None):
     """Render one frame, one tile of it or one region of it -> ctx.shape +
     (4,) in [0,1], float32 (float64 in the float64 spec render), or uint8
-    when opts.output_dtype='uint8', written into `out` when given."""
+    when opts.output_dtype='uint8', written into `out` when given.
+
+    The grid scheme's finish (scale, clamp, interleave, pack) is kernel B5
+    (kernels/finish_rgba.py) on the card; the CPU, the float64 spec, other
+    dtypes and the corners scheme finish in eager torch, each such frame
+    counted as `finish.eager`."""
     s = ctx.opts.supersample
+    u8 = ctx.opts.output_dtype == "uint8"
     if s > 1 and ctx.opts.supersample_scheme == "corners":
         rgba = _corners_rgba(ctx, fdef, uservals)
     else:
@@ -180,8 +180,11 @@ def render_frame(ctx: RenderContext, fdef: A.FilterDef, uservals: dict,
             comps = _eval_rgba(ctx, fdef, uservals, dx, dy)
             acc = list(comps) if acc is None else [a + c for a, c in zip(acc, comps)]
         inv = 1.0 / (s * s)
+        if B5.takes(acc, u8, out):
+            return B5.finish_rgba(acc, inv, u8, out)
         rgba = torch.stack([a * inv for a in acc], dim=-1)
-    if ctx.opts.output_dtype == "uint8":
+    count("finish.eager")
+    if u8:
         return pack_uint8(rgba, out)
     # clamp to displayable range (the reference clamps when packing 8-bit)
     return torch.clamp(rgba, 0.0, 1.0, out=out)

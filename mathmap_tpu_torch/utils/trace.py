@@ -34,9 +34,11 @@ the coordinate grids and the default params included); beside them
 on the device is a span `mm.sync.<cause>` (`literal`, `param`, `loop`,
 `readback`, `stage`): its count is the number of waits, its time the time
 the host sat blocked. The counters: `launch.<kernel>` for each CUDA kernel
-launch, `build.nvcc` for each nvcc run. A span costs about a microsecond
-of host time, so the render path has none finer than these: the params'
-conversion, the grids and the channel stack show in a trace by their
+launch, `build.nvcc` for each nvcc run, and `finish.eager` for each
+frame finished by the eager chain instead of kernel B5 (beside
+`launch.finish_rgba`, the share of frames the kernel finished). A span
+costs about a microsecond of host time, so the render path has none finer
+than these: the params' conversion and the grids show in a trace by their
 torch ops.
 """
 

@@ -8,7 +8,9 @@ gaussian_blur on the card equal to the CPU bit for bit; region renders
 equal to the card's full render cropped bit for bit (B1, B2, B3, and the
 tiled selection in place), corners against the CPU, the CLI, --selftest
 and the render service on the card; exported artifacts on the card equal
-to the live render bit for bit, each kernel launched through its op.
+to the live render bit for bit, each kernel launched through its op;
+kernel B5 (a frame's finish) against its plain version bit for bit, and
+renders and batches through it equal to the eager route on the card.
 
 They carry the `cuda` marker and skip without a GPU. This file imports only
 torch, numpy and the port, so it also runs on a GPU machine without jax:
@@ -24,6 +26,7 @@ import torch
 
 import mathmap_tpu_torch as mt
 from mathmap_tpu_torch.kernels import apply_lut as L
+from mathmap_tpu_torch.kernels import finish_rgba as B5
 from mathmap_tpu_torch.kernels import sample_image as K
 from mathmap_tpu_torch.kernels import sample_tiled as B4
 from mathmap_tpu_torch.kernels import while_loop as WL
@@ -40,8 +43,9 @@ INTERPOLATIONS = ("nearest", "bilinear", "bicubic")
 EDGE_PAIRS = (("color", "color"), ("wrap", "wrap"), ("reflect", "reflect"),
               ("wrap", "reflect"), ("color", "wrap"))
 EDGE_COLOR = (0.25, 0.5, 0.75, 1.0)
-#: the launch counters of B1, B2 and B3
-_LAUNCH_COUNTERS = ("launch.sample_image", "launch.apply_lut", "launch.while_loop")
+#: the launch counters of B1, B2, B3 and B5
+_LAUNCH_COUNTERS = ("launch.sample_image", "launch.apply_lut", "launch.while_loop",
+                    "launch.finish_rgba")
 
 
 @pytest.fixture
@@ -487,7 +491,7 @@ def test_cuda_region_is_the_full_render_cropped(cuda, name, folder, out_dtype):
     got = f.render(*imgs, options=mt.RenderOptions(output_dtype=out_dtype, region=REG), **kw)
     torch.cuda.synchronize()
     launched = [counter(n) - c for n, c in zip(_LAUNCH_COUNTERS, counts)]
-    assert launched == ([1, 0, 0] if f.image_params else [0, 1, 1])
+    assert launched == ([1, 0, 0, 1] if f.image_params else [0, 1, 1, 1])
     x, y, w, h = REG
     assert got.shape == (h, w, 4)
     assert torch.equal(got, full[y:y + h, x:x + w])
@@ -578,10 +582,11 @@ def test_cuda_service_jobs_equal_their_lone_renders(cuda):
 T_LOOP = ("filter tloop () s = 0; i = 0; while s < 1 + t && i < 60 do "
           "s = s + 0.02 + x / W * 0.01; i = i + 1 end; grayColor(i / 60) end")
 ARTIFACT_CASES = {
-    "twirl": ("filters/Distorts/twirl.mm", True, {"angle": 3.0}, {"angle": -2.5}, (1, 0, 0)),
+    "twirl": ("filters/Distorts/twirl.mm", True, {"angle": 3.0}, {"angle": -2.5},
+              (1, 0, 0, 1)),
     "mandelbrot": ("filters/Render/mandelbrot.mm", False, {"maxiter": 64}, {"maxiter": 90},
-                   (0, 1, 1)),
-    "t loop": (T_LOOP, False, {}, {}, (0, 0, 1)),
+                   (0, 1, 1, 1)),
+    "t loop": (T_LOOP, False, {}, {}, (0, 0, 1, 1)),
 }
 
 
@@ -615,3 +620,134 @@ def test_cuda_artifact_equals_the_live_render_through_the_ops(cuda, name, tmp_pa
     assert torch.equal(art.render_animation(*ins, params=p),
                        f.render_animation(*ins, num_frames=3, params=p, width=WI, height=HI,
                                           device=cuda))
+
+
+#: values every B5 plane holds somewhere: NaN, ±inf, signed zeros, the
+#: clamp's ends and either side of them, the uint8 pack's rounding edges
+FINISH_SPECIALS = np.array([np.nan, np.inf, -np.inf, -0.0, 0.0, 1.0, -1e-8, 1 + 1e-7,
+                            0.5 / 255, 1.5 / 255, 127.5 / 255, 254.5 / 255, 3e38, -3e38],
+                           np.float32)
+
+
+def _finish_values(shape, seed: int, dev) -> torch.Tensor:
+    rs = np.random.RandomState(seed)
+    v = rs.uniform(-0.5, 1.5, shape).astype(np.float32).reshape(-1)
+    at = rs.choice(v.size, min(v.size, len(FINISH_SPECIALS)), replace=False)
+    v[at] = FINISH_SPECIALS[:len(at)]
+    return torch.from_numpy(v.reshape(shape)).to(dev)
+
+
+def _finish_planes(layout: str, h: int, w: int, dev) -> list:
+    """Four (h, w) planes: contiguous (a sampler's or LUT's unbound
+    output), stride 0 (moire's constant alpha and the two coordinate
+    grids' broadcasts beside one contiguous plane) or strided views."""
+    if layout == "contiguous":
+        return list(_finish_values((4, h, w), 0, dev).unbind(0))
+    if layout == "stride 0":
+        return [_finish_values((h, w), 1, dev),
+                torch.broadcast_to(_finish_values((w,), 2, dev)[None, :], (h, w)),
+                torch.broadcast_to(_finish_values((h,), 3, dev)[:, None], (h, w)),
+                torch.broadcast_to(_finish_values((1,), 4, dev)[0], (h, w))]
+    return [_finish_values((w, h), s, dev).t() for s in range(4)]
+
+
+def _unaligned_out(h: int, w: int, dtype, dev) -> torch.Tensor:
+    """An (h, w, 4) output one element into a buffer of its own."""
+    return torch.empty(h * w * 4 + 1, dtype=dtype, device=dev)[1:].view(h, w, 4)
+
+
+def _wide(out: torch.Tensor) -> bool:
+    return B5.wide_stores(out.data_ptr(), out.stride(0) * out.element_size(),
+                          out.dtype == torch.uint8)
+
+
+#: B5 cases: (h, w, plane layout, out, whether the launch stores a pixel at
+#: once); a ragged width and 1x1 mask the row's end, the unaligned output
+#: takes the narrow instantiation
+FINISH_CASES = {
+    "4k": (2160, 3840, "contiguous", "new", True),
+    "1080p": (1080, 1920, "contiguous", "new", True),
+    "1080p batch slice": (1080, 1920, "contiguous", "batch", True),
+    "ragged": (37, 1919, "contiguous", "new", True),
+    "1x1": (1, 1, "contiguous", "new", True),
+    "unaligned out": (64, 128, "contiguous", "unaligned", False),
+    "stride 0": (1080, 1920, "stride 0", "new", True),
+    "strided views": (72, 128, "views", "new", True),
+}
+
+
+@pytest.mark.parametrize("supersample", [1, 3])
+@pytest.mark.parametrize("u8", [False, True], ids=["f32", "u8"])
+@pytest.mark.parametrize("case", sorted(FINISH_CASES))
+def test_cuda_finish_kernel_equals_its_plain_version_bit_for_bit(cuda, case, u8, supersample):
+    h, w, layout, out_kind, wide = FINISH_CASES[case]
+    planes = _finish_planes(layout, h, w, cuda)
+    inv = 1.0 / (supersample * supersample)
+    dtype = torch.uint8 if u8 else torch.float32
+    batch = None
+    if out_kind == "batch":
+        batch = torch.full((3, h, w, 4), 7, dtype=dtype, device=cuda)
+        out = batch[1]
+    elif out_kind == "unaligned":
+        out = _unaligned_out(h, w, dtype, cuda)
+    else:
+        out = torch.empty((h, w, 4), dtype=dtype, device=cuda)
+    assert _wide(out) is wide
+    before = counter("launch.finish_rgba")
+    got = B5.finish_rgba(planes, inv, u8, None if out_kind == "new" else out)
+    want = B5.finish_rgba_reference(planes, inv, u8)
+    torch.cuda.synchronize()
+    assert counter("launch.finish_rgba") == before + 1
+    assert got.dtype == dtype and got.shape == (h, w, 4)
+    bits = (lambda t: t.view(torch.int32)) if not u8 else (lambda t: t)
+    assert torch.equal(bits(got), bits(want))
+    if batch is not None:
+        assert bool((batch[0] == 7).all()) and bool((batch[2] == 7).all())
+
+
+def test_cuda_finish_kernel_raises_on_what_it_does_not_take(cuda):
+    planes = list(torch.zeros((4, 8, 12), device=cuda).unbind(0))
+    with pytest.raises(ValueError, match="finish_rgba takes"):
+        torch.ops.mathmap.finish_rgba_out(*planes, 1.0, torch.empty((4, 8, 12), device=cuda)
+                                          .permute(1, 2, 0))
+    with pytest.raises(ValueError, match="finish_rgba takes"):
+        torch.ops.mathmap.finish_rgba(*planes[:3], planes[3].double(), 1.0, False)
+
+
+#: the filters of the benchmark's cells, by folder
+FINISH_FILTERS = {"fisheye": "Distorts", "twirl": "Distorts", "pond": "Distorts",
+                  "mandelbrot": "Render", "moire": "Render"}
+
+
+@pytest.mark.parametrize("output_dtype", ["float32", "uint8"])
+@pytest.mark.parametrize("name", sorted(FINISH_FILTERS))
+def test_cuda_frames_finish_in_the_kernel_as_on_the_eager_route(cuda, name, output_dtype,
+                                                               monkeypatch):
+    """Filter.render and render_batch on the card finish each frame in one
+    B5 launch and count no `finish.eager`; with B5 off the card's route
+    (the eager chain) they render the same bits."""
+    f = mt.compile_file(os.path.join(ROOT, "filters", FINISH_FILTERS[name], f"{name}.mm"))
+    img = torch.from_numpy(_source("u8")).to(cuda)
+    opts = mt.RenderOptions(output_dtype=output_dtype)
+    ts = [0.1, 0.5, 0.9]
+
+    def frames():
+        ins = [img] if f.image_params else []
+        lone = f.render(*ins, t=0.3, options=opts, width=W, height=H, device=cuda)
+        batch = f.render_batch(*[mt.shared(a) for a in ins], ts=ts, options=opts, width=W,
+                               height=H, device=cuda)
+        torch.cuda.synchronize()
+        return lone, batch
+
+    before = (counter("launch.finish_rgba"), counter("finish.eager"))
+    got = frames()
+    assert (counter("launch.finish_rgba") - before[0], counter("finish.eager") - before[1]) \
+        == (4, 0)
+    monkeypatch.setattr(B5, "DEVICES", ())
+    before = (counter("launch.finish_rgba"), counter("finish.eager"))
+    want = frames()
+    assert (counter("launch.finish_rgba") - before[0], counter("finish.eager") - before[1]) \
+        == (0, 4)
+    bits = (lambda t: t) if output_dtype == "uint8" else (lambda t: t.view(torch.int32))
+    for a, b in zip(got, want):
+        assert torch.equal(bits(a), bits(b))
