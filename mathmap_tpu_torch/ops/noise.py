@@ -7,7 +7,9 @@ int32 copy of the table on the render device, made once per device for
 live renders and afresh inside a trace (torch.export), where it becomes a
 constant of the program; the reference's TPU one-hot contraction is not
 ported. Every op is eager torch: on the card noise has no kernel of its
-own.
+own. Each `noise` call is one `mm.noise` span (the host time of enqueueing
+one Perlin evaluation) and adds the points it evaluates to the counter
+`noise.points`.
 """
 
 from __future__ import annotations
@@ -19,8 +21,12 @@ import torch
 from ..runtime.value import TupleValue
 from ..typesys.tags import NIL
 from ..utils.errors import MMTypeError
-from ..utils.trace import span
+from ..utils.trace import count, span
 from .registry import builtin
+
+#: built once, as the hot path's spans are; the builtin's own `span`
+#: argument (a source position) shadows the name inside it
+_NOISE = span("mm.noise")
 
 #: Ken Perlin's reference permutation (256 entries), the reference's _PERM
 PERM = (
@@ -134,4 +140,7 @@ def _noise(ev, args, span):
         x, y, z = (a.scalar(span) for a in args)
     else:
         raise MMTypeError("'noise' expects 1 tuple or 3 scalar arguments", span)
-    return TupleValue(NIL, (perlin3(x, y, z),))
+    with _NOISE:
+        out = perlin3(x, y, z)
+    count("noise.points", out.numel())
+    return TupleValue(NIL, (out,))

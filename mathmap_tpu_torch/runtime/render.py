@@ -169,7 +169,8 @@ def render_frame(ctx: RenderContext, fdef: A.FilterDef, uservals: dict,
     The grid scheme's finish (scale, clamp, interleave, pack) is kernel B5
     (kernels/finish_rgba.py) on the card; the CPU, the float64 spec, other
     dtypes and the corners scheme finish in eager torch, each such frame
-    counted as `finish.eager`."""
+    counted as `finish.eager`. Its output pixels add to `render.pixels`."""
+    count("render.pixels", ctx.shape[0] * ctx.shape[1])
     s = ctx.opts.supersample
     u8 = ctx.opts.output_dtype == "uint8"
     if s > 1 and ctx.opts.supersample_scheme == "corners":

@@ -45,6 +45,7 @@ from ..utils.trace import span
 
 _LITERAL = span("mm.sync.literal")
 _LOOP = span("mm.sync.loop")
+_PROBE = span("mm.loop.probe")
 _2PI = 2.0 * math.pi
 
 #: route of every while loop evaluated in this process, in order:
@@ -463,13 +464,14 @@ class Evaluator:
                 probe_env[n] = iv if iv is not None else TupleValue(NIL, (self.lit(0.0),))
         # at loop depth 0, as the reference's probe runs: the tiled
         # renderer's halo check measures its samples
-        if node.post:
-            # do-while: the body runs before the first condition
-            probe.eval(node.body)
-            probe.eval(node.cond)
-        else:
-            probe.eval(node.cond)
-            probe.eval(node.body)
+        with _PROBE:
+            if node.post:
+                # do-while: the body runs before the first condition
+                probe.eval(node.body)
+                probe.eval(node.cond)
+            else:
+                probe.eval(node.cond)
+                probe.eval(node.body)
         self.ctx.rand_counter, self.ctx.rand_loop_nonce = counter_entry, nonce_entry
 
         shape = self.ctx.shape

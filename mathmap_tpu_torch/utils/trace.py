@@ -27,16 +27,25 @@ The spans of the render path, outermost first: `mm.call` (one public
 render entry), `mm.frame` (one job of an entry that renders several:
 `render_batch`, `render_animation`, `render_frames`; a `Filter.render`'s
 one frame is its call) and `mm.evaluate` (one walk of the filter body,
-the coordinate grids and the default params included); beside them
+the coordinate grids and the default params included). Inside a walk,
+`mm.noise` is one `noise` builtin call (the host time of enqueueing one
+Perlin evaluation, ops/noise.py) and `mm.loop.probe` a while loop's probe,
+the one evaluation of its condition and body whose results are discarded
+(runtime/tracer.py::_eval_While): the `mm.noise` spans whose parent is
+`mm.loop.probe` are the probes' noise calls. Beside them
 `mm.compile`, `mm.build` (a kernel library loaded, or built by nvcc),
 `mm.png.decode`, `mm.png.encode`, `mm.image.read`, `mm.image.write`,
 `mm.serve.wait` and `mm.serve.dispatch`. Every place where the host waits
 on the device is a span `mm.sync.<cause>` (`literal`, `param`, `loop`,
 `readback`, `stage`): its count is the number of waits, its time the time
 the host sat blocked. The counters: `launch.<kernel>` for each CUDA kernel
-launch, `build.nvcc` for each nvcc run, and `finish.eager` for each
+launch, `build.nvcc` for each nvcc run, `finish.eager` for each
 frame finished by the eager chain instead of kernel B5 (beside
-`launch.finish_rgba`, the share of frames the kernel finished). A span
+`launch.finish_rgba`, the share of frames the kernel finished),
+`render.pixels` for the output pixels of each frame, tile or region
+`render_frame` renders, and `noise.points` for the points each `noise`
+call evaluates (its broadcast result's elements; over `render.pixels`,
+the Perlin evaluations a pixel costs). A span
 costs about a microsecond of host time, so the render path has none finer
 than these: the params' conversion and the grids show in a trace by their
 torch ops.
