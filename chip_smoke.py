@@ -8,7 +8,7 @@ Phases, each printing its own lines:
 1. card and build: the GPU's name and power limit (nvidia-smi), CUDA and
    torch versions; every kernel built by nvcc at once, one process per
    source, all started together: the library of mathmap_tpu_torch/csrc/*.cu
-   (B1, B2, B4) and one generated while-loop kernel (B3) per distinct loop body
+   (B1, B2, B4, B5, B6) and one generated while-loop kernel (B3) per distinct loop body
    of the phases below, traced from tiny CPU renders (nvcc seconds and
    ptxas register reports);
 2. B1 vs plain: the CUDA origVal sampler against its plain PyTorch version
@@ -216,9 +216,20 @@ Phases, each printing its own lines:
    instantiation. Timed last: B5 at 4K and 1080p, float32 and uint8 out,
    on contiguous planes and on moire's layout, in turns with the eager
    chain (its plain ms), beside its bytes bound.
+28. B6 vs plain (run before phase 5): the Perlin-noise kernel against its
+   plain version (the eager chain it replaced) on the same CUDA tensors,
+   bit for bit (NaN, ±inf and -0.0 as bits), one launch a call: the noise
+   cell's two 4K layouts (turbulence's octave planes and voronoi's cell
+   coordinates, each with a 0-d z), a row and a column grid, a (job, H, W)
+   batch, the ragged 1919x1081 (one store a point) and random, lattice,
+   large, NaN and infinite points; B6's ptxas registers and spills. Timed
+   last: B6 on the two 4K layouts in turns with the eager chain (its plain
+   ms), beside its bound: the distinct input elements and the output at 4
+   bytes each, and B6_OPS_PER_POINT single operations a point over the
+   single-op issue rate.
 
-Every main path (phases 5, 6, 8, 9, 11-26) runs with the five launch
-counts (B1-B5) set to 0 just before it and read just after; the kernels
+Every main path (phases 5, 6, 8, 9, 11-26) runs with the six launch
+counts (B1-B6) set to 0 just before it and read just after; the kernels
 line gives each kernel's launches by path. Then the timings: phase 10's and
 11's, B3's bound (this run's pixel iterations x the distinct ops of an
 iteration, integer ops at half rate, over the single-op issue rate SMs x
@@ -1328,10 +1339,10 @@ def phase_sharded_path(mt, K, L, WL, dev, filters):
               f"vs the unsharded card render, {n_px} pixels differ")
 
 
-#: the program's launch counters (utils/trace.py) of kernels B1-B4
-LAUNCH_B1, LAUNCH_B2, LAUNCH_B3, LAUNCH_B4, LAUNCH_B5 = (
+#: the program's launch counters (utils/trace.py) of kernels B1-B6
+LAUNCH_B1, LAUNCH_B2, LAUNCH_B3, LAUNCH_B4, LAUNCH_B5, LAUNCH_B6 = (
     "launch.sample_image", "launch.apply_lut", "launch.while_loop", "launch.sample_tiled",
-    "launch.finish_rgba")
+    "launch.finish_rgba", "launch.perlin3")
 #: each counter's value when zero_launches last named it
 _LAUNCH_ZERO: dict = {}
 
@@ -1376,13 +1387,14 @@ def stochastic_inputs(f, w: int, h: int, dev, seed: int) -> list:
 
 
 def phase_rand_noise_vs_cpu(dev):
-    """rand()'s hash and perlin3 on the card against the CPU, bit for bit:
+    """rand()'s hash and perlin3 (kernel B6, through its op) on the card
+    against the CPU, bit for bit:
     the hash at 4K under four salts, loop salts up to 2^32 - 1 among them;
     perlin3 on random, negative, lattice, large (above 2^24 and 2^31),
     NaN and infinite coordinates (NaN where the CPU has NaN). Prints what
     CUDA's own float -> int32 conversion gives where NumPy's gives
     INT_MIN, and the lattice index the port takes there."""
-    from mathmap_tpu_torch.ops import noise as N
+    from mathmap_tpu_torch.kernels import perlin3 as B6
     from mathmap_tpu_torch.ops import rand as RND
 
     w, h = SIZES[1]
@@ -1405,8 +1417,8 @@ def phase_rand_noise_vs_cpu(dev):
         np.stack([np.resize(special, 4096), rs.uniform(-9, 9, 4096), rs.uniform(-9, 9, 4096)]),
     ], axis=1).astype(np.float32)
     cpu = [torch.from_numpy(c) for c in coords]
-    want = N.perlin3(*cpu)
-    got = N.perlin3(*(c.to(dev) for c in cpu)).cpu()
+    want = B6.perlin3(*cpu)
+    got = B6.perlin3(*(c.to(dev) for c in cpu)).cpu()
     nan = want.isnan()
     if not (torch.equal(got.isnan(), nan)
             and torch.equal(got[~nan].view(torch.int32), want[~nan].view(torch.int32))):
@@ -1418,7 +1430,7 @@ def phase_rand_noise_vs_cpu(dev):
           f"equals the CPU bit for bit, {int(nan.sum())} NaN on both")
     print(f"lattice index of {special.tolist()}: NumPy on x86 {numpy_index}; the card's "
           f"float -> int32 conversion & 255: {(sdev.to(torch.int32) & 255).cpu().tolist()}; "
-          f"noise.lattice on the card: {N.lattice(sdev).cpu().tolist()}")
+          f"the port's lattice index on the card: {B6.lattice(sdev).cpu().tolist()}")
 
 
 def phase_stochastic_path(mt, K, L, WL, dev, st) -> int:
@@ -2677,14 +2689,15 @@ def phase_artifact_loops(mt, K, L, WL, dev, st, work: Path, card):
     from torch._subclasses.fake_tensor import FakeTensor
 
     from mathmap_tpu_torch.generators.artifact import export_artifact, load_artifact
-    from mathmap_tpu_torch.ops import noise
+    from mathmap_tpu_torch.kernels import perlin3 as B6
 
     w, h = SIZES[1]
     turbulence = st["turbulence"]
     small = dict(width=SIZES[0][0], height=SIZES[0][1], t=0.3, device=dev)
     before = turbulence.render(**small)
-    # the next Perlin table is made under torch.export (fault C4's start)
-    noise._table.cache_clear()
+    # the Perlin table's cache empty, as in a process whose first noise call
+    # is an export (fault C4's start; the op traces no table since B6)
+    B6._table.cache_clear()
     _, u8 = smooth_image(w, h, seed=47)
     img = K.u8_to_float(torch.from_numpy(u8).to(dev))
     unroll = mt.RenderOptions().while_unroll
@@ -3448,6 +3461,114 @@ def time_b5(B5, dev, card) -> dict:
     return record
 
 
+#: B6's single operations a point as csrc/perlin3.cu writes them: 3 floor,
+#: 3 lattice indices (compare, convert, and, select: 4 each), 3 fractions,
+#: 3 fades (7 each), 3 `- 1`, 6 hashes (15 loads and adds), 8 corner
+#: lookups (12 loads and adds), 8 gradients (14 bit tests, selects and the
+#: add each), 7 lerps (3 each)
+B6_OPS_PER_POINT = 3 + 12 + 3 + 21 + 3 + 15 + 12 + 8 * 14 + 7 * 3
+
+
+def perlin_cases(dev) -> dict:
+    """Phase 28's inputs: label -> (x, y, z) on the card. The noise cell's
+    calls take two contiguous 4K planes and a 0-d z: turbulence's octaves
+    (x / scale * 2^k, y / scale * 2^k, t) and voronoi's cell coordinates
+    (n1 at (cx k, cy k, 1/2), n2 at (cx k + 31.7, cy k + 17.3, 1/2) with
+    cx = floor(x / cell) + i)."""
+    w, h = SIZES[1]
+    xs = torch.arange(w, dtype=torch.float32, device=dev) + 0.5 - w * 0.5
+    ys = h * 0.5 - (torch.arange(h, dtype=torch.float32, device=dev) + 0.5)
+    x, y = xs[None, :].expand(h, w).contiguous(), ys[:, None].expand(h, w).contiguous()
+
+    def lit(v):
+        return torch.tensor(v, dtype=torch.float32, device=dev)
+
+    scale, t, cell, k = lit(80.0), lit(0.37), lit(90.0), lit(0.7131)
+    cx, cy = torch.floor(x / cell) - 1.0, torch.floor(y / cell) + 1.0
+    rs = np.random.RandomState(28)
+    special = np.array([np.nan, np.inf, -np.inf, -0.0, 3e9, -3e9, 2.0**31, 2.0**31 - 128,
+                        1e20], np.float32)
+    points = np.concatenate([
+        rs.uniform(-300, 300, (3, 1 << 20)), rs.randint(-600, 600, (3, 4096)),
+        rs.choice([-1, 1], (3, 4096)) * rs.uniform(2**24, 2**40, (3, 4096)),
+        *(np.roll(np.stack([np.resize(special, 4096), rs.uniform(-9, 9, 4096),
+                            rs.uniform(-9, 9, 4096)]), a, 0) for a in range(3)),
+    ], axis=1).astype(np.float32)
+    ragged = rs.uniform(-60, 60, (2, 1081, 1919)).astype(np.float32)
+    batch = rs.uniform(-60, 60, (4, 1080, 1920)).astype(np.float32)
+    return {
+        "turbulence 4k": (x / scale, y / scale, t),
+        "turbulence 4k octave 4": (x / scale * 8.0, y / scale * 8.0, t),
+        "voronoi 4k n1": (cx * k, cy * k, lit(0.5)),
+        "voronoi 4k n2": (cx * k + 31.7, cy * k + 17.3, lit(0.5)),
+        "row and column 4k": (xs[None, :] / 7.0, ys[:, None] / 5.0, t),
+        "batch (4, 1080, 1920)": (torch.from_numpy(batch).to(dev), y[:1080, :1920] / 9.0,
+                                  lit([0.1, 0.4, 0.7, 0.9])[:, None, None]),
+        "ragged 1919x1081": (*(torch.from_numpy(a).to(dev) for a in ragged), t),
+        "points (random, lattice, large, NaN, inf)": tuple(
+            torch.from_numpy(a).to(dev) for a in points),
+    }
+
+
+def phase_perlin_vs_plain(B6, build, dev) -> float:
+    """Phase 28's check: B6 against its plain version bit for bit, one
+    launch a call, and its ptxas report. Returns the worst difference
+    (0.0)."""
+    lines = [line for line in ptxas_report(build.library().log) if "perlin3" in line]
+    for line in lines or ["none: the library was loaded from disk, not built in this run"]:
+        print(f"B6 ptxas: {line}")
+    for label, (x, y, z) in perlin_cases(dev).items():
+        before = launch_count(LAUNCH_B6)
+        got = B6.perlin3(x, y, z)
+        want = B6.perlin3_reference(x, y, z)
+        torch.cuda.synchronize()
+        if launch_count(LAUNCH_B6) != before + 1:
+            raise AssertionError(f"B6 {label}: not one launch")
+        differ = int((got.view(torch.int32) != want.view(torch.int32)).sum())
+        if got.shape != want.shape or differ:
+            raise AssertionError(f"B6 {label}: {differ} values differ from the plain version")
+        print(f"B6 vs plain {label} {tuple(got.shape)}: bit for bit, "
+              f"{int(want.isnan().sum())} NaN, "
+              f"{'wide' if B6.wide_stores(got.data_ptr(), got.shape[-1] * 4) else 'narrow'} "
+              f"stores")
+    return 0.0
+
+
+def distinct_bytes(a) -> int:
+    """A tensor's distinct float32 values (a broadcast axis counted once) at
+    4 bytes each."""
+    n = 1
+    for size, stride in zip(a.shape, a.stride()):
+        n *= size if stride else 1
+    return 4 * n
+
+
+def time_b6(B6, dev, card, rate: float) -> dict:
+    """Phase 28's timings: B6 on the noise cell's two 4K layouts in turns
+    with the eager chain it replaced (its plain ms), beside its bound.
+    Returns turbulence's record with voronoi's ms beside it."""
+    cases = perlin_cases(dev)
+    records = {}
+    for label in ("turbulence 4k", "voronoi 4k n2"):
+        x, y, z = cases[label]
+        out = B6.perlin3(x, y, z)
+        kernel_ms, plain_ms = turns(lambda: B6.perlin3_reference(x, y, z),
+                                    lambda: B6.perlin3(x, y, z), 5, 100)
+        n_bytes = sum(distinct_bytes(a) for a in (x, y, z)) + 4 * out.numel()
+        n_ops = B6_OPS_PER_POINT * out.numel()
+        bound, by = bound_ms(n_bytes, n_ops, rate)
+        print(f"timing B6 {label} {tuple(out.shape)}: kernel {kernel_ms:.4f} ms, bound "
+              f"{bound:.4f} ms ({by}: {n_bytes / 1e6:.1f} MB, {n_ops / 1e9:.3f}e9 single "
+              f"ops), {100 * bound / kernel_ms:.1f}% of bound, plain (the eager chain) "
+              f"{plain_ms:.4f} ms ({plain_ms / kernel_ms:.1f}x) [{card}]")
+        records[label] = dict(ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by)
+    record = dict(records["turbulence 4k"])
+    record.update(voronoi_ms=records["voronoi 4k n2"]["ms"],
+                  voronoi_plain_ms=records["voronoi 4k n2"]["plain_ms"],
+                  instantiation="perlin3_kernel<wide stores>")
+    return record
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--distributed-worker"]:
         rank, n, coord, out_dir, backend, jobs = sys.argv[2:8]
@@ -3464,6 +3585,7 @@ def main() -> int:
     from mathmap_tpu_torch.kernels import apply_lut as L
     from mathmap_tpu_torch.kernels import build
     from mathmap_tpu_torch.kernels import finish_rgba as B5
+    from mathmap_tpu_torch.kernels import perlin3 as B6
     from mathmap_tpu_torch.kernels import sample_image as K
     from mathmap_tpu_torch.kernels import sample_tiled as B4
     from mathmap_tpu_torch.kernels import while_loop as WL
@@ -3498,9 +3620,10 @@ def main() -> int:
                                                rand_walk)
     worst_b4 = phase_tiled_vs_plain(B4, dev)
     worst_b5 = phase_finish_vs_plain(B5, dev)
+    worst_b6 = phase_perlin_vs_plain(B6, build, dev)
     # each main path with every launch count set to 0 just before it and
-    # read just after (B1, B2, B3, B4, B5)
-    wrappers = (LAUNCH_B1, LAUNCH_B2, LAUNCH_B3, LAUNCH_B4, LAUNCH_B5)
+    # read just after (B1, B2, B3, B4, B5, B6)
+    wrappers = (LAUNCH_B1, LAUNCH_B2, LAUNCH_B3, LAUNCH_B4, LAUNCH_B5, LAUNCH_B6)
     by_path = {}
 
     def path(name, phase, *args):
@@ -3536,10 +3659,12 @@ def main() -> int:
         path("preview", phase_preview, mt, K, dev, card)
         path("float64 spec", phase_float64_spec, mt, K, L, WL, B4, dev, filters, st, lib, card)
         path("artifact loops", phase_artifact_loops, mt, K, L, WL, dev, st, work, card)
-        # the fleet's launches are its worker processes' own counts
-        by_path["distributed"] = path("distributed", phase_distributed, mt, B4, dev, work,
-                                      card)
-        names = ("sample_image", "apply_lut", "while_loop", "sample_tiled", "finish_rgba")
+        # the fleet's launches are its worker processes' own counts (B1-B5:
+        # its renders call no noise)
+        by_path["distributed"] = (*path("distributed", phase_distributed, mt, B4, dev, work,
+                                        card), 0)
+        names = ("sample_image", "apply_lut", "while_loop", "sample_tiled", "finish_rgba",
+                 "perlin3")
         launches = {name: {p: c[k] for p, c in by_path.items() if c[k]}
                     for k, name in enumerate(names)}
         for name, paths in launches.items():
@@ -3561,6 +3686,7 @@ def main() -> int:
         time_region_corners(mt, dev, filters, st, card)
         time_cli_frame(mt, dev, work, card)
         b5 = time_b5(B5, dev, card)
+        b6 = time_b6(B6, dev, card, rate)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     from mathmap_tpu_torch.utils.trace import snapshot
@@ -3603,6 +3729,10 @@ def main() -> int:
          "source": "mathmap_tpu_torch/csrc/finish_rgba.cu",
          "replaces": "none (the eager finish of runtime/render.py::render_frame)",
          **counted("finish_rgba"), "max_abs_err": worst_b5, **b5},
+        {"name": "perlin3", "route": "cuda",
+         "source": "mathmap_tpu_torch/csrc/perlin3.cu",
+         "replaces": "none (the eager Perlin chain of ops/noise.py's noise builtin)",
+         **counted("perlin3"), "max_abs_err": worst_b6, **b6},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

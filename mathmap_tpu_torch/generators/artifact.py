@@ -12,10 +12,11 @@ without a new export. The hand-written kernels are custom ops inside it:
 `mathmap::sample_image` (B1), `mathmap::apply_lut` (B2),
 `mathmap::while_loop` (B3, whose first argument is the loop's traced op
 list as text) and, in a program traced on the card, `mathmap::finish_rgba`
-(B5, the frame's finish), with `mathmap::libm` for the CPU's numpy
-transcendentals (ops/libm.py). `load_artifact` imports torch, numpy and
-the modules that register those ops, and nothing else of the package: no
-parser, evaluator or builtin table.
+(B5, the frame's finish) and `mathmap::perlin3` (B6, a `noise` call),
+with `mathmap::libm` for the CPU's numpy transcendentals (ops/libm.py).
+`load_artifact` imports torch, numpy and the modules that register those
+ops, and nothing else of the package: no parser, evaluator or builtin
+table.
 
 A loop goes into the program as the live render runs it: unrolled when
 its trip count folds at trace time, as kernel B3's op when B3 takes it,
@@ -52,6 +53,7 @@ import torch
 # register the custom ops an exported program calls
 from ..kernels import apply_lut as _b2  # noqa: F401
 from ..kernels import finish_rgba as _b5  # noqa: F401
+from ..kernels import perlin3 as _b6  # noqa: F401
 from ..kernels import sample_image as _b1
 from ..kernels import while_loop as _b3
 from ..ops import libm as _libm  # noqa: F401

@@ -45,7 +45,8 @@ frame finished by the eager chain instead of kernel B5 (beside
 `render.pixels` for the output pixels of each frame, tile or region
 `render_frame` renders, and `noise.points` for the points each `noise`
 call evaluates (its broadcast result's elements; over `render.pixels`,
-the Perlin evaluations a pixel costs). A span
+the Perlin evaluations a pixel costs), and of them `noise.kernel_points`
+those kernel B6 evaluated (every call on the card). A span
 costs about a microsecond of host time, so the render path has none finer
 than these: the params' conversion and the grids show in a trace by their
 torch ops.

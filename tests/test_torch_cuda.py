@@ -10,7 +10,9 @@ tiled selection in place), corners against the CPU, the CLI, --selftest
 and the render service on the card; exported artifacts on the card equal
 to the live render bit for bit, each kernel launched through its op;
 kernel B5 (a frame's finish) against its plain version bit for bit, and
-renders and batches through it equal to the eager route on the card.
+renders and batches through it equal to the eager route on the card;
+kernel B6 (Perlin noise) against the eager chain bit for bit on the CPU
+tests' point sets and layouts, and turbulence and voronoi through it.
 
 They carry the `cuda` marker and skip without a GPU. This file imports only
 torch, numpy and the port, so it also runs on a GPU machine without jax:
@@ -27,6 +29,7 @@ import torch
 import mathmap_tpu_torch as mt
 from mathmap_tpu_torch.kernels import apply_lut as L
 from mathmap_tpu_torch.kernels import finish_rgba as B5
+from mathmap_tpu_torch.kernels import perlin3 as B6
 from mathmap_tpu_torch.kernels import sample_image as K
 from mathmap_tpu_torch.kernels import sample_tiled as B4
 from mathmap_tpu_torch.kernels import while_loop as WL
@@ -751,3 +754,107 @@ def test_cuda_frames_finish_in_the_kernel_as_on_the_eager_route(cuda, name, outp
     bits = (lambda t: t) if output_dtype == "uint8" else (lambda t: t.view(torch.int32))
     for a, b in zip(got, want):
         assert torch.equal(bits(a), bits(b))
+
+
+#: B6's point sets: the CPU tests' (tests/test_torch_noise.py's COORDS,
+#: rebuilt here without importing that file, which imports jax) and the
+#: specials
+_RS6 = np.random.RandomState(0)
+PERLIN_POINTS = {
+    "random": _RS6.uniform(-50, 50, (3, 4096)),
+    "negative": -_RS6.uniform(0, 300, (3, 2048)),
+    "lattice": _RS6.randint(-600, 600, (3, 2048)).astype(np.float64),
+    "near_lattice": (_RS6.randint(-40, 40, (3, 2048))
+                     + _RS6.choice([-1e-6, 0.0, 1e-6, 0.5], (3, 2048))),
+    "above_2_24": _RS6.choice([-1, 1], (3, 2048)) * _RS6.uniform(2**24, 2**30, (3, 2048)),
+    "above_2_31": _RS6.choice([-1, 1], (3, 1024)) * _RS6.uniform(2**31, 2**40, (3, 1024)),
+    "mixed_large": np.stack([_RS6.uniform(2**31, 2**33, 1024), _RS6.uniform(-9, 9, 1024),
+                             _RS6.uniform(-9, 9, 1024)]),
+    "nan_inf": np.stack([np.array([np.nan, np.inf, -np.inf, 0.5, 1.0, 7.25] * 8),
+                         np.array([0.3, 0.2, -4.5, np.nan, np.inf, -np.inf] * 8),
+                         np.tile([0.1, -0.7, 2.5], 16)]),
+    "signed_zero": np.stack([np.tile([-0.0, 0.0, -1.0, 1.0], 8), np.tile([0.0, -0.0], 16),
+                             np.tile([-0.0, 0.5], 16)]),
+}
+
+
+def _perlin_bits_equal(x, y, z):
+    """B6 on the card against the eager chain on the same tensors, bit for
+    bit (NaN, ±inf and -0.0 as bits); one launch."""
+    before = counter("launch.perlin3")
+    got = B6.perlin3(x, y, z)
+    want = B6.perlin3_reference(x, y, z)
+    torch.cuda.synchronize()
+    assert counter("launch.perlin3") == before + 1
+    assert got.shape == want.shape and got.dtype == torch.float32
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    return got
+
+
+@pytest.mark.parametrize("name", sorted(PERLIN_POINTS))
+def test_cuda_perlin3_kernel_equals_the_eager_chain_bit_for_bit(cuda, name):
+    x, y, z = (torch.from_numpy(a).to(cuda) for a in PERLIN_POINTS[name].astype(np.float32))
+    _perlin_bits_equal(x, y, z)
+
+
+def _perlin_values(shape, seed: int, dev) -> torch.Tensor:
+    rs = np.random.RandomState(seed)
+    v = rs.uniform(-40, 40, shape).astype(np.float32).reshape(-1)
+    specials = np.array([np.nan, np.inf, -np.inf, -0.0, 2.0**31, -3e9, 1e20], np.float32)
+    at = rs.choice(v.size, min(v.size, len(specials)), replace=False)
+    v[at] = specials[:len(at)]
+    return torch.from_numpy(v.reshape(shape)).to(dev)
+
+
+#: (x, y, z) shapes or layouts as the evaluator hands them: 0-d, a row, a
+#: column, stride 0, a strided tile slice, a (job, H, W) batch, a ragged
+#: width (one store a point) and 4K planes with a 0-d z (the cell's calls)
+PERLIN_LAYOUTS = {
+    "0-d": lambda d: (_perlin_values((), 1, d), _perlin_values((), 2, d),
+                      _perlin_values((), 3, d)),
+    "row and column": lambda d: (_perlin_values((1, W), 1, d), _perlin_values((H, 1), 2, d),
+                                 _perlin_values((), 3, d)),
+    "stride 0": lambda d: (_perlin_values((W,), 1, d).expand(H, W),
+                           _perlin_values((H, 1), 2, d).expand(H, W),
+                           torch.tensor(0.5, device=d).expand(H, W)),
+    "tile slice": lambda d: tuple(_perlin_values((3 * H, 2 * W + 3), s, d)[H:2 * H, 3::2]
+                                  for s in (1, 2, 3)),
+    "batch": lambda d: (_perlin_values((3, H, W), 1, d), _perlin_values((H, W), 2, d),
+                        _perlin_values((3, 1, 1), 3, d)),
+    "ragged": lambda d: (_perlin_values((37, 1919), 1, d), _perlin_values((37, 1919), 2, d),
+                         _perlin_values((), 3, d)),
+    "4k planes, 0-d z": lambda d: (_perlin_values((2160, 3840), 1, d),
+                                   _perlin_values((2160, 3840), 2, d),
+                                   torch.tensor(0.37, device=d)),
+}
+
+
+@pytest.mark.parametrize("layout", sorted(PERLIN_LAYOUTS))
+def test_cuda_perlin3_kernel_equals_the_eager_chain_on_every_layout(cuda, layout):
+    _perlin_bits_equal(*PERLIN_LAYOUTS[layout](cuda))
+
+
+def test_cuda_perlin3_launch_raises_on_what_it_does_not_take(cuda):
+    x = torch.zeros((2, 2, H, W), device=cuda)
+    with pytest.raises(ValueError, match="perlin3 takes"):
+        torch.ops.mathmap.perlin3(x, x, x)
+    with pytest.raises(ValueError, match="perlin3 takes"):
+        torch.ops.mathmap.perlin3(x[0, 0].double(), x[0, 0], x[0, 0])
+
+
+@pytest.mark.parametrize("name,calls", [("turbulence", 4), ("voronoi", 32)])
+def test_cuda_noise_renders_go_through_the_kernel(cuda, name, calls):
+    """A turbulence frame launches B6 4 times and a voronoi frame 32 (its
+    loop probes' calls included), every point goes through the kernel,
+    and the frame equals the CPU render bit for bit (the noise cell's
+    filters read worst_abs 0.0 against their reference on the card)."""
+    folder = {"turbulence": "Noise", "voronoi": "Render"}[name]
+    f = mt.compile_file(os.path.join(ROOT, "filters", folder, f"{name}.mm"))
+    names = ("launch.perlin3", "noise.points", "noise.kernel_points")
+    before = [counter(n) for n in names]
+    got = f.render(width=96, height=54, t=0.3, device=cuda)
+    torch.cuda.synchronize()
+    launches, points, kernel_points = (counter(n) - b for n, b in zip(names, before))
+    assert launches == calls and points == kernel_points == calls * 96 * 54
+    want = f.render(width=96, height=54, t=0.3, device="cpu")
+    assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))

@@ -142,7 +142,7 @@ def test_library_name_follows_the_sources(tmp_path):
     a.write_text("// two")
     assert build._digest([a]) != first
     assert sorted(p.name for p in build.CSRC.glob("*.cu")) == [
-        "apply_lut.cu", "finish_rgba.cu", "sample_image.cu", "sample_tiled.cu"]
+        "apply_lut.cu", "finish_rgba.cu", "perlin3.cu", "sample_image.cu", "sample_tiled.cu"]
     # the shared header is part of the library's name, so editing it rebuilds
     header = build.CSRC / "sampler_common.cuh"
     assert header.exists()
