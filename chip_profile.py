@@ -170,7 +170,7 @@ def part_dispatch(mt, dev, card):
     from mathmap_tpu_torch.kernels import apply_lut as L
     from mathmap_tpu_torch.kernels import sample_image as K
     from mathmap_tpu_torch.kernels import while_loop as WL
-    from mathmap_tpu_torch.runtime import tracer
+    from mathmap_tpu_torch.runtime import loops, tracer
 
     w, h = SIZES[0]
     img = torch.from_numpy(seeded_image(w, h, seed=4)[1]).to(dev)
@@ -186,7 +186,7 @@ def part_dispatch(mt, dev, card):
     finally:
         tracer.loop_kernel = orig
     loop, flat0, mask0, max_iters = calls[0]
-    prog, text = WL._prepare(loop, len(flat0))
+    prog, text = loops._prepare(loop, len(flat0))
     values = {("carry", k): a for k, a in enumerate(flat0)}
     values.update({("x",): loop.x, ("y",): loop.y})
     values.update({("dep", n, j): a for n, tv in loop.deps for j, a in enumerate(tv.arrays)})
@@ -200,7 +200,7 @@ def part_dispatch(mt, dev, card):
                                                    edge),
          lambda: K._sample_image_cuda(img, x, y, "bilinear", "color", "color", edge)),
         ("B2 apply_lut", lambda: L.apply_lut(lut, pos), lambda: L._apply_lut_cuda(lut, pos)),
-        ("B3 while_loop", lambda: WL.while_loop(loop, flat0, mask0, max_iters),
+        ("B3 while_loop", lambda: loops.while_loop(loop, flat0, mask0, max_iters),
          lambda: WL._while_loop_cuda(*loop_args)),
     )
 

@@ -525,7 +525,7 @@ def phase_card(mt, build, WL, tracer, loop_filters):
         for f, params in loop_filters:
             f.render(width=16, height=8, params=params, device="cpu")
     for loop, flat0, *_ in cap.calls:
-        sources.setdefault(WL.emit_cuda(WL.trace(loop, len(flat0)), loop.origin), loop)
+        sources.setdefault(WL.emit_cuda(tracer.trace(loop, len(flat0)), loop.origin), loop)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(sources) + 1) as pool:
         lib = pool.submit(build.library)
@@ -957,7 +957,7 @@ def phase_timings(mt, K, sampling, dev, filters, card):
 def phase_generative_path(mt, L, WL, dev, filters):
     """Every render launches the loop kernel once and the LUT kernel once;
     1080p matches the CPU port."""
-    from mathmap_tpu_torch.runtime.render import pack_uint8
+    from mathmap_tpu_torch.kernels.finish_rgba import pack_uint8
 
     zero_launches(LAUNCH_B2)
     zero_launches(LAUNCH_B3)
@@ -1088,12 +1088,12 @@ def time_b3(WL, build, tracer, render, label: str, card, rate: float, sass: dict
         render()
     loop, flat0, mask0, max_iters, got = cap.one(label)
     h, w = mask0.shape
-    prog = WL.trace(loop, len(flat0))
+    prog = tracer.trace(loop, len(flat0))
     want, steps, iters = loop_reference(WL, loop, flat0, mask0, max_iters)
     kernel_ms, plain_ms = turns(
         lambda: WL.while_loop_reference(loop.step, flat0, mask0, max_iters, loop.unroll,
                                         loop.it_base),
-        lambda: WL.while_loop(loop, flat0, mask0, max_iters), 2, 20)
+        lambda: tracer.loop_kernel(loop, flat0, mask0, max_iters), 2, 20)
     values = {("carry", k): a for k, a in enumerate(flat0)}
     values.update({("x",): loop.x, ("y",): loop.y})
     values.update({("dep", n, j): a for n, tv in loop.deps for j, a in enumerate(tv.arrays)})
@@ -1109,7 +1109,8 @@ def time_b3(WL, build, tracer, render, label: str, card, rate: float, sass: dict
     slots = max(distinct, 2 * n_int)
     n_ops = iters * slots
     bound, by = bound_ms(n_bytes, n_ops, rate)
-    same = all(torch.equal(a, b) for a, b in zip(WL.while_loop(loop, flat0, mask0, max_iters), want))
+    same = all(torch.equal(a, b)
+               for a, b in zip(tracer.loop_kernel(loop, flat0, mask0, max_iters), want))
     source = WL.emit_cuda(prog, loop.origin)
     if source not in sass:
         sass[source] = loop_sass(WL, build, prog, loop)
@@ -1371,6 +1372,15 @@ def set_launches(name: str, value: int) -> None:
 
 def launch_counts(*names) -> tuple:
     return tuple(launch_count(n) for n in names)
+
+
+def loop_routes() -> dict:
+    """The loop runs of this process by route (the program's `loop.<route>`
+    counters, utils/trace.py)."""
+    from mathmap_tpu_torch.utils.trace import snapshot
+
+    return {name[len("loop."):]: n for name, n in snapshot()["counters"].items()
+            if name.startswith("loop.") and not name.endswith(".steps")}
 
 
 def nvcc_builds() -> int:
@@ -2080,8 +2090,7 @@ def phase_library_path(mt, K, L, WL, build, sampling, color_ops, tracer, dev, li
     qj_launches, qj_err = 0, None
     for name, f in lib.items():
         inputs = library_inputs(f, w, h, dev, seed=80)
-        tracer.TRACE_LOOP_PATHS.clear()
-        before = launch_counts(*wrappers)
+        before, loops_before = launch_counts(*wrappers), loop_routes()
         with LoopCapture(tracer) as cap:
             out = f.render(*inputs, width=w, height=h, t=0.3, device=dev)
         torch.cuda.synchronize()
@@ -2091,7 +2100,8 @@ def phase_library_path(mt, K, L, WL, build, sampling, color_ops, tracer, dev, li
             failures.append(f"{tag}: (B1, B2, B3) launches {counts}, expected {expected[name]}")
         if tuple(out.shape) != (h, w, 4) or not bool(torch.isfinite(out).all()):
             failures.append(f"{tag}: bad or non-finite output {tuple(out.shape)}")
-        routes = [r for r, _ in tracer.TRACE_LOOP_PATHS]
+        routes = {r: n - loops_before.get(r, 0) for r, n in loop_routes().items()
+                  if n != loops_before.get(r, 0)}
         line = f"{tag}: (B1, B2, B3) launches {counts}, loop routes {routes}"
         if name == "quat_julia":
             qj_launches = counts[2]
@@ -2103,7 +2113,7 @@ def phase_library_path(mt, K, L, WL, build, sampling, color_ops, tracer, dev, li
             line += (f"; B3 vs the eager loop: {len(flat0)} carried grids, {iters} pixel "
                      f"iterations in {steps} steps, {differ} values differ, max abs err "
                      f"{qj_err:.3e}")
-            if routes != ["kernel"] or differ:
+            if routes != {"kernel": 1} or differ:
                 failures.append(f"{tag}: routes {routes}, {differ} carried values differ "
                                 f"from the eager loop (kernel route, identical required)")
         print(line)

@@ -11,9 +11,9 @@ LUT), `t` and `frame`, so a param value or a time changes at call time
 without a new export. The hand-written kernels are custom ops inside it:
 `mathmap::sample_image` (B1), `mathmap::apply_lut` (B2),
 `mathmap::while_loop` (B3, whose first argument is the loop's traced op
-list as text) and, in a program traced on the card, `mathmap::finish_rgba`
-(B5, the frame's finish) and `mathmap::perlin3` (B6, a `noise` call),
-with `mathmap::libm` for the CPU's numpy transcendentals (ops/libm.py).
+list as text), `mathmap::finish_rgba` (B5, the frame's finish, on either
+device) and `mathmap::perlin3` (B6, a `noise` call), with `mathmap::libm`
+for the CPU's numpy transcendentals (ops/libm.py).
 `load_artifact` imports torch, numpy and the modules that register those
 ops, and nothing else of the package: no parser, evaluator or builtin
 table.
@@ -23,7 +23,7 @@ its trip count folds at trace time, as kernel B3's op when B3 takes it,
 and otherwise (a body that calls noise, an image, a user filter, atan or
 a special function, or holds another loop) as torch's `while_loop` op,
 whose body graph holds the masked steps of the live route and calls B1 and
-B2 as ops (kernels/while_loop.py::while_loop_exported). A B3 kernel is
+B2 as ops (runtime/loops.py::while_loop_exported). A B3 kernel is
 generated from its op list, so loading an artifact with such a loop on the
 card builds it with nvcc the first time (seconds; the library is cached on
 disk by a hash of its source, kernels/build.py), at load time, not at the

@@ -60,14 +60,17 @@ def _check(lut, pos):
         raise ValueError(f"lut and pos must share a device, got {lut.device}, {pos.device}")
 
 
+#: the C interface's parameters, csrc/apply_lut.cu::mm_apply_lut
+ARGTYPES = (
+    ctypes.c_void_p, ctypes.c_int, ctypes.c_int,  # lut, k, channels
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,  # pos, out, n
+    ctypes.c_void_p,  # stream
+)
+
+
 @functools.cache
 def _kernel():
-    fn = build.library().cdll.mm_apply_lut
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,  # lut, k, channels
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,  # pos, out, n
-                   ctypes.c_void_p]  # stream
-    fn.restype = ctypes.c_int
-    return fn
+    return build.function("mm_apply_lut", ARGTYPES)
 
 
 torch.library.define("mathmap::apply_lut", "(Tensor lut, Tensor pos) -> Tensor")
@@ -96,10 +99,7 @@ def _apply_lut_cuda(lut, pos):
         stream = torch.cuda.current_stream().cuda_stream
         err = _kernel()(table.data_ptr(), k, channels, pos.data_ptr(),
                         out.data_ptr(), pos.numel(), stream)
-    if err != 0:
-        raise RuntimeError(
-            f"apply_lut kernel launch failed: cudaError {err} "
-            f"({build.error_string(err)})")
+    build.raise_for(err, "apply_lut")
     count("launch.apply_lut")
     return out
 

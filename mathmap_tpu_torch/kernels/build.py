@@ -134,9 +134,27 @@ def generated_library(source: str) -> Library:
     return _build(lib, GENERATED_FLAGS, [src])
 
 
+def function(symbol: str, argtypes, lib: Library | None = None):
+    """The C launcher `symbol` of `lib` (None: the csrc/*.cu library, built
+    at first use) with its parameters' types set; it returns a cudaError as
+    an int (raise_for)."""
+    fn = getattr((lib or library()).cdll, symbol)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return fn
+
+
 def error_string(err: int) -> str:
     """cudaGetErrorString of a launcher's return code."""
     fn = library().cdll.mm_error_string
     fn.argtypes = [ctypes.c_int]
     fn.restype = ctypes.c_char_p
     return fn(err).decode()
+
+
+def raise_for(err: int, kernel: str, where: str = "") -> None:
+    """Raise RuntimeError for a launcher's nonzero return code: "<kernel>
+    kernel launch failed: cudaError <err> (<its text>)", then `where`."""
+    if err != 0:
+        raise RuntimeError(
+            f"{kernel} kernel launch failed: cudaError {err} ({error_string(err)}){where}")

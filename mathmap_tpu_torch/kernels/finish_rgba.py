@@ -11,6 +11,10 @@ eager chain was the port's largest device op and the step is bound by
 bytes. `finish_rgba_reference` below is that eager chain, which the kernel
 equals bit for bit, NaN, ±inf and -0.0 included.
 
+Every frame finishes through the ops, which route by device alone: a CPU
+frame (the float64 spec's too) runs the plain version, a CUDA frame the
+kernel, whose launch raises on what it does not take (`_check`).
+
 The kernel reads each plane through its strides, so a plane arrives as
 the evaluator hands it over: contiguous (a sampler's or LUT's unbound
 output), broadcast along a row or a column (stride 0 on one axis: a
@@ -28,10 +32,6 @@ import torch
 
 from ..utils.trace import count
 from . import build
-
-#: the device types whose frames finish in the kernel (the CPU keeps the
-#: eager chain, which is also the kernel's plain version)
-DEVICES = ("cuda",)
 
 
 def pack_uint8(rgba: torch.Tensor, out: torch.Tensor | None = None) -> torch.Tensor:
@@ -53,25 +53,31 @@ def finish_rgba_reference(planes, inv: float, u8: bool,
     return torch.clamp(rgba, 0.0, 1.0, out=out)
 
 
-def _out_matches(out: torch.Tensor, planes, u8: bool) -> bool:
+def _out_matches(out: torch.Tensor, planes) -> bool:
     """Whether the kernel writes `out` for these planes: an (H, W, 4)
-    tensor of the frame's dtype on their device, pixel stride 4, channel
+    uint8 or float32 tensor on their device, pixel stride 4, channel
     stride 1."""
     first, shape = planes[0], out.shape
     return (len(shape) == 3 and shape[2] == 4 and shape[:2] == first.shape
-            and out.dtype == (torch.uint8 if u8 else torch.float32)
+            and out.dtype in (torch.uint8, torch.float32)
             and out.get_device() == first.get_device() and out.stride(2) == 1
             and (shape[1] == 1 or out.stride(1) == 4))
 
 
-def takes(planes, u8: bool, out: torch.Tensor | None = None) -> bool:
-    """Whether a frame of these planes finishes in the kernel: four
-    float32 planes on a device of DEVICES, and `out` None or one the
-    kernel writes. One (H, W) shape and one device, which the kernel needs
-    too, are the evaluator's for every plane; the op checks them."""
-    return (len(planes) == 4 and planes[0].device.type in DEVICES
-            and all(a.dtype == torch.float32 for a in planes)
-            and (out is None or _out_matches(out, planes, u8)))
+def _check(planes, out: torch.Tensor) -> None:
+    """The launch's one check, which guards the C call: raises ValueError
+    unless `planes` are four float32 (H, W) tensors on one CUDA device and
+    `out` is one the kernel writes there (`_out_matches`)."""
+    index = out.get_device()
+    if not (index >= 0 and len(planes) == 4 and _out_matches(out, planes)
+            and all(a.dtype == torch.float32 and a.get_device() == index
+                    and a.shape == out.shape[:2] for a in planes)):
+        raise ValueError(
+            "finish_rgba takes four float32 (H, W) planes on one CUDA device and an "
+            "(H, W, 4) out of the frame's dtype there, pixel stride 4 and channel "
+            f"stride 1; got planes "
+            f"{[(tuple(a.shape), a.dtype, str(a.device)) for a in planes]}, out "
+            f"{tuple(out.shape)} {out.dtype} {out.device} strides {out.stride()}")
 
 
 def wide_stores(out_ptr: int, out_row_bytes: int, u8: bool) -> bool:
@@ -95,42 +101,25 @@ ARGTYPES = (
 
 @functools.cache
 def _kernel():
-    fn = build.library().cdll.mm_finish_rgba
-    fn.argtypes = ARGTYPES
-    fn.restype = ctypes.c_int
-    return fn
+    return build.function("mm_finish_rgba", ARGTYPES)
 
 
 def _launch(planes, inv: float, out: torch.Tensor) -> None:
     """Launch the kernel on the current stream of the planes' device,
     writing `out`; raises on what it does not take."""
-    u8 = out.dtype == torch.uint8
-    index, hw = out.get_device(), out.shape[:2]
-    ok = index >= 0 and len(planes) == 4 and _out_matches(out, planes, u8)
-    # each plane's pointer and (row, column) strides in elements
-    layouts = []
-    for a in planes:
-        ok = ok and a.dtype == torch.float32 and a.get_device() == index and a.shape == hw
-        layouts += (a.data_ptr(), *a.stride())
-    if not ok:
-        raise ValueError(
-            "finish_rgba takes four float32 (H, W) planes on one CUDA device and an "
-            "(H, W, 4) out of the frame's dtype there, pixel stride 4 and channel "
-            f"stride 1; got planes "
-            f"{[(tuple(a.shape), a.dtype, str(a.device)) for a in planes]}, out "
-            f"{tuple(out.shape)} {out.dtype} {out.device} strides {out.stride()}")
-    h, w = hw
+    _check(planes, out)
+    h, w = out.shape[:2]
     if h == 0 or w == 0:
         return
+    # each plane's pointer and (row, column) strides in elements
+    layouts = [v for a in planes for v in (a.data_ptr(), *a.stride())]
+    u8 = out.dtype == torch.uint8
     out_ptr, out_row = out.data_ptr(), out.stride(0)
     wide = wide_stores(out_ptr, out_row * out.element_size(), u8)
-    with torch.cuda.device(index):
+    with torch.cuda.device(out.get_device()):
         stream = torch.cuda.current_stream().cuda_stream
         err = _kernel()(*layouts, out_ptr, out_row, h, w, int(u8), inv, int(wide), stream)
-    if err != 0:
-        raise RuntimeError(
-            f"finish_rgba kernel launch failed: cudaError {err} "
-            f"({build.error_string(err)})")
+    build.raise_for(err, "finish_rgba")
     count("launch.finish_rgba")
 
 
@@ -178,15 +167,16 @@ torch.library.register_fake("mathmap::finish_rgba_out")(_finish_out_fake)
 
 
 def finish_rgba(planes, inv: float, u8: bool, out: torch.Tensor | None = None) -> torch.Tensor:
-    """Finish a frame: four (H, W) float32 planes, each times `inv`,
-    clamped to [0, 1] and interleaved -> (H, W, 4) float32, or uint8
-    packed as `pack_uint8` packs when `u8`; written into `out` when given
-    (then `out`'s dtype must be the frame's).
+    """Finish a frame: four (H, W) planes, each times `inv`, clamped to
+    [0, 1] and interleaved -> (H, W, 4) float32, or uint8 packed as
+    `pack_uint8` packs when `u8`; written into `out` when given (then
+    `out`'s dtype must be the frame's).
 
     The custom ops `mathmap::finish_rgba` (a new frame), which an exported
-    program calls too, and `mathmap::finish_rgba_out`: a CPU tensor goes to
-    the plain version; a CUDA tensor launches the kernel on the current
-    stream (no synchronisation) or raises."""
+    program calls too, and `mathmap::finish_rgba_out`: CPU tensors go to
+    the plain version (float64 planes of the float64 spec too, which then
+    give a float64 frame); CUDA tensors launch the kernel on the current
+    stream (no synchronisation) or raise."""
     r, g, b, a = planes
     if out is None:
         return torch.ops.mathmap.finish_rgba(r, g, b, a, inv, u8)

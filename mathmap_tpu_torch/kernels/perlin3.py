@@ -185,10 +185,7 @@ _INT_MAX = 2**31 - 1
 
 @functools.cache
 def _kernel():
-    fn = build.library().cdll.mm_perlin3
-    fn.argtypes = ARGTYPES
-    fn.restype = ctypes.c_int
-    return fn
+    return build.function("mm_perlin3", ARGTYPES)
 
 
 def _launch(x, y, z) -> torch.Tensor:
@@ -216,9 +213,7 @@ def _launch(x, y, z) -> torch.Tensor:
     with torch.cuda.device(index):
         stream = torch.cuda.current_stream().cuda_stream
         err = _kernel()(*layouts, out.data_ptr(), jobs, h, w, int(wide), stream)
-    if err != 0:
-        raise RuntimeError(
-            f"perlin3 kernel launch failed: cudaError {err} ({build.error_string(err)})")
+    build.raise_for(err, "perlin3")
     count("launch.perlin3")
     return out
 

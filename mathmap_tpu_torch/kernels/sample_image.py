@@ -257,17 +257,9 @@ ARGTYPES = (
 )
 
 
-def bind(library: build.Library):
-    """The kernel's C entry point in `library`, with its argument types."""
-    fn = library.cdll.mm_sample_image
-    fn.argtypes = ARGTYPES
-    fn.restype = ctypes.c_int
-    return fn
-
-
 @functools.cache
 def _kernel():
-    return bind(build.library())
+    return build.function("mm_sample_image", ARGTYPES)
 
 
 torch.library.define(
@@ -303,10 +295,7 @@ def _sample_image_cuda(pixels, x, y, interpolation, edge_x, edge_y, edge_color):
                      x.data_ptr(), y.data_ptr(), out.data_ptr(), h, w, vec,
                      INTERPOLATIONS[interpolation], EDGES[edge_x],
                      EDGES[edge_y], *(float(c) for c in edge_color), stream)
-    if err != 0:
-        raise RuntimeError(
-            f"sample_image kernel launch failed: cudaError {err} "
-            f"({build.error_string(err)})")
+    build.raise_for(err, "sample_image")
     count("launch.sample_image")
     return out
 

@@ -135,22 +135,23 @@ def _check(ext, x, y, gh, gw, row_base, col_base, col_sharded,
             raise ValueError(f"block base {v} exceeds the kernel's int32 indexing")
 
 
+#: the C interface's parameters, csrc/sample_tiled.cu::mm_sample_tiled
+ARGTYPES = (
+    ctypes.c_void_p, ctypes.c_int, ctypes.c_int,  # ext block
+    ctypes.c_int, ctypes.c_int,  # gh, gw
+    ctypes.c_int, ctypes.c_int, ctypes.c_int,  # row_base, col_base, col_sharded
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # x, y, out
+    ctypes.c_int, ctypes.c_int,  # h, w
+    ctypes.c_int, ctypes.c_int, ctypes.c_int,  # interp, edge_x, edge_y
+    ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_float,
+    ctypes.c_void_p,  # excess (NULL = not measured)
+    ctypes.c_void_p,  # stream
+)
+
+
 @functools.cache
 def _kernel():
-    fn = build.library().cdll.mm_sample_tiled
-    fn.argtypes = [
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_int,  # ext block
-        ctypes.c_int, ctypes.c_int,  # gh, gw
-        ctypes.c_int, ctypes.c_int, ctypes.c_int,  # row_base, col_base, col_sharded
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # x, y, out
-        ctypes.c_int, ctypes.c_int,  # h, w
-        ctypes.c_int, ctypes.c_int, ctypes.c_int,  # interp, edge_x, edge_y
-        ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_float,
-        ctypes.c_void_p,  # excess (NULL = not measured)
-        ctypes.c_void_p,  # stream
-    ]
-    fn.restype = ctypes.c_int
-    return fn
+    return build.function("mm_sample_tiled", ARGTYPES)
 
 
 def sample_tiled(ext, x, y, gh: int, gw: int, row_base: int, col_base: int,
@@ -189,10 +190,7 @@ def sample_tiled(ext, x, y, gh: int, gw: int, row_base: int, col_base: int,
                      EDGES[edge_x], EDGES[edge_y],
                      *(float(c) for c in edge_color),
                      excess.data_ptr() if check else None, stream)
-    if err != 0:
-        raise RuntimeError(
-            f"sample_tiled kernel launch failed: cudaError {err} "
-            f"({build.error_string(err)})")
+    build.raise_for(err, "sample_tiled")
     count("launch.sample_tiled")
     return out, excess
 

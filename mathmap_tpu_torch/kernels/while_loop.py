@@ -1,17 +1,20 @@
-"""Kernel B3, the per-pixel `while` loop: eligibility, the CUDA generator,
+"""Kernel B3, the per-pixel `while` loop: the op list, the CUDA generator,
 the wrapper with its launch count, and the plain version.
 
 The kernel replaces the JAX package's in-VMEM while engine
 `mathmap_tpu/pallas_kernels/while_kernel.py::launch`. A loop's body differs
 per filter, so its kernel is generated: the evaluator's own `step` closure
-(runtime/tracer.py) runs ONCE on symbolic per-pixel scalars (`Sym`), whose
-`__torch_function__` and arithmetic dunders record every torch op the
-builtins reach into an SSA list (`Program`). `emit_cuda` prints that list
-as C++, one line per op, into csrc/while_loop.cu.tmpl; kernels/build.py
-compiles it with nvcc (`--fmad=false`) into a library of its own, cached per
-process and on disk by a hash of the source. `run_program` interprets the
-same list with torch, so the CPU tests hold the op list against the eager
-loop and only the C spelling of each op is left to the card.
+runs ONCE on symbolic per-pixel scalars (`Sym`; runtime/tracer.py::trace
+drives it), whose `__torch_function__` and arithmetic dunders record every
+torch op the builtins reach into an SSA list (`Program`). `emit_cuda`
+prints that list as C++, one line per op, into csrc/while_loop.cu.tmpl;
+kernels/build.py compiles it with nvcc (`--fmad=false`) into a library of
+its own, cached per process and on disk by a hash of the source.
+`run_program` interprets the same list with torch, so the CPU tests hold
+the op list against the eager loop and only the C spelling of each op is
+left to the card. Which loops come here, and how the evaluator hands one
+over, is the front end's (runtime/loops.py); this module knows nothing of
+the language or the evaluator.
 
 A rand() draw in the body is one op, `rand`, whose operand is the draw's
 number within the step; the kernel hashes it in uint32 (`mm_rand`, the hash
@@ -29,9 +32,7 @@ over the whole grid and merging each step under the mask: the same values
 as stepping the evaluator's closure, which the tests hold bit for bit.
 
 A loop the kernel does not take runs as that masked loop, stepping the
-evaluator's closure; its `any()` check reads the mask on the host, which a
-program traced by torch.export cannot do, so there `while_loop_exported`
-writes it as torch's `while_loop` op with the same gated steps.
+evaluator's closure (`while_loop_reference` with the closure as its step).
 
 What bounds the kernel: operations (pixels x iterations x ops per
 iteration), then the carried and dependency bytes read and written once,
@@ -41,24 +42,22 @@ and warp divergence (a warp runs until its slowest pixel exits).
 from __future__ import annotations
 
 import ctypes
-import functools
 import json
 import math
 import operator
 import string
-from dataclasses import dataclass
 from pathlib import Path
-from typing import Any, Callable
 
 import numpy as np
 import torch
 
 from ..ops import libm
-from ..ops.rand import COUNTER, M32, draw_salt, rand_index, rand_uniform
+from ..ops.rand import COUNTER, M32, rand_index, rand_uniform
 from ..utils.trace import count, span
 from . import build
 
-#: a wait of the loop's wrapper on the device
+#: a wait on the device while a step is traced: a one-element tensor read
+#: back to become a constant of the Program (Program.operand)
 _LOOP = span("mm.sync.loop")
 #: builtins a kernel body may call: the reference's SAFE_CALLS
 #: (while_kernel.py). Its other exclusions (the internals `a`/`ra` and the
@@ -81,95 +80,7 @@ SAFE_CALLS = frozenset({
     "conj", "length", "dotp", "crossp", "normalize", "scale",
 })
 
-#: internals that are kernel scalar arguments rather than baked literals
-SCALAR_INTERNALS = ("t", "frame", "X", "Y", "W", "H", "R")
-
-
-def scalar_internal(ctx, name: str):
-    """The value the evaluator's literal of a scalar internal holds: a
-    float, or for `t` and `frame` the 0-d tensor of an exported program's
-    input (generators/artifact.py)."""
-    return {"t": ctx.t, "frame": ctx.frame, "X": ctx.width * 0.5,
-            "Y": ctx.height * 0.5, "W": float(ctx.width), "H": float(ctx.height),
-            "R": ((ctx.width * 0.5) ** 2 + (ctx.height * 0.5) ** 2) ** 0.5}[name]
-
 TEMPLATE = Path(__file__).resolve().parent.parent / "csrc" / "while_loop.cu.tmpl"
-
-
-def eligible(node, env: dict, filters: dict) -> bool:
-    """Whether a loop (an A.While) can run as a generated kernel, decided
-    from its AST: every call is a SAFE_CALLS builtin that no env value or
-    user filter shadows, and no loop is nested in it."""
-    from ..lang import astnodes as A
-
-    for sub in A.walk(node):
-        if isinstance(sub, A.Call):
-            f = sub.func
-            if not isinstance(f, A.Var) or f.name not in SAFE_CALLS:
-                return False
-            if f.name in env or f.name in filters:
-                return False
-        if isinstance(sub, A.While) and sub is not node:
-            return False
-    return True
-
-
-def dependencies(node, init_env: dict, carried, shape) -> list | None:
-    """The non-carried env values the loop (an A.While) reads, as (name,
-    TupleValue) in name order; None when one is opaque or not a float32
-    scalar or `shape` grid, which makes the loop ineligible."""
-    from ..lang import astnodes as A
-
-    reads = {s.name for s in A.walk(node) if isinstance(s, A.Var)}
-    deps = []
-    for name in sorted(reads):
-        if name not in init_env or name in carried:
-            continue
-        tv = init_env[name]
-        if tv.is_opaque or not all(
-                a.dtype == torch.float32 and a.shape in ((), tuple(shape))
-                for a in tv.arrays):
-            return None
-        deps.append((name, tv))
-    return deps
-
-
-@dataclass
-class Loop:
-    """One loop as the tracer hands it over: its step closure, the values
-    it reads, and where it came from."""
-
-    #: step(flat, mask, loop_i, tile=None) -> (flat, mask): iteration
-    #: loop_i, counted from 1, under the mask (body, then the condition
-    #: whose assignments persist); with mask=None every pixel steps and the
-    #: condition mask comes back unmerged. tile=(ctx, x, y, base_env,
-    #: make_evaluator) evaluates it there instead.
-    step: Callable
-    deps: list  # [(name, TupleValue)], dependencies()
-    x: torch.Tensor
-    y: torch.Tensor
-    ctx: Any  # RenderContext
-    unroll: int  # masked steps per convergence check (plain version)
-    node: Any  # A.While
-    #: what else fixes the traced ops: the carried names with their
-    #: lengths and tags, and each dependency's name, tag and length
-    spec: tuple
-    #: the rand counter every step starts from: a step's k-th draw takes
-    #: counter rand_base + k
-    rand_base: int = 0
-    #: iterations already run (the static unroll's): the first one here is
-    #: number it_base + 1
-    it_base: int = 0
-
-    @property
-    def origin(self) -> str:
-        """Where the loop is, for the generated source's header."""
-        return f"line {self.node.span.line}:{self.node.span.col}"
-
-    @property
-    def rand_salt(self) -> int:
-        """The salt of counter rand_base (a step's draw k adds k * COUNTER)."""
-        return draw_salt(self.ctx.opts.seed, self.rand_base)
 
 
 # ---------------------------------------------------------------------------
@@ -193,78 +104,6 @@ def while_loop_reference(step, flat0, mask0, max_iters: int, unroll: int, it_bas
             flat, mask = step(flat, mask, it_base + i + 1)
             i += 1
     return flat, i
-
-
-def while_loop_exported(step, flat0, mask0, max_iters: int, unroll: int, it_base: int = 0):
-    """The masked loop of while_loop_reference inside a program that
-    torch.export traces -> the final flat carry. Its `any()` check cannot
-    run on the host there, so the loop is torch's while loop (the
-    higher-order op `while_loop`, which the exported program keeps and
-    runs), the reference's lax route (mathmap_tpu/runtime/tracer.py): the
-    carry is (i, mask, *flat), every iteration runs `unroll` masked steps,
-    step k gated to the pixels in the mask while i + k < max_iters and
-    numbered it_base + i + k + 1, a 0-d int64 tensor. A gated step leaves
-    every pixel as it was, so the values are while_loop_reference's bit for
-    bit. The carry is materialised as contiguous (H, W) tensors, the layout
-    the op wants at every step. A loaded program runs the op as a host loop
-    over the body's graph, reading the condition once an iteration, as the
-    live masked loop reads its `any()`."""
-    shape = mask0.shape
-    carry = (torch.zeros((), dtype=torch.int64, device=mask0.device),
-             *(torch.broadcast_to(t, shape).clone(memory_format=torch.contiguous_format)
-               for t in (mask0, *flat0)))
-
-    def cond(i, mask, *flat):
-        return mask.any() & (i < max_iters)
-
-    def body(i, mask, *flat):
-        for k in range(unroll):
-            flat, mask = step(flat, mask & ((i + k) < max_iters), it_base + i + (k + 1))
-        return (i + unroll, mask, *flat)
-
-    return _while_op(cond, body, carry)[2:]
-
-
-def _while_op(cond, body, carry: tuple) -> tuple:
-    """torch's `while_loop` op over `carry` inside a torch.export trace,
-    with every tensor that `body` reads but does not take as an argument
-    passed to the op as an input.
-
-    torch's own `while_loop` lifts such tensors by tracing the body with
-    dynamo, which refuses the evaluator (a step mutates the render
-    context). So the body is traced here, as the op would trace it, into a
-    graph in which each of those tensors is a constant: a tensor of the
-    enclosing trace (x, y, an image, a param) or one the body made from
-    Python data (a literal, the Perlin table). An exported program may
-    hold neither inside a loop's graph, so each becomes a placeholder of
-    the graph and the tensor an input of the op: the enclosing trace sees
-    its own value or lifts the constant to the program's constants.
-    `cond` reads only the carry."""
-    from torch._higher_order_ops.utils import reenter_make_fx
-    from torch._higher_order_ops.while_loop import while_loop_op
-    from torch.fx.experimental.proxy_tensor import disable_proxy_modes_tracing
-
-    with disable_proxy_modes_tracing():
-        gm = reenter_make_fx(lambda *c: tuple(body(*c)))(*(t.clone() for t in carry))
-    graph = gm.graph
-    last = [n for n in graph.nodes if n.op == "placeholder"][-1]
-    lifted: dict = {}  # attribute -> (its tensor, the placeholder that replaces it)
-    for node in list(graph.nodes):
-        value = getattr(gm, node.target, None) if node.op == "get_attr" else None
-        if isinstance(value, torch.Tensor):
-            if node.target not in lifted:
-                with graph.inserting_after(last):
-                    last = graph.placeholder(f"lifted_{len(lifted)}")
-                last.meta.update(node.meta)
-                lifted[node.target] = (value, last)
-            node.replace_all_uses_with(lifted[node.target][1])
-            graph.erase_node(node)
-    for name in lifted:
-        delattr(gm, name)
-    gm.recompile()
-    n = len(carry)
-    return while_loop_op(lambda *args: cond(*args[:n]), gm, carry,
-                         tuple(value for value, _ in lifted.values()))
 
 
 # ---------------------------------------------------------------------------
@@ -606,70 +445,6 @@ class Sym:
         raise GeneratorError("a traced per-pixel value was used as a Python bool")
 
 
-@functools.cache
-def _sym_evaluator_class():
-    """Evaluator whose literals and scalar internals are Syms (imported
-    late: runtime.tracer imports this module)."""
-    from ..runtime.tracer import Evaluator
-    from ..runtime.value import TupleValue
-    from ..typesys.tags import NIL
-
-    class SymEvaluator(Evaluator):
-        def __init__(self, program, ctx, x, y, env, salt_extra=None):
-            super().__init__(ctx, x, y, env, salt_extra)
-            self.program = program
-
-        def lit(self, v):
-            return self.program.const(v)
-
-        def rand_uniform(self):
-            # the step's k-th draw; the kernel salts it with the iteration
-            self.ctx.rand_counter += 1
-            if self.salt_extra is not ITERATION:
-                raise GeneratorError("a rand() draw with another salt than the iteration's")
-            k = self.ctx.rand_counter - self.program.rand_base
-            return self.program.add("rand", (("n", k),), "f")
-
-        def _internal(self, name):
-            # the size internals keep their host constants, as in the
-            # evaluator; t and frame have none
-            if name in SCALAR_INTERNALS:
-                c = None if name in ("t", "frame") else scalar_internal(self.ctx, name)
-                return TupleValue(NIL, (self.program.input(("scalar", name)),),
-                                  const=None if c is None else (c,))
-            if name in ("WH", "wh"):
-                return TupleValue(NIL, (self.program.input(("scalar", "W")),
-                                        self.program.input(("scalar", "H"))),
-                                  const=(float(self.ctx.width), float(self.ctx.height)))
-            return super()._internal(name)
-
-    return SymEvaluator
-
-
-def trace(loop: Loop, n_flat: int) -> Program:
-    """Run the loop's step once on symbolic inputs -> its Program."""
-    from ..runtime.value import TupleValue
-
-    prog = Program(loop.rand_base, loop.origin)
-    flat = tuple(prog.input(("carry", i)) for i in range(n_flat))
-    base_env = {name: TupleValue(tv.tag, tuple(prog.input(("dep", name, j))
-                                               for j in range(len(tv.arrays))))
-                for name, tv in loop.deps}
-    x, y = prog.input(("x",)), prog.input(("y",))
-    cls = _sym_evaluator_class()
-
-    def make_evaluator(ctx, ex, ey, env, salt_extra):
-        return cls(prog, ctx, ex, ey, env, salt_extra)
-
-    new_flat, cond = loop.step(flat, None, ITERATION,
-                               tile=(loop.ctx, x, y, base_env, make_evaluator))
-    prog.outputs = [prog.operand(v) for v in new_flat]
-    prog.cond = prog.operand(cond)
-    if prog.kind_of(prog.cond) != "b" or any(prog.kind_of(o) != "f" for o in prog.outputs):
-        raise GeneratorError("a loop step must give float carries and a bool condition")
-    return prog
-
-
 # ---------------------------------------------------------------------------
 # the CPU interpreter of a Program (the op list's executable spec)
 # ---------------------------------------------------------------------------
@@ -787,7 +562,8 @@ def emit_cuda(prog: Program, origin: str = "") -> str:
     """The kernel source of `prog` (csrc/while_loop.cu.tmpl filled in).
     Strided inputs are indexed in Program.grid_inputs order and scalars in
     Program.scalar_inputs order; carried values live in registers c<k>
-    across iterations (trace() makes every carried slot an input)."""
+    across iterations (runtime/tracer.py::trace makes every carried slot an
+    input)."""
     grids, scalars = prog.grid_inputs, prog.scalar_inputs
     scalar_slot = {k: n for n, k in enumerate(scalars)}
     grid_slot = {k: n for n, k in enumerate(grids)}
@@ -848,25 +624,18 @@ def emit_cuda(prog: Program, origin: str = "") -> str:
 
 #: generated source -> its loaded launcher, for this process
 _LAUNCHERS: dict = {}
-#: (id(node), spec) -> (node, Program, its text): a loop is traced once per
-#: process, not once per render
-_PREPARED: dict = {}
 #: Program text -> (Program, its CUDA source or None until emitted): what the
 #: op's implementations run, for this process's loops and for the loops of
 #: the exported programs it loaded
 _PROGRAMS: dict = {}
 
 
-def _prepare(loop: Loop, n_flat: int):
-    """The loop's Program and its text, traced on first use."""
-    key = (id(loop.node), loop.spec)
-    hit = _PREPARED.get(key)
-    if hit is None or hit[0] is not loop.node:
-        prog = trace(loop, n_flat)
-        text = prog.to_text()
-        _PROGRAMS.setdefault(text, [prog, None])
-        hit = _PREPARED[key] = (loop.node, prog, text)
-    return hit[1], hit[2]
+def register(prog: Program) -> str:
+    """The Program's text, the op's first argument, with the Program kept
+    for the op's implementations (they need not read the text back)."""
+    text = prog.to_text()
+    _PROGRAMS.setdefault(text, [prog, None])
+    return text
 
 
 def _program(text: str):
@@ -887,19 +656,22 @@ def build_program(text: str):
     return _launcher(entry[1])
 
 
+#: the C interface's parameters, csrc/while_loop.cu.tmpl::mm_while_loop
+ARGTYPES = (
+    ctypes.c_void_p, ctypes.c_void_p,  # ptrs, strides
+    ctypes.c_void_p, ctypes.c_void_p,  # scalars on the host, on the card
+    ctypes.c_int, ctypes.c_int, ctypes.c_int,  # h, w, max_iters
+    ctypes.c_int, ctypes.c_int, ctypes.c_int,  # row0, col0, width
+    ctypes.c_uint32, ctypes.c_int,  # rand_salt, it_base
+    ctypes.c_void_p,  # stream
+)
+
+
 def _launcher(source: str):
     fn = _LAUNCHERS.get(source)
     if fn is None:
-        lib = build.generated_library(source)
-        fn = lib.cdll.mm_while_loop
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p,  # ptrs, strides
-                       ctypes.c_void_p, ctypes.c_void_p,  # scalars on the host, on the card
-                       ctypes.c_int, ctypes.c_int, ctypes.c_int,  # h, w, max_iters
-                       ctypes.c_int, ctypes.c_int, ctypes.c_int,  # row0, col0, width
-                       ctypes.c_uint32, ctypes.c_int,  # rand_salt, it_base
-                       ctypes.c_void_p]  # stream
-        fn.restype = ctypes.c_int
-        _LAUNCHERS[source] = fn
+        fn = _LAUNCHERS[source] = build.function(
+            "mm_while_loop", ARGTYPES, build.generated_library(source))
     return fn
 
 
@@ -975,10 +747,7 @@ def _while_loop_cuda(program, grids, mask, scalars, max_iters, unroll, row0, col
         err = fn(ptrs, strides_c, scalars.data_ptr() if on_host else None,
                  None if on_host else scalars.data_ptr(), h, w,
                  min(int(max_iters), 2**31 - 1), row0, col0, width, rand_salt, it_base, stream)
-    if err != 0:
-        raise RuntimeError(
-            f"while_loop kernel launch failed: cudaError {err} "
-            f"({build.error_string(err)}) for the loop at {prog.origin}")
+    build.raise_for(err, "while_loop", f" for the loop at {prog.origin}")
     count("launch.while_loop")
     return outs
 
@@ -993,44 +762,3 @@ def _while_loop_fake(program, grids, mask, scalars, max_iters, unroll, row0, col
 
 
 torch.library.register_fake("mathmap::while_loop")(_while_loop_fake)
-
-
-def _scalars(ctx, keys, device) -> torch.Tensor:
-    """The scalar inputs' values as one float32 tensor: on the host when
-    every one is a float (the kernel takes them by value, no copy to the
-    card), else on `device` (an exported program's `t` or `frame`)."""
-    vals = [scalar_internal(ctx, k[1]) for k in keys]
-    if not any(isinstance(v, torch.Tensor) for v in vals):
-        return torch.tensor(vals, dtype=torch.float32)
-    return torch.stack([v.reshape(()) if isinstance(v, torch.Tensor)
-                        else _LOOP.tensor(v, torch.float32, device) for v in vals])
-
-
-def while_loop(loop: Loop, flat0: tuple, mask0: torch.Tensor, max_iters: int) -> tuple:
-    """Run `loop` from carry `flat0` ((H, W) float32 grids) and the first
-    condition's mask `mask0` ((H, W) bool) until every pixel's condition
-    fails or `max_iters` iterations -> the final carry.
-
-    The loop is traced into its Program once, and the custom op
-    `mathmap::while_loop` runs the Program's text, in the live render and
-    in an exported program alike: on the CPU the masked loop over
-    run_program (the plain version), on a CUDA device the loop's generated
-    kernel, built once per distinct source and launched on the current
-    stream without synchronising, or this raises. Iterations are numbered
-    from loop.it_base + 1."""
-    dev = mask0.device
-    if dev.type not in ("cpu", "cuda"):
-        raise ValueError(f"no while-loop kernel for device {dev}")
-    ctx = loop.ctx
-    prog, text = _prepare(loop, len(flat0))
-    values = {("carry", k): a for k, a in enumerate(flat0)}
-    values[("x",)], values[("y",)] = loop.x, loop.y
-    for name, tv in loop.deps:
-        for j, a in enumerate(tv.arrays):
-            values[("dep", name, j)] = a
-    grids = [values[k] for k in prog.grid_inputs]
-    scalars = _scalars(ctx, prog.scalar_inputs, dev)
-    return tuple(torch.ops.mathmap.while_loop(
-        text, grids, mask0, scalars, int(max_iters), int(loop.unroll), ctx.row_offset,
-        ctx.col_offset, ctx.width, loop.rand_salt, loop.it_base))
-

@@ -44,9 +44,10 @@ import math
 
 import torch
 
+from ..kernels.finish_rgba import pack_uint8
 from ..kernels.sample_image import u8_to_float
-from ..runtime.render import (float_inputs, pack_uint8, render_frame, resolve_region,
-                              user_values, validate_params)
+from ..runtime.render import (float_inputs, render_frame, resolve_region, user_values,
+                              validate_params)
 from ..runtime.tracer import RenderContext
 from ..runtime.value import InputImage, TiledInput
 from ..utils.errors import MMRuntimeError

@@ -42,7 +42,7 @@ class RenderOptions:
     #: the centres, five samples a pixel; used when supersample > 1).
     supersample_scheme: str = "grid"
     #: 'float32': (H, W, 4) in [0, 1]; 'uint8': packed on the device with
-    #: the round-to-nearest 8-bit rule (runtime.render.pack_uint8).
+    #: the round-to-nearest 8-bit rule (kernels/finish_rgba.py::pack_uint8).
     output_dtype: str = "float32"
     #: (x, y, w, h) sub-rectangle render: only the (h, w) grid is evaluated,
     #: while x/y/W/H/R and input sampling keep the full canvas.

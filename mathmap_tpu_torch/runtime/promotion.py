@@ -30,7 +30,8 @@ from torch.overrides import TorchFunctionMode
 #: broadcast rather than compute with them, and the package's custom ops
 _KEEP = frozenset({
     "to", "type_as", "expand_as", "view_as", "reshape_as", "broadcast_tensors",
-    "__setitem__", "sample_image", "apply_lut", "while_loop", "libm",
+    "__setitem__", "sample_image", "apply_lut", "while_loop", "libm", "finish_rgba",
+    "finish_rgba_out",
 })
 
 

@@ -2,9 +2,11 @@
 `mathmap_tpu/runtime/render.py`).
 
 One render evaluates the filter once over the whole (H, W) grid per
-subsample (runtime.tracer), averages the s×s grid subsamples (or, under
+subsample (runtime.tracer), sums the s×s grid subsamples (or, under
 supersample_scheme='corners', the four corners and the centre of each
-pixel), clips to [0, 1] and optionally packs to uint8 on the device. A
+pixel), and finishes the frame in kernel B5 (kernels/finish_rgba.py):
+scaled by the samples' weight, clipped to [0, 1] and optionally packed to
+uint8 on the device. A
 region render evaluates only the region's (h, w) grid at its offset, with
 the full canvas's coordinates, so it is the full render's crop bit for
 bit. PyTorch runs eagerly,
@@ -26,7 +28,6 @@ import numpy as np
 import torch
 
 from ..kernels import finish_rgba as B5
-from ..kernels.finish_rgba import pack_uint8
 from ..kernels.sample_image import u8_to_float
 from ..lang import astnodes as A
 from ..utils.errors import MMRuntimeError
@@ -142,14 +143,14 @@ def _eval_rgba(ctx: RenderContext, fdef: A.FilterDef, uservals: dict,
         return coerce_rgba(ev, ev.eval(fdef.body), fdef)
 
 
-def _corners_rgba(ctx: RenderContext, fdef: A.FilterDef, uservals: dict) -> torch.Tensor:
-    """The corner-grid scheme: ONE evaluation on the (h+1, w+1) grid of
-    pixel corners (offset (-0.5, -0.5), each interior corner shared by four
-    pixels), then the centres; the five samples of a pixel weigh 1/5 each,
-    added in the reference's order. W/H and world coordinates keep the
-    real frame; only the evaluation grid grows. The rand counter and the
-    loop nonce carry from the corner evaluation into the centre one, so
-    the two draw distinct streams."""
+def _corners_sum(ctx: RenderContext, fdef: A.FilterDef, uservals: dict) -> torch.Tensor:
+    """The corner-grid scheme's (H, W, 4) sum of a pixel's five samples,
+    which weigh 1/5 each: ONE evaluation on the (h+1, w+1) grid of pixel
+    corners (offset (-0.5, -0.5), each interior corner shared by four
+    pixels), then the centres, added in the reference's order. W/H and
+    world coordinates keep the real frame; only the evaluation grid grows.
+    The rand counter and the loop nonce carry from the corner evaluation
+    into the centre one, so the two draw distinct streams."""
     h, w = ctx.shape
     sub = replace(ctx, grid_shape=(h + 1, w + 1))
     corner = torch.stack(_eval_rgba(sub, fdef, uservals, -0.5, -0.5), dim=-1)
@@ -157,7 +158,7 @@ def _corners_rgba(ctx: RenderContext, fdef: A.FilterDef, uservals: dict) -> torc
     ctx.rand_loop_nonce = sub.rand_loop_nonce
     center = torch.stack(_eval_rgba(ctx, fdef, uservals), dim=-1)
     return (corner[:-1, :-1] + corner[:-1, 1:] + corner[1:, :-1]
-            + corner[1:, 1:] + center) * 0.2
+            + corner[1:, 1:] + center)
 
 
 def render_frame(ctx: RenderContext, fdef: A.FilterDef, uservals: dict,
@@ -166,29 +167,21 @@ def render_frame(ctx: RenderContext, fdef: A.FilterDef, uservals: dict,
     (4,) in [0,1], float32 (float64 in the float64 spec render), or uint8
     when opts.output_dtype='uint8', written into `out` when given.
 
-    The grid scheme's finish (scale, clamp, interleave, pack) is kernel B5
-    (kernels/finish_rgba.py) on the card; the CPU, the float64 spec, other
-    dtypes and the corners scheme finish in eager torch, each such frame
-    counted as `finish.eager`. Its output pixels add to `render.pixels`."""
+    Every frame finishes (scale by the samples' weight, clamp, interleave,
+    pack) in one call of kernel B5's `finish_rgba`, on the CPU its plain
+    version. Its output pixels add to `render.pixels`."""
     count("render.pixels", ctx.shape[0] * ctx.shape[1])
     s = ctx.opts.supersample
-    u8 = ctx.opts.output_dtype == "uint8"
     if s > 1 and ctx.opts.supersample_scheme == "corners":
-        rgba = _corners_rgba(ctx, fdef, uservals)
+        total = _corners_sum(ctx, fdef, uservals)
+        planes, inv = [total[..., c] for c in range(4)], 0.2
     else:
-        acc = None
+        planes = None
         for dx, dy in subpixel_offsets(s):
             comps = _eval_rgba(ctx, fdef, uservals, dx, dy)
-            acc = list(comps) if acc is None else [a + c for a, c in zip(acc, comps)]
+            planes = list(comps) if planes is None else [a + c for a, c in zip(planes, comps)]
         inv = 1.0 / (s * s)
-        if B5.takes(acc, u8, out):
-            return B5.finish_rgba(acc, inv, u8, out)
-        rgba = torch.stack([a * inv for a in acc], dim=-1)
-    count("finish.eager")
-    if u8:
-        return pack_uint8(rgba, out)
-    # clamp to displayable range (the reference clamps when packing 8-bit)
-    return torch.clamp(rgba, 0.0, 1.0, out=out)
+    return B5.finish_rgba(planes, inv, ctx.opts.output_dtype == "uint8", out)
 
 
 def validate_params(fdef: A.FilterDef, params: dict, static_names) -> None:

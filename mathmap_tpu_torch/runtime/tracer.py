@@ -10,10 +10,13 @@ assignment). Image application goes to runtime.sampling, whose CUDA path is
 the hand-written sampler kernel.
 
 `while` loops run in `_eval_While`: unrolled when the trip count folds to
-a constant, else through the generated kernel B3 (kernels/while_loop.py)
-when the loop is eligible, else as the masked eager loop, which a program
-traced by torch.export holds as torch's while loop instead. Curves and
-gradients apply through kernel B2 (ops/color_ops.py).
+a constant, else through the generated kernel B3 when the loop is eligible
+(runtime/loops.py, the loop's front end, hands it to kernels/while_loop.py;
+`SymEvaluator` and `trace` below turn its step into B3's op list), else as
+the masked eager loop, which a program traced by torch.export holds as
+torch's while loop instead. Each loop run of a render counts its route in
+the counters `loop.<route>` and `loop.<route>.steps` (utils/trace.py).
+Curves and gradients apply through kernel B2 (ops/color_ops.py).
 
 rand() draws from a counter hash of the global pixel index (ops/rand.py):
 each draw takes the context's next counter, and inside a loop every step
@@ -30,28 +33,26 @@ from typing import Any
 
 import torch
 
+from ..kernels.while_loop import (ITERATION, GeneratorError, Program, any_active,
+                                  while_loop_reference)
 from ..lang import astnodes as A
 from ..ops import libm
 from ..ops import registry as R
-from ..kernels import while_loop as WL
-from ..kernels.while_loop import while_loop as loop_kernel
 from ..ops.color_ops import apply_curve, apply_gradient
 from ..ops.rand import draw_salt, mix_salt, rand_index, rand_uniform
-from ..runtime.value import ClosureImage, TupleValue, image_value
 from ..typesys import tags as tagmod
 from ..typesys.tags import NIL
 from ..utils.errors import MMNameError, MMRuntimeError, MMTypeError
-from ..utils.trace import span
+from ..utils.trace import count, span
+from .loops import (SCALAR_INTERNALS, Loop, dependencies, eligible, scalar_internal,
+                    while_loop_exported)
+from .loops import while_loop as loop_kernel
+from .value import ClosureImage, TupleValue, image_value
 
 _LITERAL = span("mm.sync.literal")
 _LOOP = span("mm.sync.loop")
 _PROBE = span("mm.loop.probe")
 _2PI = 2.0 * math.pi
-
-#: route of every while loop evaluated in this process, in order:
-#: ("unroll", steps), ("kernel", max_iters), ("masked", steps) or, traced
-#: by torch.export, ("while_loop", max_iters)
-TRACE_LOOP_PATHS: list = []
 
 #: operator token -> builtin name
 _BINOP_NAME = {
@@ -81,7 +82,17 @@ def _any_active(mask) -> bool:
     """The eager masked loop's check: the mask read on the host, a wait on
     the device."""
     with _LOOP:
-        return WL.any_active(mask)
+        return any_active(mask)
+
+
+def _count_route(route: str, steps: int) -> None:
+    """One loop run on `route` (`unroll`, `kernel` or `masked`) and the
+    steps it ran, the unroll's before it included; the kernel, whose steps
+    run on the device, adds its bound, max_loop_iters. Under torch.export
+    nothing counts (utils/trace.py): the exported graph shows the route,
+    torch's `while_loop` op among them."""
+    count(f"loop.{route}")
+    count(f"loop.{route}.steps", steps)
 
 
 @dataclass
@@ -439,12 +450,12 @@ class Evaluator:
     # ------------------------------------------------------------------
     def _eval_While(self, node: A.While) -> TupleValue:
         """The reference's `_eval_While`: a probe finds the carried names,
-        then the loop runs on one of three routes, recorded in
-        TRACE_LOOP_PATHS: the static-trip-count unroll when the condition
-        const-folds, the generated kernel B3 for an eligible loop (its plain
-        version on the CPU), or the masked eager loop; under torch.export
-        the masked loop is torch's while loop ("while_loop"), whose steps
-        the exported program runs with the same values."""
+        then the loop runs on one of three routes, each run counted in
+        `loop.<route>` (_count_route): the static-trip-count unroll when
+        the condition const-folds, the generated kernel B3 for an eligible
+        loop (its plain version on the CPU), or the masked eager loop;
+        under torch.export the masked loop is torch's while loop, whose
+        steps the exported program runs with the same values."""
         names = sorted(A.assigned_names(node.body) | A.assigned_names(node.cond))
         # rand(): the unroll and the kernel fix a step's counters when they
         # evaluate or trace it, the masked loop draws step by step; so every
@@ -603,8 +614,8 @@ class Evaluator:
             tensor in an exported while loop) under `mask` -> (new flat,
             next mask). mask=None steps every pixel and returns the
             condition unmerged. `tile` = (ctx, x, y, base_env,
-            make_evaluator) evaluates the step there: kernels/while_loop.py
-            traces it on symbolic scalars."""
+            make_evaluator) evaluates the step there: `trace` runs it on
+            symbolic scalars."""
             ctx, x, y, base_env, make_ev = locate(tile)
             ctx.rand_counter, ctx.rand_loop_nonce = rand_base, nonce_loop
             salt = self._mix_salt(loop_i)
@@ -655,14 +666,14 @@ class Evaluator:
         # the reference's oracle runs as the masked loop (B3 is float32)
         if (opts.pallas_while != "off" and self.salt_extra is None
                 and self.ctx.dtype == torch.float32
-                and WL.eligible(node, self.env, self.ctx.filters)):
-            deps = WL.dependencies(node, init_env, carried, shape)
+                and eligible(node, self.env, self.ctx.filters)):
+            deps = dependencies(node, init_env, carried, shape)
             if deps is not None:
                 spec = (tuple((n, lengths[n], tags[n]) for n in carried),
                         tuple((n, tv.tag, len(tv.arrays)) for n, tv in deps))
-                loop = WL.Loop(step=step, deps=deps, x=self.x, y=self.y, ctx=self.ctx,
-                               unroll=opts.while_unroll, node=node, spec=spec,
-                               rand_base=rand_base)
+                loop = Loop(step=step, trace=trace, deps=deps, x=self.x, y=self.y,
+                            ctx=self.ctx, unroll=opts.while_unroll, node=node, spec=spec,
+                            rand_base=rand_base)
 
         # static-trip-count unroll: while the condition folds to a constant,
         # step every pixel (no masks, no convergence checks). 'on' forces
@@ -678,7 +689,7 @@ class Evaluator:
                     n_done += 1
                     active = cond_const[0]
             if active is False or (active and n_done >= max_iters):
-                TRACE_LOOP_PATHS.append(("unroll", n_done))
+                _count_route("unroll", n_done)
                 return finish(flat_u, consts_u)
             # the condition stopped folding (or the budget ran out) after
             # n_done steps that every pixel took: go on from there with the
@@ -691,21 +702,20 @@ class Evaluator:
             if loop is not None:
                 loop.it_base = n_done
                 flat_out = loop_kernel(loop, flat0, mask0, max_iters - n_done)
-                TRACE_LOOP_PATHS.append(("kernel", max_iters))
+                _count_route("kernel", max_iters)
             elif torch.compiler.is_exporting():
                 # the masked loop's check reads the mask on the host: an
                 # exported program holds it as torch's while loop, whose
                 # traced body's blurs must not outlive it
                 cache = dict(self.ctx.native_cache)
-                flat_out = WL.while_loop_exported(
+                flat_out = while_loop_exported(
                     step, flat0, mask0, max_iters - n_done, opts.while_unroll, n_done)
                 self.ctx.native_cache = cache
-                TRACE_LOOP_PATHS.append(("while_loop", max_iters))
             else:
-                flat_out, steps = WL.while_loop_reference(
+                flat_out, steps = while_loop_reference(
                     step, flat0, mask0, max_iters - n_done, opts.while_unroll, n_done,
                     check=_any_active)
-                TRACE_LOOP_PATHS.append(("masked", n_done + steps))
+                _count_route("masked", n_done + steps)
         return finish(flat_out)
 
     # ------------------------------------------------------------------
@@ -772,6 +782,63 @@ class Evaluator:
         finally:
             self.ctx.inline_depth -= 1
         return coerce_rgba(ev, out, fdef)
+
+
+class SymEvaluator(Evaluator):
+    """The evaluator over kernel B3's symbolic per-pixel scalars
+    (kernels/while_loop.py::Sym), recording into `program`: its literals
+    are the Program's constants, a rand() draw is one `rand` op, and the
+    scalar internals are kernel arguments."""
+
+    def __init__(self, program: Program, ctx: RenderContext, x, y, env: dict,
+                 salt_extra=None):
+        super().__init__(ctx, x, y, env, salt_extra)
+        self.program = program
+
+    def lit(self, v):
+        return self.program.const(v)
+
+    def rand_uniform(self):
+        # the step's k-th draw; the kernel salts it with the iteration
+        self.ctx.rand_counter += 1
+        if self.salt_extra is not ITERATION:
+            raise GeneratorError("a rand() draw with another salt than the iteration's")
+        k = self.ctx.rand_counter - self.program.rand_base
+        return self.program.add("rand", (("n", k),), "f")
+
+    def _internal(self, name):
+        # the size internals keep their host constants, as in the
+        # evaluator; t and frame have none
+        if name in SCALAR_INTERNALS:
+            c = None if name in ("t", "frame") else scalar_internal(self.ctx, name)
+            return TupleValue(NIL, (self.program.input(("scalar", name)),),
+                              const=None if c is None else (c,))
+        if name in ("WH", "wh"):
+            return TupleValue(NIL, (self.program.input(("scalar", "W")),
+                                    self.program.input(("scalar", "H"))),
+                              const=(float(self.ctx.width), float(self.ctx.height)))
+        return super()._internal(name)
+
+
+def trace(loop: Loop, n_flat: int) -> Program:
+    """Run the loop's step once on symbolic inputs -> its Program."""
+    prog = Program(loop.rand_base, loop.origin)
+    flat = tuple(prog.input(("carry", i)) for i in range(n_flat))
+    base_env = {name: TupleValue(tv.tag, tuple(prog.input(("dep", name, j))
+                                               for j in range(len(tv.arrays))))
+                for name, tv in loop.deps}
+    x, y = prog.input(("x",)), prog.input(("y",))
+
+    def make_evaluator(ctx, ex, ey, env, salt_extra):
+        return SymEvaluator(prog, ctx, ex, ey, env, salt_extra)
+
+    new_flat, cond = loop.step(flat, None, ITERATION,
+                               tile=(loop.ctx, x, y, base_env, make_evaluator))
+    prog.outputs = [prog.operand(v) for v in new_flat]
+    prog.cond = prog.operand(cond)
+    if prog.kind_of(prog.cond) != "b" or any(prog.kind_of(o) != "f" for o in prog.outputs):
+        raise GeneratorError("a loop step must give float carries and a bool condition")
+    return prog
 
 
 def bind_params(ctx: RenderContext, fdef: A.FilterDef, args: tuple) -> dict:

@@ -39,9 +39,9 @@ the one evaluation of its condition and body whose results are discarded
 on the device is a span `mm.sync.<cause>` (`literal`, `param`, `loop`,
 `readback`, `stage`): its count is the number of waits, its time the time
 the host sat blocked. The counters: `launch.<kernel>` for each CUDA kernel
-launch, `build.nvcc` for each nvcc run, `finish.eager` for each
-frame finished by the eager chain instead of kernel B5 (beside
-`launch.finish_rgba`, the share of frames the kernel finished),
+launch, `build.nvcc` for each nvcc run, `loop.<route>` for each while
+loop run on a route (`unroll`, `kernel`, `masked`) and `loop.<route>.steps`
+for its steps (runtime/tracer.py::_count_route),
 `render.pixels` for the output pixels of each frame, tile or region
 `render_frame` renders, and `noise.points` for the points each `noise`
 call evaluates (its broadcast result's elements; over `render.pixels`,

@@ -141,7 +141,8 @@ def test_artifact_roundtrip_params_stay_runtime(tw_art):
         assert torch.equal(got, want)
         np.testing.assert_allclose(got.numpy(), _oracle(ART_SRC, img, params=p, t=0.1),
                                    rtol=RTOL, atol=ATOL)
-    assert _ops(art) == {"mathmap.sample_image.default", "mathmap.libm.default"}
+    assert _ops(art) == {"mathmap.sample_image.default", "mathmap.libm.default",
+                         "mathmap.finish_rgba.default"}
 
 
 def test_artifact_curve_lut_param(tmp_path):

@@ -1,7 +1,7 @@
 """Exported artifacts of the loops that only the masked route runs, on the
 CPU: a loop that kernel B3 refuses (its body calls noise, an image, atan
 or holds another loop) and whose trip count is not a trace-time constant
-exports as torch's `while_loop` op (kernels/while_loop.py::
+exports as torch's `while_loop` op (runtime/loops.py::
 while_loop_exported), the reference's lax route.
 
 - ridged_noise with `octaves` and `scale` as runtime inputs at octaves 1, 4
@@ -33,7 +33,7 @@ import mathmap_tpu as mm
 import mathmap_tpu_torch as mt
 from mathmap_tpu_torch.generators.artifact import export_artifact, load_artifact
 from mathmap_tpu_torch.ops import rand as R
-from mathmap_tpu_torch.runtime import tracer
+from mathmap_tpu_torch.utils.trace import since, snapshot
 
 RTOL, ATOL = 1e-4, 1e-5
 W, H = 32, 24
@@ -88,16 +88,16 @@ def _while_loops(art) -> int:
 
 @pytest.fixture(scope="module")
 def exported(tmp_path_factory):
-    """name -> (Filter, LoadedArtifact, routes the export traced), each
-    case exported once for its param settings."""
+    """name -> (Filter, LoadedArtifact, the counters the export added),
+    each case exported once for its param settings."""
     out = {}
     for name, (_, _, p_export, _, opts) in CASES.items():
         f = mt.compile(_source(name))
         path = tmp_path_factory.mktemp("loops") / f"{name}.mmxa"
-        tracer.TRACE_LOOP_PATHS.clear()
+        before = snapshot()
         export_artifact(f, str(path), W, H, params=p_export, device="cpu",
                         options=mt.RenderOptions(**opts))
-        out[name] = (f, load_artifact(str(path)), list(tracer.TRACE_LOOP_PATHS))
+        out[name] = (f, load_artifact(str(path)), since(before)["counters"])
     return out
 
 
@@ -106,8 +106,9 @@ def exported(tmp_path_factory):
 def test_an_exported_masked_loop_equals_the_live_render_and_the_oracle(exported, name,
                                                                        setting):
     _, with_image, _, settings, opts = CASES[name]
-    f, art, routes = exported[name]
-    assert ("while_loop", opts.get("max_loop_iters", 10000)) in routes
+    f, art, counters = exported[name]
+    # an export counts nothing (utils/trace.py): its graph names the route
+    assert not counters
     assert _while_loops(art) >= 1 and not art.loops
     p = settings[setting]
     ins = (_image(),) if with_image else ()
@@ -125,11 +126,12 @@ def test_an_exported_masked_loop_equals_the_live_render_and_the_oracle(exported,
 def test_the_static_unroll_hands_the_exported_loop_its_steps(exported):
     """HANDOFF's live render unrolls two steps, then masks one group of
     four numbered from 3: the artifact's loop starts from the same place."""
-    f, art, routes = exported["handoff"]
-    tracer.TRACE_LOOP_PATHS.clear()
+    f, art, _ = exported["handoff"]
+    before = snapshot()
     want = f.render(width=W, height=H, device="cpu")
-    assert tracer.TRACE_LOOP_PATHS == [("masked", 6)]
-    assert routes == [("while_loop", 10000)]
+    assert since(before)["counters"] == {"loop.masked": 1, "loop.masked.steps": 6,
+                                         "render.pixels": W * H}
+    assert _while_loops(art) == 1
     assert torch.equal(art.render(), want)
 
 
@@ -152,12 +154,14 @@ def test_a_static_nest_stays_unrolled_in_an_export(tmp_path):
     src = ("filter scan () s = 0; j = -1; while j <= 1 do i = -1; while i <= 1 do "
            "s = s + atan(x / 9 + i * j); i = i + 1 end; j = j + 1 end; grayColor(s / 9) end")
     f = mt.compile(src)
-    tracer.TRACE_LOOP_PATHS.clear()
     export_artifact(f, str(tmp_path / "scan.mmxa"), W, H, device="cpu")
-    assert {route for route, _ in tracer.TRACE_LOOP_PATHS} == {"unroll"}
     art = load_artifact(str(tmp_path / "scan.mmxa"))
-    assert _while_loops(art) == 0
-    assert torch.equal(art.render(), f.render(width=W, height=H, device="cpu"))
+    assert _while_loops(art) == 0 and not art.loops
+    before = snapshot()
+    want = f.render(width=W, height=H, device="cpu")
+    assert {k for k in since(before)["counters"] if k.startswith("loop.")} \
+        == {"loop.unroll", "loop.unroll.steps"}
+    assert torch.equal(art.render(), want)
 
 
 SALTS = (0, 1, 2**31 - 1, 2**31, 2**32 - 1)

@@ -22,8 +22,8 @@ import mathmap_tpu as mm
 import mathmap_tpu_torch as mt
 from mathmap_tpu_torch import api
 from mathmap_tpu_torch.convert import options_from_reference
-from mathmap_tpu_torch.kernels import while_loop as WL
 from mathmap_tpu_torch.runtime import tracer
+from mathmap_tpu_torch.utils.trace import since, snapshot
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 H, W = 36, 48
@@ -223,9 +223,10 @@ def test_a_mandelbrot_batch_with_per_job_params_matches_the_oracle():
     port, ref = mt.compile_file(path), mm.compile_file(path)
     params = [{"zoom": z, "cx": cx, "cy": cy, "maxiter": 40}
               for z, cx, cy in ((1.0, -0.5, 0.0), (2.0, -0.75, 0.1), (3.0, 0.25, 0.5))]
-    tracer.TRACE_LOOP_PATHS.clear()
+    before = snapshot()
     got = port.render_batch(params=params, frames=[0.0] * 3, width=W, height=H, device="cpu")
-    assert [route for route, _ in tracer.TRACE_LOOP_PATHS] == ["kernel"] * 3
+    assert {k: n for k, n in since(before)["counters"].items() if k.startswith("loop.")} \
+        == {"loop.kernel": 3, "loop.kernel.steps": 3 * 10000}
     for i, p in enumerate(params):
         assert torch.equal(got[i], port.render(params=p, width=W, height=H, device="cpu"))
     _assert_oracle(got, _oracle_jobs(ref, lambda i: (), np.zeros(3), [0.0] * 3,
@@ -250,6 +251,6 @@ def test_n_distinct_ops_of_mandelbrots_loop():
             width=16, height=8, device="cpu")
     finally:
         tracer.loop_kernel = spy_target
-    prog = WL.trace(*seen[0])
+    prog = tracer.trace(*seen[0])
     assert prog.n_compute_ops() == 21
     assert prog.n_distinct_ops() == 12

@@ -10,7 +10,8 @@ tiled selection in place), corners against the CPU, the CLI, --selftest
 and the render service on the card; exported artifacts on the card equal
 to the live render bit for bit, each kernel launched through its op;
 kernel B5 (a frame's finish) against its plain version bit for bit, and
-renders and batches through it equal to the eager route on the card;
+renders, batches and the corners scheme through it equal to the eager
+chain on the same planes;
 kernel B6 (Perlin noise) against the eager chain bit for bit on the CPU
 tests' point sets and layouts, and turbulence and voronoi through it.
 
@@ -727,33 +728,64 @@ FINISH_FILTERS = {"fisheye": "Distorts", "twirl": "Distorts", "pond": "Distorts"
 def test_cuda_frames_finish_in_the_kernel_as_on_the_eager_route(cuda, name, output_dtype,
                                                                monkeypatch):
     """Filter.render and render_batch on the card finish each frame in one
-    B5 launch and count no `finish.eager`; with B5 off the card's route
-    (the eager chain) they render the same bits."""
+    B5 launch, and each frame equals `finish_rgba_reference` (the eager
+    chain) of the same planes bit for bit."""
     f = mt.compile_file(os.path.join(ROOT, "filters", FINISH_FILTERS[name], f"{name}.mm"))
     img = torch.from_numpy(_source("u8")).to(cuda)
     opts = mt.RenderOptions(output_dtype=output_dtype)
-    ts = [0.1, 0.5, 0.9]
+    ins = [img] if f.image_params else []
+    calls = _finish_spy(monkeypatch)
+    before = counter("launch.finish_rgba")
+    lone = f.render(*ins, t=0.3, options=opts, width=W, height=H, device=cuda)
+    batch = f.render_batch(*[mt.shared(a) for a in ins], ts=[0.1, 0.5, 0.9], options=opts,
+                           width=W, height=H, device=cuda)
+    torch.cuda.synchronize()
+    assert counter("launch.finish_rgba") - before == 4 and len(calls) == 4
+    for (planes, inv, u8), frame in zip(calls, [lone, *batch]):
+        assert inv == 1.0 and u8 == (output_dtype == "uint8")
+        assert torch.equal(_finish_bits(frame), _finish_bits(
+            B5.finish_rgba_reference(planes, inv, u8)))
 
-    def frames():
-        ins = [img] if f.image_params else []
-        lone = f.render(*ins, t=0.3, options=opts, width=W, height=H, device=cuda)
-        batch = f.render_batch(*[mt.shared(a) for a in ins], ts=ts, options=opts, width=W,
-                               height=H, device=cuda)
-        torch.cuda.synchronize()
-        return lone, batch
 
-    before = (counter("launch.finish_rgba"), counter("finish.eager"))
-    got = frames()
-    assert (counter("launch.finish_rgba") - before[0], counter("finish.eager") - before[1]) \
-        == (4, 0)
-    monkeypatch.setattr(B5, "DEVICES", ())
-    before = (counter("launch.finish_rgba"), counter("finish.eager"))
-    want = frames()
-    assert (counter("launch.finish_rgba") - before[0], counter("finish.eager") - before[1]) \
-        == (0, 4)
-    bits = (lambda t: t) if output_dtype == "uint8" else (lambda t: t.view(torch.int32))
-    for a, b in zip(got, want):
-        assert torch.equal(bits(a), bits(b))
+def _finish_spy(monkeypatch) -> list:
+    """Spy on render_frame's finish: each call's (planes, inv, u8)."""
+    calls = []
+    real = B5.finish_rgba
+
+    def spy(planes, inv, u8, out=None):
+        calls.append((planes, inv, u8))
+        return real(planes, inv, u8, out)
+
+    monkeypatch.setattr(B5, "finish_rgba", spy)
+    return calls
+
+
+def _finish_bits(t: torch.Tensor) -> torch.Tensor:
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+@pytest.mark.parametrize("output_dtype", ["float32", "uint8"])
+@pytest.mark.parametrize("name", ["twirl", "moire"])
+def test_cuda_corners_finish_in_the_kernel_as_the_old_composition(cuda, name, output_dtype,
+                                                                  monkeypatch):
+    """The corners scheme hands B5 the five samples' sum (four channel
+    views of one (H, W, 4) tensor) with inv = 0.2: one launch, and the bits
+    of the sum times 0.2, clamped (and packed), that it finished with
+    before."""
+    f = mt.compile_file(os.path.join(ROOT, "filters", FINISH_FILTERS[name], f"{name}.mm"))
+    ins = [torch.from_numpy(_source("f32")).to(cuda)] if f.image_params else []
+    opts = mt.RenderOptions(supersample=2, supersample_scheme="corners",
+                            output_dtype=output_dtype)
+    calls = _finish_spy(monkeypatch)
+    before = counter("launch.finish_rgba")
+    got = f.render(*ins, t=0.3, options=opts, width=W, height=H, device=cuda)
+    torch.cuda.synchronize()
+    assert counter("launch.finish_rgba") - before == 1
+    (planes, inv, u8), = calls
+    assert inv == 0.2 and u8 == (output_dtype == "uint8")
+    rgba = torch.stack(planes, dim=-1) * 0.2
+    want = B5.pack_uint8(rgba) if u8 else torch.clamp(rgba, 0.0, 1.0)
+    assert torch.equal(_finish_bits(got), _finish_bits(want))
 
 
 #: B6's point sets: the CPU tests' (tests/test_torch_noise.py's COORDS,

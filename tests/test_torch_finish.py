@@ -4,10 +4,11 @@ eager expression `runtime/render.py::render_frame` finished every frame
 with before B5 (four `plane * inv`, `torch.stack`, then `torch.clamp` or
 `pack_uint8`), bit for bit over the plane layouts a frame hands over, the
 supersampling weights, both output dtypes, `out` given or not, and NaN,
-±inf and -0.0; the route (`takes`), the launch's instantiation
-(`wide_stores`), the render path on both routes, and an exported artifact
-that holds `mathmap::finish_rgba`. The kernel itself runs on the card only
-(tests/test_torch_cuda.py).
+±inf and -0.0; the launch's one check (`_check`, on fake CUDA tensors)
+and its instantiation (`wide_stores`); renders, batches, the corners
+scheme and the float64 spec, each frame one `finish_rgba` call; and an
+exported artifact that holds `mathmap::finish_rgba`. The kernel itself
+runs on the card only (tests/test_torch_cuda.py).
 """
 
 import os
@@ -17,6 +18,7 @@ import sys
 import numpy as np
 import pytest
 import torch
+from torch._subclasses.fake_tensor import FakeTensorMode
 
 import mathmap_tpu_torch as mt
 from mathmap_tpu_torch.generators.artifact import export_artifact, load_artifact
@@ -115,56 +117,72 @@ def test_a_wrong_out_dtype_raises():
         B5.finish_rgba(planes, 1.0, True, torch.empty((H, W, 4)))
 
 
-@pytest.fixture
-def cpu_kernel_route(monkeypatch):
-    """Frames on the CPU take B5's route (its ops' CPU implementation, the
-    plain version), as they do on the card."""
-    monkeypatch.setattr(B5, "DEVICES", ("cpu", "cuda"))
+def _empty(dev, *shape, dtype=torch.float32):
+    return torch.empty(shape, dtype=dtype, device=dev)
 
 
-def _contiguous():
-    return [_plane("contiguous", s) for s in range(4)]
+def _four(dev):
+    return [_empty(dev, H, W) for _ in range(4)]
 
 
-#: (planes, u8, out) -> whether B5 takes them, on a device of DEVICES
+def _broadcast(dev):
+    """moire's layouts: a contiguous plane, a row, a column, a constant
+    (views without indexing, which fake CUDA tensors do not take here)."""
+    return [_empty(dev, H, W), torch.broadcast_to(_empty(dev, 1, W), (H, W)),
+            torch.broadcast_to(_empty(dev, H, 1), (H, W)), _empty(dev).expand(H, W)]
+
+
+#: (planes, u8, out) on a device -> whether the launch takes them; out None
+#: is the new frame the op allocates
 ROUTES = {
-    "contiguous": (_contiguous, False, None, True),
-    "broadcast": (lambda: [_plane(k, s) for s, k in enumerate(LAYOUTS["mixed"])], True, None,
-                  True),
-    "out": (_contiguous, False, lambda: torch.empty((H, W, 4)), True),
-    "u8 out": (_contiguous, True, lambda: torch.empty((H, W, 4), dtype=torch.uint8), True),
-    "batch slice": (_contiguous, False, lambda: torch.empty((2, H, W, 4))[1], True),
-    "float64 plane": (lambda: _contiguous()[:3] + [_plane("contiguous", 3).double()], False,
+    "contiguous": (_four, False, None, True),
+    "broadcast": (_broadcast, True, None, True),
+    "out": (_four, False, lambda d: _empty(d, H, W, 4), True),
+    "u8 out": (_four, True, lambda d: _empty(d, H, W, 4, dtype=torch.uint8), True),
+    "batch slice": (_four, False, lambda d: _empty(d, 2, H, W, 4).select(0, 1), True),
+    "float64 plane": (lambda d: _four(d)[:3] + [_empty(d, H, W, dtype=torch.float64)], False,
                       None, False),
-    "three planes": (lambda: _contiguous()[:3], False, None, False),
-    "out dtype": (_contiguous, True, lambda: torch.empty((H, W, 4)), False),
-    "out planar": (_contiguous, False, lambda: torch.empty((4, H, W)).permute(1, 2, 0), False),
-    "out shape": (_contiguous, False, lambda: torch.empty((H, W, 3)), False),
+    "three planes": (lambda d: _four(d)[:3], False, None, False),
+    "out dtype": (_four, False, lambda d: _empty(d, H, W, 4, dtype=torch.float64), False),
+    "out planar": (_four, False, lambda d: _empty(d, 4, H, W).permute(1, 2, 0), False),
+    "out shape": (_four, False, lambda d: _empty(d, H, W, 3), False),
 }
 
 
+def _launch_checks(planes, out) -> bool:
+    try:
+        B5._check(planes, out)
+    except ValueError:
+        return False
+    return True
+
+
 @pytest.mark.parametrize("case", sorted(ROUTES))
-def test_takes_routes_what_the_kernel_writes(case, cpu_kernel_route):
+def test_takes_routes_what_the_kernel_writes(case):
+    """The launch's one check, which guards the C call, on fake CUDA
+    tensors: it passes what the kernel writes and refuses the rest; the
+    same planes and out on the CPU it always refuses."""
     planes, u8, out, expected = ROUTES[case]
-    args = (planes(), u8, None if out is None else out())
-    assert B5.takes(*args) is expected
+    for dev, want in (("cuda", expected), ("cpu", False)):
+        with FakeTensorMode():
+            ps = planes(dev)
+            o = (_empty(dev, H, W, 4, dtype=torch.uint8 if u8 else torch.float32)
+                 if out is None else out(dev))
+            assert _launch_checks(ps, o) is want, dev
 
 
 @pytest.mark.parametrize("case", ["other shape", "out shape", "out planar"])
-def test_the_launch_raises_on_what_the_kernel_does_not_take(case, cpu_kernel_route):
-    planes, out = _contiguous(), torch.empty((H, W, 4))
-    if case == "other shape":
-        planes[3] = torch.zeros(H, W + 1)
-    elif case == "out shape":
-        out = torch.empty((H, W + 1, 4))
-    else:
-        out = torch.empty((4, H, W)).permute(1, 2, 0)
-    with pytest.raises(ValueError, match="finish_rgba takes"):
-        B5._launch(planes, 1.0, out)
-
-
-def test_the_cpu_keeps_the_eager_route():
-    assert not B5.takes(_contiguous(), False)
+def test_the_launch_raises_on_what_the_kernel_does_not_take(case):
+    with FakeTensorMode():
+        planes, out = _four("cuda"), _empty("cuda", H, W, 4)
+        if case == "other shape":
+            planes[3] = _empty("cuda", H, W + 1)
+        elif case == "out shape":
+            out = _empty("cuda", H, W + 1, 4)
+        else:
+            out = _empty("cuda", 4, H, W).permute(1, 2, 0)
+        with pytest.raises(ValueError, match="finish_rgba takes"):
+            B5._launch(planes, 1.0, out)
 
 
 def _wide(out: torch.Tensor) -> bool:
@@ -207,11 +225,12 @@ def _image(seed: int = 3):
 
 
 def _finish_calls(monkeypatch) -> list:
+    """Spy on render_frame's finish: each call's (planes, inv, u8, out)."""
     calls = []
     real = B5.finish_rgba
 
     def spy(planes, inv, u8, out=None):
-        calls.append((inv, u8, out is not None))
+        calls.append((planes, inv, u8, out))
         return real(planes, inv, u8, out)
 
     monkeypatch.setattr(B5, "finish_rgba", spy)
@@ -223,39 +242,51 @@ def _finish_calls(monkeypatch) -> list:
 @pytest.mark.parametrize("name", DISTORTS)
 def test_the_kernel_route_renders_as_the_eager_route(name, supersample, output_dtype,
                                                      monkeypatch):
-    """A render and a batch through B5's route (its CPU implementation)
-    equal the eager route's bit for bit; each frame calls B5 once and no
-    frame counts `finish.eager`."""
+    """A render and a batch finish each frame in one call of B5's
+    `finish_rgba` (on the CPU its ops' plain version), the batch's into its
+    slices, and each frame equals `finish_rgba_reference` of the same
+    planes bit for bit; the CPU counts no launch."""
     f = mt.compile_file(os.path.join(ROOT, "filters", "Distorts", f"{name}.mm"))
     opts = mt.RenderOptions(supersample=supersample, output_dtype=output_dtype)
     img = _image()
-    before = snapshot()
-    want = f.render(img, options=opts, device="cpu")
-    want_batch = f.render_batch(img[None].repeat(3, 0), options=opts, device="cpu")
-    assert since(before)["counters"].get("finish.eager") == 4
-    monkeypatch.setattr(B5, "DEVICES", ("cpu",))
     calls = _finish_calls(monkeypatch)
     before = snapshot()
     got = f.render(img, options=opts, device="cpu")
     got_batch = f.render_batch(img[None].repeat(3, 0), options=opts, device="cpu")
-    assert "finish.eager" not in since(before)["counters"]
+    assert "launch.finish_rgba" not in since(before)["counters"]
     inv, u8 = 1.0 / supersample ** 2, output_dtype == "uint8"
-    assert calls == [(inv, u8, False)] + [(inv, u8, True)] * 3
-    assert _same_bits(got, want) and _same_bits(got_batch, want_batch)
+    assert [c[1:3] + (c[3] is not None,) for c in calls] == \
+        [(inv, u8, False)] + [(inv, u8, True)] * 3
+    for (planes, *_), frame in zip(calls, [got, *got_batch]):
+        assert _same_bits(frame, B5.finish_rgba_reference(planes, inv, u8))
 
 
-def test_corners_and_the_float64_spec_stay_eager(cpu_kernel_route, monkeypatch):
+@pytest.mark.parametrize("case", ["corners", "float64 spec"])
+def test_corners_and_the_float64_spec_finish_through_finish_rgba(case, monkeypatch):
+    """The corners scheme hands `finish_rgba` its five samples' sum with
+    inv = 0.2, which gives the bits of the sum times 0.2, clamped, that it
+    finished with before; the float64 spec hands it float64 planes and
+    gets its float64 frame from the plain version, as the eager chain."""
     f = mt.compile_file(os.path.join(ROOT, "filters", "Distorts", "twirl.mm"))
     calls = _finish_calls(monkeypatch)
-    before = snapshot()
-    f.render(_image(), options=mt.RenderOptions(supersample=2, supersample_scheme="corners"),
-             device="cpu")
-    f.render(_image(), interpret=True, precision="f64")
-    assert since(before)["counters"].get("finish.eager") == 2 and not calls
+    if case == "corners":
+        got = f.render(_image(), device="cpu", options=mt.RenderOptions(
+            supersample=2, supersample_scheme="corners"))
+    else:
+        got = f.render(_image(), interpret=True, precision="f64")
+    (planes, inv, u8, out), = calls
+    assert (inv, u8, out) == ((0.2, False, None) if case == "corners" else (1.0, False, None))
+    if case == "corners":
+        assert got.dtype == torch.float32
+        want = torch.clamp(torch.stack(planes, dim=-1) * 0.2, 0.0, 1.0)
+    else:
+        assert got.dtype == torch.float64 and all(a.dtype == torch.float64 for a in planes)
+        want = _eager(planes, 1.0, False)
+    assert _same_bits(got, want)
 
 
-def test_an_artifact_holds_the_finish_op_and_renders_equal(tmp_path, monkeypatch):
-    """Exported through B5's route, the frame program calls
+def test_an_artifact_holds_the_finish_op_and_renders_equal(tmp_path):
+    """Exported on the CPU, the frame program calls
     `mathmap::finish_rgba` (its fake implementation traced it); the
     artifact saves, loads (in this process, and in a fresh one that
     imports only what load_artifact imports) and renders equal to the live
@@ -264,9 +295,7 @@ def test_an_artifact_holds_the_finish_op_and_renders_equal(tmp_path, monkeypatch
     img = _image()
     h, w = img.shape[:2]
     path = tmp_path / "twirl.mmxa"
-    monkeypatch.setattr(B5, "DEVICES", ("cpu",))
     export_artifact(f, str(path), w, h, params={"angle": 2.0}, device="cpu")
-    monkeypatch.undo()
     art = load_artifact(str(path))
     targets = {str(n.target) for n in art._program.graph.nodes}
     assert "mathmap.finish_rgba.default" in targets

@@ -4,6 +4,7 @@ renders, and the tiled and sharded renders of mathmap_tpu_torch.parallel on
 a CPU mesh. Its public names are the reference's plus `make_mesh`, each
 imported from its module at first use."""
 
+import ast
 import os
 import subprocess
 import sys
@@ -80,6 +81,42 @@ def test_port_sources_name_no_jax():
                         and words[1].split(".")[0] in ("jax", "jaxlib", "mathmap_tpu"):
                     offenders.append(f"{path}:{i}: {line.strip()}")
     assert not offenders, offenders
+
+
+def _imported_modules(tree: ast.AST, package: str) -> list:
+    """Every module an import statement anywhere in `tree` names, relative
+    imports resolved against `package`, with its line."""
+    found = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            found += [(a.name, node.lineno) for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            base = package.split(".")[:len(package.split(".")) + 1 - node.level]
+            module = ".".join(base + ([node.module] if node.module else []))
+            if node.level and not node.module:
+                found += [(f"{module}.{a.name}", node.lineno) for a in node.names]
+            else:
+                found.append((module if node.level else node.module, node.lineno))
+    return found
+
+
+def test_the_kernel_layer_imports_nothing_above_it():
+    """No module under mathmap_tpu_torch/kernels/ imports the evaluator's
+    layers (runtime, lang, typesys), at module level or inside a function:
+    the runtime calls the kernels, never the other way round."""
+    kernels = os.path.join(REPO, "mathmap_tpu_torch", "kernels")
+    above = tuple(f"mathmap_tpu_torch.{p}" for p in ("runtime", "lang", "typesys"))
+    offenders, scanned = [], 0
+    for name in sorted(os.listdir(kernels)):
+        if not name.endswith(".py"):
+            continue
+        scanned += 1
+        with open(os.path.join(kernels, name)) as fh:
+            tree = ast.parse(fh.read())
+        for module, line in _imported_modules(tree, "mathmap_tpu_torch.kernels"):
+            if module in above or module.startswith(tuple(p + "." for p in above)):
+                offenders.append(f"kernels/{name}:{line}: {module}")
+    assert scanned >= 8 and not offenders, offenders
 
 
 #: the reference's top-level names that the port once lacked

@@ -7,8 +7,8 @@ tighter tolerance) before the test's assertions see it.
 The module's `_WhileSpy` counts `jax.lax.while_loop` entries, that is the
 loops that did not unroll statically; here it counts the loops that the
 port's evaluator ran on another route than the static unroll
-(`runtime.tracer.TRACE_LOOP_PATHS`: the masked loop, or kernel B3's
-wrapper), so its eight tests hold the port's unroll decisions.
+(the counters `loop.masked` and `loop.kernel`: the masked loop, or
+kernel B3's wrapper), so its eight tests hold the port's unroll decisions.
 
 Left out, because they spy on or call the reference's jit and Pallas
 machinery, which the port does not have (the port's own tests of its
@@ -34,7 +34,7 @@ import pytest
 
 import test_language as reference
 from _torch_shim import reference_cases, run_case
-from mathmap_tpu_torch.runtime import tracer
+from mathmap_tpu_torch.utils.trace import since, snapshot
 
 LEFT_OUT = {
     "test_pallas_while_safe_calls_mosaic_probed",
@@ -51,10 +51,11 @@ CASES = reference_cases(reference, LEFT_OUT)
 
 class LoopRouteSpy:
     """`_WhileSpy` on the port: `calls` counts the loops evaluated inside
-    the block that did not take the static unroll."""
+    the block that did not take the static unroll (the `loop.kernel` and
+    `loop.masked` counters)."""
 
     def __enter__(self):
-        self._start = len(tracer.TRACE_LOOP_PATHS)
+        self._before = snapshot()
         return self
 
     def __exit__(self, *exc):
@@ -62,7 +63,8 @@ class LoopRouteSpy:
 
     @property
     def calls(self):
-        return sum(route != "unroll" for route, _ in tracer.TRACE_LOOP_PATHS[self._start:])
+        counters = since(self._before)["counters"]
+        return counters.get("loop.kernel", 0) + counters.get("loop.masked", 0)
 
 
 @pytest.mark.parametrize("case", CASES, ids=[c[0] for c in CASES])

@@ -26,8 +26,8 @@ import mathmap_tpu as mm
 import mathmap_tpu_torch as mt
 from mathmap_tpu.expression_db import default_db as reference_db
 from mathmap_tpu_torch.ops import libm
-from mathmap_tpu_torch.runtime import tracer
 from mathmap_tpu_torch.runtime.promotion import NumpyPromotion
+from mathmap_tpu_torch.utils.trace import since, snapshot
 from test_fuzz import ExprGen
 from test_fuzz import H as FUZZ_H
 from test_fuzz import W as FUZZ_W
@@ -302,12 +302,12 @@ def test_a_float64_loop_takes_the_masked_loop():
     render of the same loop routes through the kernel's wrapper."""
     path = os.path.join(ROOT, "filters", "Render", "mandelbrot.mm")
     f = mt.compile_file(path)
-    del tracer.TRACE_LOOP_PATHS[:]
-    f.render(width=24, height=16, interpret=True, precision="f64")
-    assert [route for route, _ in tracer.TRACE_LOOP_PATHS] == ["masked"]
-    del tracer.TRACE_LOOP_PATHS[:]
-    f.render(width=24, height=16, interpret=True)
-    assert [route for route, _ in tracer.TRACE_LOOP_PATHS] == ["kernel"]
+    for precision, route in (("f64", "loop.masked"), ("f32", "loop.kernel")):
+        before = snapshot()
+        f.render(width=24, height=16, interpret=True, precision=precision)
+        counters = since(before)["counters"]
+        assert [k for k in counters if k.startswith("loop.") and "steps" not in k] == [route]
+        assert counters[route] == 1
 
 
 def test_kernel_wrappers_take_float64_on_the_cpu_only():

@@ -264,13 +264,13 @@ def test_loops_that_draw_match_the_oracle_on_every_route(name, route):
     np.testing.assert_allclose(got, want, rtol=1e-3, atol=1e-4, err_msg=src)
     if name == "rand_walk":
         np.testing.assert_array_equal(got, want)
-        assert routes == [walk_route]
+        assert routes == {walk_route: 1}
     elif "origVal" in src:
         # the body samples the input: no route takes the kernel
         budget_left = route not in ("unroll_then_continue", "no_unroll")
-        assert routes == (["unroll"] if budget_left else ["masked"])
+        assert routes == ({"unroll": 1} if budget_left else {"masked": 1})
     else:
-        assert routes == [class_route]
+        assert routes == {class_route: 1}
 
 
 @pytest.mark.parametrize("fields", [{}, dict(while_static_unroll=0),
@@ -284,11 +284,11 @@ def test_rand_walk_program_equals_the_eager_step(fields):
     calls = _check_generated(f, _image(2, 24, 40), options=mt.RenderOptions(**fields))
     (loop, *_), = calls
     assert loop.it_base == (1 if not fields else 0)
-    ops = [op for op, _, _ in WL.trace(loop, 2).ops]
+    ops = [op for op, _, _ in tracer.trace(loop, 2).ops]
     assert ops.count("rand") == 1
     # the draw counts as its hash's operations in the kernel's bound
     n_other = sum(op not in ("in", "const", "rand") for op in ops)
-    assert WL.trace(loop, 2).n_compute_ops() == n_other + WL.RAND_OPS
+    assert tracer.trace(loop, 2).n_compute_ops() == n_other + WL.RAND_OPS
 
 
 @pytest.mark.parametrize("seed", [s for s in RAND_CLASS if "origVal" not in ExprGen(s).program()])
@@ -308,8 +308,9 @@ def test_a_loop_inside_a_loop_step_never_takes_the_kernel():
     img = _image(5, 8, 12)
     f = mt.compile_source(src)
     opts = mt.RenderOptions(pallas_while="on")
-    routes = _routes(f, img, options=opts)
-    assert routes[0] == "kernel" and set(routes[1:]) == {"masked"}
+    # the probe's inner loop takes the kernel; the outer loop (a nest) and
+    # the inner loops of its four steps run masked
+    assert _routes(f, img, options=opts) == {"kernel": 1, "masked": 5}
     want = mm.compile(src).render(img, interpret=True)
     np.testing.assert_array_equal(f.render(img, device="cpu", options=opts).numpy(), want)
 
@@ -341,11 +342,11 @@ def test_a_seed_or_frame_size_does_not_rebuild():
     sources = set()
     for seed, (w, h) in ((0, (40, 24)), (9, (40, 24)), (0, (64, 32))):
         (loop, flat0, *_), = _capture(f, _image(0, h, w), options=mt.RenderOptions(seed=seed))
-        src = WL.emit_cuda(WL.trace(loop, len(flat0)), loop.origin)
+        src = WL.emit_cuda(tracer.trace(loop, len(flat0)), loop.origin)
         assert "mm_rand(rand_idx, rand_salt + 0x85ebca6bu, loop_i)" in src
         sources.add(src)
     assert len(sources) == 1
     # a subsample's loop starts from another nonce: the same source, another salt
     calls = _capture(f, _image(0, 8, 16), options=mt.RenderOptions(supersample=2))
-    assert len({WL.emit_cuda(WL.trace(c[0], 2), c[0].origin) for c in calls}) == 1
+    assert len({WL.emit_cuda(tracer.trace(c[0], 2), c[0].origin) for c in calls}) == 1
     assert len({c[0].rand_salt for c in calls}) == 4

@@ -21,6 +21,7 @@ import torch
 import mathmap_tpu as mm
 import mathmap_tpu_torch as mt
 from mathmap_tpu_torch.convert import options_from_reference
+from mathmap_tpu_torch.kernels.finish_rgba import pack_uint8
 
 RTOL, ATOL = 1e-4, 1e-5
 REG = (33, 7, 130, 41)  # deliberately unaligned origin and size
@@ -275,7 +276,7 @@ def test_tiled_region_converts_the_pass_through_to_the_output_dtype(out_dtype):
     src = "origVal(xy)"
     if out_dtype == "uint8":
         got = _tiled(src, f32, reg, (1, 4, 1), output_dtype="uint8")
-        bg = mt.runtime.render.pack_uint8(torch.from_numpy(f32)).numpy()
+        bg = pack_uint8(torch.from_numpy(f32)).numpy()
     else:
         got = _tiled(src, u8, reg, (1, 4, 1))
         bg = u8.astype(np.float32) / np.float32(255.0)

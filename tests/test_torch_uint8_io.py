@@ -1,6 +1,6 @@
 """Mirror of the CPU-meaningful cases of tests/test_uint8_io.py on the
 port: uint8 output packed in the render (`RenderOptions(output_dtype=
-'uint8')`, runtime/render.pack_uint8) bit for bit the host helpers'
+'uint8')`, kernels/finish_rgba.pack_uint8) bit for bit the host helpers'
 (imgio.images.to_uint8), uint8 inputs converted by the one rule
 (kernels/sample_image.u8_to_float) on every path, and meshes given as
 `devices=["cpu"] * n`. Each render is the port's CPU route, held against
@@ -39,7 +39,7 @@ import mathmap_tpu_torch as mt
 from _torch_shim import assert_matches_oracle
 from mathmap_tpu.imgio.images import to_uint8 as ref_to_uint8
 from mathmap_tpu_torch.kernels.sample_image import u8_to_float
-from mathmap_tpu_torch.runtime.render import pack_uint8
+from mathmap_tpu_torch.kernels.finish_rgba import pack_uint8
 
 H, W = 24, 32
 

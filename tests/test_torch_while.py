@@ -24,8 +24,8 @@ import mathmap_tpu as mm
 import mathmap_tpu_torch as mt
 from mathmap_tpu_torch.kernels import while_loop as WL
 from mathmap_tpu_torch.ops.rand import rand_index
-from mathmap_tpu_torch.runtime import tracer
-from mathmap_tpu_torch.utils.trace import counter
+from mathmap_tpu_torch.runtime import loops, tracer
+from mathmap_tpu_torch.utils.trace import counter, since, snapshot
 from test_torch_cuda import GENERATOR_BODIES, generator_source
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
@@ -48,10 +48,18 @@ def _both(src, h, w, options=None, params=None, t=0.0):
     return got.numpy(), ref
 
 
-def _routes(f, *inputs, **kw):
-    tracer.TRACE_LOOP_PATHS.clear()
+def _loop_counters(f, *inputs, **kw) -> dict:
+    """The `loop.*` counters one CPU render adds: {name less `loop.`: n}."""
+    before = snapshot()
     f.render(*inputs, device="cpu", **kw)
-    return [r for r, _ in tracer.TRACE_LOOP_PATHS]
+    return {name[len("loop."):]: n for name, n in since(before)["counters"].items()
+            if name.startswith("loop.")}
+
+
+def _routes(f, *inputs, **kw) -> dict:
+    """The routes of one CPU render's loops: {route: runs}."""
+    return {name: n for name, n in _loop_counters(f, *inputs, **kw).items()
+            if not name.endswith(".steps")}
 
 
 # ----------------------------------------------------------------------
@@ -96,7 +104,7 @@ def test_engine_sources_match_the_oracle(name, size):
     np.testing.assert_allclose(got, ref, rtol=RTOL, atol=ATOL)
     f = mt.compile_source(ENGINE_SOURCES[name])
     route = "masked" if name == "atan2" else "kernel"
-    assert _routes(f, _zeros(h, w), width=w, height=h, params=params or {}) == [route]
+    assert _routes(f, _zeros(h, w), width=w, height=h, params=params or {}) == {route: 1}
 
 
 def test_the_cap_applies_exactly():
@@ -130,7 +138,7 @@ def test_rand_in_a_loop_is_not_ported():
            "grayColor(s / 6)")
     got, ref = _both(src, 13, 100)
     np.testing.assert_array_equal(got, ref)
-    assert _routes(mt.compile_source(src), _zeros(13, 100)) == ["kernel"]
+    assert _routes(mt.compile_source(src), _zeros(13, 100)) == {"kernel": 1}
 
 
 # ----------------------------------------------------------------------
@@ -222,12 +230,36 @@ def test_library_loops_take_the_reference_route(rel):
 
 def test_on_forces_the_kernel_over_the_unroll_and_off_masks():
     f = mt.compile_file(os.path.join(ROOT, "filters", "Render", "lissajous.mm"))
-    assert _routes(f, width=16, height=8, options=mt.RenderOptions(pallas_while="on")) == ["kernel"]
-    assert _routes(f, width=16, height=8, options=mt.RenderOptions(pallas_while="off")) == ["unroll"]
     assert _routes(f, width=16, height=8,
-                   options=mt.RenderOptions(pallas_while="off", while_static_unroll=0)) == ["masked"]
+                   options=mt.RenderOptions(pallas_while="on")) == {"kernel": 1}
+    assert _routes(f, width=16, height=8,
+                   options=mt.RenderOptions(pallas_while="off")) == {"unroll": 1}
+    assert _routes(f, width=16, height=8,
+                   options=mt.RenderOptions(pallas_while="off", while_static_unroll=0)) == {"masked": 1}
     g = mt.compile_file(os.path.join(ROOT, "filters", "Render", "mandelbrot.mm"))
-    assert _routes(g, width=16, height=8, options=mt.RenderOptions(pallas_while="off")) == ["masked"]
+    assert _routes(g, width=16, height=8,
+                   options=mt.RenderOptions(pallas_while="off")) == {"masked": 1}
+
+
+#: lissajous's 64-step loop: options -> the `loop.*` counters of one render
+LOOP_COUNTERS = {
+    "kernel": (dict(pallas_while="on"), {"kernel": 1, "kernel.steps": 10000}),
+    "kernel_bound": (dict(pallas_while="on", max_loop_iters=50),
+                     {"kernel": 1, "kernel.steps": 50}),
+    "unroll": (dict(pallas_while="off"), {"unroll": 1, "unroll.steps": 64}),
+    "masked": (dict(pallas_while="off", while_static_unroll=0),
+               {"masked": 1, "masked.steps": 64}),
+}
+
+
+@pytest.mark.parametrize("case", sorted(LOOP_COUNTERS))
+def test_a_library_loop_counts_its_route_and_steps(case):
+    """Each loop run adds 1 to `loop.<route>` and its steps to
+    `loop.<route>.steps`; the kernel, whose steps run on the device, adds
+    its bound, max_loop_iters."""
+    options, want = LOOP_COUNTERS[case]
+    f = mt.compile_file(os.path.join(ROOT, "filters", "Render", "lissajous.mm"))
+    assert _loop_counters(f, width=16, height=8, options=mt.RenderOptions(**options)) == want
 
 
 @pytest.mark.parametrize("src", [
@@ -239,7 +271,10 @@ def test_on_forces_the_kernel_over_the_unroll_and_off_masks():
 def test_ineligible_loops_run_masked(src):
     f = mt.compile_source(src)
     routes = _routes(f, _zeros(6, 10))
-    assert routes[-1] == "masked"
+    # the nest: its probe's inner loop takes the kernel; the outer loop and
+    # the inner loops of its four steps (salted by the outer one) run masked
+    assert routes == ({"kernel": 1, "masked": 5} if src == SEMANTICS["nested"]
+                      else {"masked": 1})
     np.testing.assert_allclose(f.render(_zeros(6, 10), device="cpu").numpy(),
                                mm.compile(src).render(_zeros(6, 10), interpret=True),
                                rtol=RTOL, atol=ATOL)
@@ -270,7 +305,7 @@ def _interpret_loop(prog, loop, flat0, mask0, max_iters):
     """The Program stepped under the mask, as the kernel runs it per pixel."""
     values = {("x",): loop.x, ("y",): loop.y}
     values.update({("dep", n, j): a for n, tv in loop.deps for j, a in enumerate(tv.arrays)})
-    values.update({k: torch.tensor(WL.scalar_internal(loop.ctx, k[1]), dtype=torch.float32)
+    values.update({k: torch.tensor(loops.scalar_internal(loop.ctx, k[1]), dtype=torch.float32)
                    for k in prog.scalar_inputs})
     flat, mask = flat0, mask0
     ctx = loop.ctx
@@ -294,7 +329,7 @@ def _check_generated(f, *inputs, **kw):
     calls = _capture(f, *inputs, **kw)
     assert calls, "no loop reached the kernel route"
     for loop, flat0, mask0, max_iters in calls:
-        prog = WL.trace(loop, len(flat0))
+        prog = tracer.trace(loop, len(flat0))
         want, _ = WL.while_loop_reference(loop.step, flat0, mask0, max_iters, loop.unroll,
                                           loop.it_base)
         got = _interpret_loop(prog, loop, flat0, mask0, max_iters)
@@ -312,7 +347,7 @@ BODIES = GENERATOR_BODIES
 def test_generated_program_equals_the_eager_loop(name):
     f = mt.compile_source(generator_source(BODIES[name]))
     (loop, *_), = _check_generated(f, width=20, height=12, t=0.3, frame=2.0)
-    assert WL.eligible(loop.node, {}, f.filters)
+    assert loops.eligible(loop.node, {}, f.filters)
 
 
 def test_the_builtin_bodies_cover_the_admitted_builtins():
@@ -348,17 +383,17 @@ def test_generated_source_bakes_no_param_value():
     f = mt.compile_file(os.path.join(ROOT, "filters", "Render", "mandelbrot.mm"))
     params = {"maxiter": 77, "zoom": 1.37, "cx": -0.613, "cy": 0.271}
     (loop, flat0, *_), = _capture(f, width=24, height=16, params=params, t=0.45)
-    src = WL.emit_cuda(WL.trace(loop, len(flat0)), loop.origin)
+    src = WL.emit_cuda(tracer.trace(loop, len(flat0)), loop.origin)
     for v in (77.0, 1.37, -0.613, 0.271, 0.45, 12.0, 8.0):
         assert float(np.float32(v)).hex() not in src, v
     (loop2, flat2, *_), = _capture(f, width=40, height=30, params={"maxiter": 500})
-    assert WL.emit_cuda(WL.trace(loop2, len(flat2)), loop2.origin) == src
+    assert WL.emit_cuda(tracer.trace(loop2, len(flat2)), loop2.origin) == src
 
 
 def test_scalar_internals_are_kernel_arguments():
     f = mt.compile_source("filter f () i = 0; while i + x * 0 < 2 do i = i + t + W / 100; end; grayColor(i) end")
     (loop, flat0, *_), = _capture(f, width=24, height=16, t=0.25)
-    prog = WL.trace(loop, len(flat0))
+    prog = tracer.trace(loop, len(flat0))
     assert prog.scalar_inputs == [("scalar", "t"), ("scalar", "W")]
 
 
