@@ -32,6 +32,7 @@ import functools
 
 import torch
 
+from ..utils.constants import constant
 from ..utils.trace import count, span
 from . import build
 
@@ -118,10 +119,11 @@ def u8_to_float(t: torch.Tensor) -> torch.Tensor:
     `render.float_inputs` rule; the CUDA kernel's three fused operations
     per tap give the same values bit for bit. The divisor is a tensor on
     `t`'s device: PyTorch's CUDA division by a Python scalar multiplies by
-    its reciprocal instead, which is 1 ulp off for some values. On a card
-    the divisor is a copy from the host that waits for the device's queue
-    (a `mm.sync.literal` span)."""
-    return t.to(torch.float32) / _LITERAL.tensor(255.0, torch.float32, t.device)
+    its reciprocal instead, which is 1 ulp off for some values. The
+    divisor is uploaded once per device (utils/constants.py): on a card
+    that first copy waits for the device's queue (a `mm.sync.literal`
+    span)."""
+    return t.to(torch.float32) / constant(_LITERAL, 255.0, torch.float32, t.device)
 
 
 def _gather(pixels):

@@ -36,6 +36,7 @@ import torch
 
 from ..runtime.value import TupleValue
 from ..typesys.tags import NIL
+from ..utils.constants import constant
 from ..utils.errors import MMTypeError
 from ..utils.trace import span
 from . import libm
@@ -65,7 +66,7 @@ _LITERAL = span("mm.sync.literal")
 def _rdiv(c: float, t):
     """c / t with c rounded to t's dtype first, as NumPy divides by a
     Python float; torch's `c / t` multiplies by t's reciprocal instead."""
-    return _LITERAL.tensor(c, t.dtype, t.device) / t
+    return constant(_LITERAL, c, t.dtype, t.device) / t
 
 
 def _constants(ev):

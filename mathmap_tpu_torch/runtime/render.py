@@ -30,6 +30,7 @@ import torch
 from ..kernels import finish_rgba as B5
 from ..kernels.sample_image import u8_to_float
 from ..lang import astnodes as A
+from ..utils.constants import constant
 from ..utils.errors import MMRuntimeError
 from ..utils.trace import count, span
 from .promotion import NumpyPromotion
@@ -39,8 +40,7 @@ from .value import InputImage, image_value
 
 _FRAME = span("mm.frame")
 _EVALUATE = span("mm.evaluate")
-#: the grids' four literals, each a copy that waits for the device's queue
-_GRID_LITERALS = span("mm.sync.literal", 4)
+_LITERAL = span("mm.sync.literal")
 
 
 def coordinate_grids(ctx: RenderContext, dx: float = 0.0, dy: float = 0.0):
@@ -54,11 +54,11 @@ def coordinate_grids(ctx: RenderContext, dx: float = 0.0, dy: float = 0.0):
     equals adding it."""
     h, w = ctx.shape
     dt, dev = ctx.dtype, ctx.device
-    with _GRID_LITERALS:
-        x_off = torch.tensor(0.5 + dx, dtype=dt, device=dev)
-        half_w = torch.tensor(ctx.width * 0.5, dtype=dt, device=dev)
-        half_h = torch.tensor(ctx.height * 0.5, dtype=dt, device=dev)
-        y_off = torch.tensor(0.5 + dy, dtype=dt, device=dev)
+    # the four offsets are constants of the geometry (utils/constants.py)
+    x_off = constant(_LITERAL, 0.5 + dx, dt, dev)
+    half_w = constant(_LITERAL, ctx.width * 0.5, dt, dev)
+    half_h = constant(_LITERAL, ctx.height * 0.5, dt, dev)
+    y_off = constant(_LITERAL, 0.5 + dy, dt, dev)
     cols = torch.arange(ctx.col_offset, ctx.col_offset + w, dtype=dt, device=dev)
     rows = torch.arange(ctx.row_offset, ctx.row_offset + h, dtype=dt, device=dev)
     xs = cols + x_off - half_w

@@ -28,6 +28,7 @@ import torch
 from ..kernels.sample_image import _catmull_rom_weights, _tap, world_to_pixel
 from ..kernels.sample_image import sample_image as sample_kernel
 from ..kernels.sample_tiled import sample_tiled as tiled_kernel
+from ..utils.constants import constant
 from ..utils.trace import span
 
 _LITERAL = span("mm.sync.literal")
@@ -60,7 +61,7 @@ def _sample_xla(ev, img, x, y, frames):
     h, w = img.global_shape
     gather = img.make_gather(frames)
     x, y = ev.grid(x), ev.grid(y)
-    col = [_LITERAL.tensor(float(c), torch.float32, x.device) for c in opts.edge_color]
+    col = [constant(_LITERAL, float(c), torch.float32, x.device) for c in opts.edge_color]
     px, py = world_to_pixel(x, y, w, h)
 
     def tap(ix, iy):

@@ -42,6 +42,7 @@ from ..ops.color_ops import apply_curve, apply_gradient
 from ..ops.rand import draw_salt, mix_salt, rand_index, rand_uniform
 from ..typesys import tags as tagmod
 from ..typesys.tags import NIL
+from ..utils.constants import constant
 from ..utils.errors import MMNameError, MMRuntimeError, MMTypeError
 from ..utils.trace import count, span
 from .loops import (SCALAR_INTERNALS, Loop, dependencies, eligible, scalar_internal,
@@ -159,9 +160,10 @@ class Evaluator:
     # small helpers
     # ------------------------------------------------------------------
     def lit(self, v) -> torch.Tensor:
-        """A constant on the render device in the render dtype: on a card,
+        """A constant on the render device in the render dtype, uploaded
+        once per process (utils/constants.py): the first use on a card is
         a copy from the host that waits for the device's queue."""
-        return _LITERAL.tensor(v, self.ctx.dtype, self.ctx.device)
+        return constant(_LITERAL, v, self.ctx.dtype, self.ctx.device)
 
     def grid(self, arr):
         """Broadcast a component to the full (H, W) grid."""
@@ -227,8 +229,11 @@ class Evaluator:
             # angle in [0, 2pi) counterclockwise from +x
             v = TupleValue(NIL, (torch.remainder(libm.atan2(self.y, self.x), _2PI),))
         elif name in ("t", "frame"):
+            # a new value every frame: uploaded each time, never kept
             value = getattr(ctx, name)
-            v = TupleValue(NIL, (value if isinstance(value, torch.Tensor) else self.lit(value),))
+            if not isinstance(value, torch.Tensor):
+                value = _LITERAL.tensor(value, ctx.dtype, ctx.device)
+            v = TupleValue(NIL, (value,))
         elif name == "X":
             v = TupleValue(NIL, (self.lit(ctx.width * 0.5),),
                            const=(ctx.width * 0.5,))

@@ -13,7 +13,9 @@ kernel B5 (a frame's finish) against its plain version bit for bit, and
 renders, batches and the corners scheme through it equal to the eager
 chain on the same planes;
 kernel B6 (Perlin noise) against the eager chain bit for bit on the CPU
-tests' point sets and layouts, and turbulence and voronoi through it.
+tests' point sets and layouts, and turbulence and voronoi through it; a
+warm 4K frame that uploads no constant (utils/constants.py) but
+turbulence's `t`, equal to a frame from an emptied cache bit for bit.
 
 They carry the `cuda` marker and skip without a GPU. This file imports only
 torch, numpy and the port, so it also runs on a GPU machine without jax:
@@ -35,7 +37,8 @@ from mathmap_tpu_torch.kernels import sample_image as K
 from mathmap_tpu_torch.kernels import sample_tiled as B4
 from mathmap_tpu_torch.kernels import while_loop as WL
 from mathmap_tpu_torch.runtime import tracer
-from mathmap_tpu_torch.utils.trace import counter
+from mathmap_tpu_torch.utils import constants
+from mathmap_tpu_torch.utils.trace import counter, since, snapshot
 
 pytestmark = pytest.mark.cuda
 
@@ -890,3 +893,26 @@ def test_cuda_noise_renders_go_through_the_kernel(cuda, name, calls):
     assert launches == calls and points == kernel_points == calls * 96 * 54
     want = f.render(width=96, height=54, t=0.3, device="cpu")
     assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("name,folder,misses", [("turbulence", "Noise", 1),
+                                                ("voronoi", "Render", 0),
+                                                ("fisheye", "Distorts", 0)])
+def test_cuda_a_warm_4k_frame_uploads_no_constant(cuda, name, folder, misses):
+    """After one 4K frame the constants are on the card: the next frame
+    opens no `mm.sync.literal` span but turbulence's `t`, and equals a frame
+    rendered after emptying the cache bit for bit."""
+    f = mt.compile_file(os.path.join(ROOT, "filters", folder, f"{name}.mm"))
+    gen = torch.Generator(device=cuda).manual_seed(19)
+    img = torch.randint(0, 256, (2160, 3840, 4), dtype=torch.uint8, device=cuda, generator=gen)
+    ins = [img] * len(f.image_params)
+    f.render(*ins, width=3840, height=2160, t=0.3, device=cuda)
+    before = snapshot()
+    got = f.render(*ins, width=3840, height=2160, t=0.4, device=cuda)
+    torch.cuda.synchronize()
+    d = since(before)
+    assert d["spans"].get("mm.sync.literal", {}).get("count", 0) == misses
+    assert d["counters"]["literal.cached"] > 0
+    constants.clear()
+    want = f.render(*ins, width=3840, height=2160, t=0.4, device=cuda)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))

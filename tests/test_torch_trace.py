@@ -25,7 +25,7 @@ import mathmap_tpu_torch as mt
 from mathmap_tpu_torch.cli import main
 from mathmap_tpu_torch.generators.artifact import _export
 from mathmap_tpu_torch.imgio.images import write_image
-from mathmap_tpu_torch.utils import trace
+from mathmap_tpu_torch.utils import constants, trace
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 W, H = 64, 48
@@ -200,28 +200,54 @@ def test_an_exported_graph_is_the_same_with_spans_under_a_profiler(monkeypatch, 
 # -- syncs by cause -------------------------------------------------------------
 
 #: (literal, param, loop, readback, stage) syncs of one 64x48 render on the
-#: CPU route, an input image passed as a host tensor
+#: CPU route once its constants are on the device (utils/constants.py), an
+#: input image passed as a host tensor: moire's one literal is its `t`
 PINNED = {
-    ("Distorts", "fisheye"): (5, 1, 0, 0, 1),
-    ("Distorts", "twirl"): (7, 1, 0, 0, 1),
-    ("Distorts", "pond"): (6, 3, 0, 0, 1),
-    ("Render", "mandelbrot"): (20, 5, 0, 0, 0),
-    ("Render", "moire"): (11, 2, 0, 0, 0),
+    ("Distorts", "fisheye"): (0, 1, 0, 0, 1),
+    ("Distorts", "twirl"): (0, 1, 0, 0, 1),
+    ("Distorts", "pond"): (0, 3, 0, 0, 1),
+    ("Render", "mandelbrot"): (0, 5, 0, 0, 0),
+    ("Render", "moire"): (1, 2, 0, 0, 0),
 }
+#: (literal syncs of the first render with the cache emptied, the literals
+#: a render uses): the distinct constants miss once, every use after is a
+#: hit (`literal.cached`)
+FIRST = {
+    ("Distorts", "fisheye"): (4, 5),
+    ("Distorts", "twirl"): (6, 7),
+    ("Distorts", "pond"): (5, 6),
+    ("Render", "mandelbrot"): (7, 20),
+    ("Render", "moire"): (6, 11),
+}
+
+
+def _warm_counts(f, *inputs, **kw) -> dict:
+    """The syncs of a render after one that put its constants on the
+    device."""
+    f.render(*inputs, width=W, height=H, device="cpu", **kw)
+    return _render_counts(f, *inputs, **kw)
 
 
 @pytest.mark.parametrize("folder,name", sorted(PINNED))
 def test_sync_counts_by_cause_are_pinned(folder, name):
     f = _filter(folder, name)
     ins = [_image()] * len(f.image_params)
+    constants.clear()
+    before = trace.snapshot()
+    f.render(*ins, width=W, height=H, device="cpu")
+    first = trace.since(before)
+    misses, uses = FIRST[folder, name]
+    assert _syncs(first)["literal"] == misses
+    assert misses + first["counters"].get("literal.cached", 0) == uses
     assert tuple(_render_counts(f, *ins).values()) == PINNED[folder, name]
 
 
 @pytest.mark.parametrize("folder,name", sorted(PINNED))
 def test_a_batch_of_n_jobs_syncs_n_times_one_job(folder, name):
     f = _filter(folder, name)
-    one = PINNED[folder, name]
     ins = [mt.shared(_image())] * len(f.image_params)
+    one = PINNED[folder, name]
+    _warm_counts(f, *[_image()] * len(f.image_params))  # the constants on the device
     before = trace.snapshot()
     f.render_batch(*ins, ts=[0.1, 0.4, 0.7], width=W, height=H, device="cpu")
     got = _syncs(trace.since(before))
@@ -231,10 +257,14 @@ def test_a_batch_of_n_jobs_syncs_n_times_one_job(folder, name):
 
 def test_the_eager_loop_counts_its_mask_readbacks():
     """mandelbrot's loop off the kernel route: the masked eager loop reads
-    its mask on the host once per while_unroll steps."""
+    its mask on the host once per while_unroll steps; its 148 literals are
+    all on the device after the first render."""
     f = _filter("Render", "mandelbrot")
-    counts = _render_counts(f, options=mt.RenderOptions(pallas_while="off"))
-    assert counts == {"literal": 148, "param": 5, "loop": 17, "readback": 0, "stage": 0}
+    opts = mt.RenderOptions(pallas_while="off")
+    before = trace.snapshot()
+    counts = _warm_counts(f, options=opts)
+    assert counts == {"literal": 0, "param": 5, "loop": 17, "readback": 0, "stage": 0}
+    assert trace.since(before)["counters"]["literal.cached"] >= 148
 
 
 def test_a_host_input_is_one_stage_sync():
