@@ -22,6 +22,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils.trace import count, span
+
 FRAME_AXIS = "f"
 ROW_AXIS = "y"
 COL_AXIS = "x"
@@ -114,8 +116,22 @@ def axis_size(mesh: Mesh, name: str) -> int:
     return mesh.shape.get(name, 1)
 
 
+_ASSEMBLE = span("mm.shard.assemble")
+
+
+def peer_copy(a: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """`a` on `device`, a copy that does not wait for the host where it
+    crosses devices; the bytes of a copy to a device other than its own
+    add to the counter `shard.peer_bytes`."""
+    if a.device != device:
+        count("shard.peer_bytes", a.numel() * a.element_size())
+    return a.to(device, non_blocking=True)
+
+
 def assemble(tiles: list, device: torch.device, out=None) -> torch.Tensor:
     """(rows, cols) nested lists of (tile_h, tile_w, C) tiles -> the whole
-    (H, W, C) frame on `device`, written into `out` when given."""
-    return torch.cat([torch.cat([t.to(device, non_blocking=True) for t in row], dim=1)
-                      for row in tiles], dim=0, out=out)
+    (H, W, C) frame on `device`, written into `out` when given: one
+    `mm.shard.assemble` span, the tiles moved and joined."""
+    with _ASSEMBLE:
+        return torch.cat([torch.cat([peer_copy(t, device) for t in row], dim=1)
+                          for row in tiles], dim=0, out=out)

@@ -11,6 +11,15 @@ the unsharded render's do. One process drives every tile. A sweep of
 frames splits over the mesh's frame axis in contiguous blocks: frame slice
 k renders its block of frames over its own (rows, cols) tiles.
 
+Spans and counters (utils/trace.py): each frame of a sweep is a
+`mm.frame`, each tile's render on its device (context, params,
+`render_frame`) a `mm.shard.tile`, each input copied to a tile's device a
+`mm.shard.replicate`, and a frame's tiles moved to the first device and
+joined a `mm.shard.assemble` (parallel/mesh.py::assemble). The counter
+`shard.tiles` counts the tiles rendered, `shard.peer_bytes` the bytes of
+the input replicas and the tiles copied to a device other than their own
+(0 on a mesh of one device).
+
 Over a mesh that spans processes (parallel/distributed.global_mesh) each
 rank evaluates only the tiles of its own devices, and a frame is a
 `LocalFrame` of those tiles (distributed.local_slice_of): the
@@ -29,7 +38,12 @@ from ..runtime.render import render_frame, user_values, validate_params
 from ..runtime.tracer import RenderContext
 from ..runtime.value import InputImage
 from ..utils.errors import MMRuntimeError
-from .mesh import COL_AXIS, FRAME_AXIS, ROW_AXIS, assemble, axis_size
+from ..utils.trace import count, span
+from .mesh import COL_AXIS, FRAME_AXIS, ROW_AXIS, assemble, axis_size, peer_copy
+
+_FRAME = span("mm.frame")
+_TILE = span("mm.shard.tile")
+_REPLICATE = span("mm.shard.replicate")
 
 
 def _check_divisible(total: int, parts: int, what: str):
@@ -48,6 +62,12 @@ class LocalFrame:
     def __init__(self, tiles: dict, shape: tuple):
         self.tiles = tiles
         self.shape = shape
+
+
+def _replicate(a: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """One input copied to a tile's device: a `mm.shard.replicate` span."""
+    with _REPLICATE:
+        return peer_copy(a, device)
 
 
 def _render_tiles(mesh, f: int, replicas: dict, program_filters, fdef, width: int,
@@ -70,15 +90,17 @@ def _render_tiles(mesh, f: int, replicas: dict, program_filters, fdef, width: in
                 continue
             dev = devices[r, c]
             if dev not in replicas:
-                replicas[dev] = [a.to(dev, non_blocking=True) for a in inputs]
-            ctx = RenderContext(
-                device=dev, width=width, height=height, opts=opts,
-                filters=program_filters, t=float(t), frame=float(frame),
-                inputs=[InputImage(pixels=a, name=f"in{i}")
-                        for i, a in enumerate(replicas[dev])],
-                grid_shape=(tile_h, tile_w),
-                row_offset=r * tile_h, col_offset=c * tile_w)
-            tile = render_frame(ctx, fdef, user_values(ctx, fdef, params))
+                replicas[dev] = [_replicate(a, dev) for a in inputs]
+            with _TILE:
+                ctx = RenderContext(
+                    device=dev, width=width, height=height, opts=opts,
+                    filters=program_filters, t=float(t), frame=float(frame),
+                    inputs=[InputImage(pixels=a, name=f"in{i}")
+                            for i, a in enumerate(replicas[dev])],
+                    grid_shape=(tile_h, tile_w),
+                    row_offset=r * tile_h, col_offset=c * tile_w)
+                tile = render_frame(ctx, fdef, user_values(ctx, fdef, params))
+            count("shard.tiles")
             row.append(tile)
             local[(r * tile_h, c * tile_w)] = tile
         tiles.append(row)
@@ -140,14 +162,16 @@ def render_frames_sharded(mesh, program_filters, fdef, width: int, height: int,
                   for f, r, c in mesh.local_entries()}
         for i in range(n):
             f0 = i - i % per_slice
-            part = _render_tiles(mesh, i // per_slice, replicas, program_filters, fdef, width,
-                                 height, opts, inputs, params, float(ts[i]), float(i))
+            with _FRAME:
+                part = _render_tiles(mesh, i // per_slice, replicas, program_filters, fdef,
+                                     width, height, opts, inputs, params, float(ts[i]), float(i))
             for (r0, c0), tile in part.tiles.items():
                 shards[f0, r0, c0][i - f0] = tile
         return LocalFrame(shards, (n, height, width, 4))
     first = mesh.devices[0, 0, 0]
     out = torch.empty((n, height, width, 4), dtype=dtype, device=first)
     for i in range(n):
-        _render_tiles(mesh, i // per_slice, replicas, program_filters, fdef, width,
-                      height, opts, inputs, params, float(ts[i]), float(i), out=out[i])
+        with _FRAME:
+            _render_tiles(mesh, i // per_slice, replicas, program_filters, fdef, width,
+                          height, opts, inputs, params, float(ts[i]), float(i), out=out[i])
     return out

@@ -25,8 +25,8 @@ a request keeps as many tables as it has threads alive.
 
 The spans of the render path, outermost first: `mm.call` (one public
 render entry), `mm.frame` (one job of an entry that renders several:
-`render_batch`, `render_animation`, `render_frames`; a `Filter.render`'s
-one frame is its call) and `mm.evaluate` (one walk of the filter body,
+`render_batch`, `render_animation`, `render_frames`, a sharded sweep;
+a `Filter.render`'s one frame is its call) and `mm.evaluate` (one walk of the filter body,
 the coordinate grids and the default params included). Inside a walk,
 `mm.noise` is one `noise` builtin call (the host time of enqueueing one
 Perlin evaluation, ops/noise.py) and `mm.loop.probe` a while loop's probe,
@@ -35,7 +35,12 @@ the one evaluation of its condition and body whose results are discarded
 `mm.loop.probe` are the probes' noise calls. Beside them
 `mm.compile`, `mm.build` (a kernel library loaded, or built by nvcc),
 `mm.png.decode`, `mm.png.encode`, `mm.image.read`, `mm.image.write`,
-`mm.serve.wait` and `mm.serve.dispatch`. Every place where the host waits
+`mm.serve.wait` and `mm.serve.dispatch`. The parallel layer
+(parallel/shard.py, parallel/mesh.py) adds `mm.shard.tile` (one tile's
+render on its device: its context, params and `render_frame`, inside the
+frame's `mm.frame` in a sweep), `mm.shard.replicate` (an input copied to
+a tile's device) and `mm.shard.assemble` (a frame's tiles moved to the
+first device and joined, `render_tiled`'s too). Every place where the host waits
 on the device is a span `mm.sync.<cause>` (`literal`, `param`, `loop`,
 `readback`, `stage`): its count is the number of waits, its time the time
 the host sat blocked. The counters: `launch.<kernel>` for each CUDA kernel
@@ -46,7 +51,10 @@ for its steps (runtime/tracer.py::_count_route),
 `render_frame` renders, and `noise.points` for the points each `noise`
 call evaluates (its broadcast result's elements; over `render.pixels`,
 the Perlin evaluations a pixel costs), and of them `noise.kernel_points`
-those kernel B6 evaluated (every call on the card). A span
+those kernel B6 evaluated (every call on the card), `shard.tiles` for
+each tile a sharded render renders and `shard.peer_bytes` for the bytes
+of every input replica and assembled tile the parallel layer copies to a
+device other than its own. A span
 costs about a microsecond of host time, so the render path has none finer
 than these: the params' conversion and the grids show in a trace by their
 torch ops.

@@ -15,7 +15,10 @@ chain on the same planes;
 kernel B6 (Perlin noise) against the eager chain bit for bit on the CPU
 tests' point sets and layouts, and turbulence and voronoi through it; a
 warm 4K frame that uploads no constant (utils/constants.py) but
-turbulence's `t`, equal to a frame from an emptied cache bit for bit.
+turbulence's `t`, equal to a frame from an emptied cache bit for bit; a
+4K ripple sweep through render_sharded over every card, and over a mesh
+of one card, equal to the one-card animation bit for bit, with the bytes
+that cross cards counted.
 
 They carry the `cuda` marker and skip without a GPU. This file imports only
 torch, numpy and the port, so it also runs on a GPU machine without jax:
@@ -397,6 +400,39 @@ def test_cuda_tiled_and_sharded_renders_across_every_card(cuda):
     want = mandelbrot.render(width=64, height=16 * n, device=first)
     got = mandelbrot.render_sharded(width=64, height=16 * n, mesh=mt.make_mesh())
     torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("cards", ["every", "one"])
+def test_cuda_4k_sweep_over_the_mesh_equals_the_one_card_animation(cuda, cards):
+    """A short 3840x2160 ripple t-sweep through render_sharded over the
+    default mesh (every card on the rows; two or more cards) or a (1,4,1)
+    mesh of one card equals render_animation on the first card bit for
+    bit. The parallel layer counts the bytes that cross cards: (cards - 1)
+    x (tile bytes x frames + input bytes), the assembled tiles and the
+    input's replicas; none on one card."""
+    n = torch.cuda.device_count()
+    if cards == "every" and n < 2:
+        pytest.skip("needs two or more GPUs")
+    w, h, frames = 3840, 2160, 3
+    first = torch.device("cuda", 0)
+    if cards == "every":
+        if h % n:
+            pytest.skip(f"{h} rows do not split over {n} cards")
+        mesh, crossing = mt.make_mesh(), n - 1
+    else:
+        mesh, crossing = mt.make_mesh(1, 4, 1, devices=[first] * 4), 0
+    ripple = mt.compile_file(os.path.join(ROOT, "filters", "Distorts", "ripple.mm"))
+    img = torch.from_numpy((_smooth_image(w, h) * 255 + 0.5).astype(np.uint8)).to(first)
+    params = {"amplitude": 5.5, "wavelength": 45.0}
+    want = ripple.render_animation(img, num_frames=frames, params=params, device=first)
+    before = counter("shard.peer_bytes")
+    got = ripple.render_sharded(img, mesh=mesh, num_frames=frames, params=params)
+    for i in range(n):
+        torch.cuda.synchronize(i)
+    assert got.device == first
+    assert torch.equal(got, want)
+    tile_bytes = (h // mesh.devices.shape[1]) * w * 4 * 4
+    assert counter("shard.peer_bytes") - before == crossing * (tile_bytes * frames + img.numel())
 
 
 RAND_WALK = ("filter rand_walk () s = 0; i = 0;"
