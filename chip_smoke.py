@@ -2689,8 +2689,9 @@ def phase_artifact_loops(mt, K, L, WL, dev, st, work: Path, card):
     (kernels/while_loop.py::while_loop_exported). ridged_noise (`octaves`
     and `scale` runtime inputs), FEEDBACK (B1 in the loop) and NESTED_RAND
     (tensor salts): every render, render_batch (4 jobs) and
-    render_animation (4 frames) equal to the live card render bit for bit
-    with the same (B1, B2, B3) launches; FEEDBACK's B1 launches in the loop
+    render_animation (4 frames) equal to the live card render bit for bit,
+    each render with the (B1, B2, B3) launches of a cold live render (the
+    exported program runs its loops' probes every time); FEEDBACK's B1 launches in the loop
     are its steps rounded up to whole while_unroll groups. Then fault C4:
     the Perlin table's cache was emptied before the exports, and a live
     turbulence render after them is a real CUDA tensor equal to the one
@@ -2711,15 +2712,21 @@ def phase_artifact_loops(mt, K, L, WL, dev, st, work: Path, card):
     _, u8 = smooth_image(w, h, seed=47)
     img = K.u8_to_float(torch.from_numpy(u8).to(dev))
     unroll = mt.RenderOptions().while_unroll
+    # a filter compiled afresh: an exported program runs its loops' probes
+    # on every render, a live Filter only until its loops' memos hold them
+    # (runtime/loops.py::probe_outcome), so the launches are compared with
+    # a cold live render's
     cases = (
-        ("ridged_noise", st["ridged_noise"], [], [
+        ("ridged_noise", lambda: mt.compile_file(str(ROOT / "filters" / "Noise" /
+                                                     "ridged_noise.mm")), [], [
             {"octaves": o, "scale": s} for o, s in ((4, 120.0), (1, 120.0), (6, 120.0),
                                                       (4, 310.0))]),
-        ("feedback", mt.compile(FEEDBACK), [img],
+        ("feedback", lambda: mt.compile(FEEDBACK), [img],
          [{"n": n, "k": 0.97} for n in (6, 0, 3, 13)]),
-        ("nested rand", mt.compile(NESTED_RAND), [], [{"n": n} for n in (3, 1, 5)]),
+        ("nested rand", lambda: mt.compile(NESTED_RAND), [], [{"n": n} for n in (3, 1, 5)]),
     )
-    for name, f, ins, settings in cases:
+    for name, fresh, ins, settings in cases:
+        f = fresh()
         path = work / f"{name.replace(' ', '_')}.mmxa"
         t0 = time.perf_counter()
         export_artifact(f, str(path), w, h, params=settings[0], batch_sizes=(ARTIFACT_JOBS,),
@@ -2735,8 +2742,9 @@ def phase_artifact_loops(mt, K, L, WL, dev, st, work: Path, card):
         b1 = []
         for p in settings:
             got, launches = launched(K, L, WL, lambda: art.render(*ins, params=p, t=0.3))
-            want, live = launched(K, L, WL, lambda: f.render(*ins, params=p, t=0.3, width=w,
-                                                            height=h, device=dev))
+            cold = fresh()
+            want, live = launched(K, L, WL, lambda: cold.render(*ins, params=p, t=0.3, width=w,
+                                                               height=h, device=dev))
             if not torch.equal(got, want):
                 raise AssertionError(f"artifact {name} {p}: render differs from the live one")
             if launches != live:

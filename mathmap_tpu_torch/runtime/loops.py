@@ -14,8 +14,15 @@ whose `any()` check reads the mask on the host; a program traced by
 torch.export cannot do that, so there `while_loop_exported` writes it as
 torch's `while_loop` op with the same gated steps.
 
+Before a loop runs, its probe evaluates the condition and the body once
+to learn each carried name's length and tag (tracer.py::_eval_While).
+That outcome follows from the loop's text and from what `probe_key`
+reads, so each loop keeps a memo of it (`probe_outcome`): a later frame
+with the same key runs no probe and adds 1 to the counter `probe.cached`.
+
 Imports point one way: runtime/tracer.py imports this module, which
-imports the kernel layer and nothing of the evaluator.
+imports the kernel layer and the value model, and nothing of the
+evaluator.
 """
 
 from __future__ import annotations
@@ -24,14 +31,27 @@ from dataclasses import dataclass
 from typing import Any, Callable
 
 import torch
+import torch.compiler as _compiler
 
 from ..kernels.while_loop import SAFE_CALLS, register
 from ..lang import astnodes as A
 from ..ops.rand import draw_salt
-from ..utils.trace import span
+from ..utils.constants import exact
+from ..utils.trace import count, span
+from .value import ClosureImage, InputImage, TiledInput
 
 #: a wait of the loop's wrapper on the device
 _LOOP = span("mm.sync.loop")
+
+#: outcomes kept before the memo is emptied: far above the loops and keys
+#: of the filters one process renders (the service and the designer
+#: compile programs without end)
+PROBE_ENTRIES = 4096
+
+#: (id(node), probe_key) -> (node, outcome): the loops' memo of their
+#: probes; the entry holds the node, so its id names no other loop
+#: meanwhile
+_PROBES: dict = {}
 
 #: internals that are kernel scalar arguments rather than baked literals
 SCALAR_INTERNALS = ("t", "frame", "X", "Y", "W", "H", "R")
@@ -78,6 +98,79 @@ def dependencies(node: A.While, init_env: dict, carried, shape) -> list | None:
             return None
         deps.append((name, tv))
     return deps
+
+
+def _checked(img) -> bool:
+    """Whether sampling `img` reports to the tiled renderer's halo check."""
+    return isinstance(img, TiledInput) and img.violation_hook is not None
+
+
+def _image_key(img) -> tuple:
+    """What a probe can learn of an input image: its kind, and whether it
+    is an animated stack."""
+    return type(img), img.pixels.dim()
+
+
+def _value_key(v) -> tuple | None:
+    """What a probe can learn of an env value: its tag and length and the
+    exact bits of its host constants, or its payload's type (a closure's
+    filter and arguments). None for a value whose samples the halo check
+    measures."""
+    p = v.payload
+    if p is None:
+        return v.tag, len(v.arrays), None if v.const is None else tuple(map(exact, v.const))
+    if isinstance(p, InputImage):
+        return None if _checked(p) else (v.tag, _image_key(p))
+    if isinstance(p, ClosureImage):
+        args = tuple(_value_key(a) for a in p.args)
+        return None if None in args else (v.tag, ClosureImage, p.filter_def.name, args)
+    return v.tag, type(p)
+
+
+def probe_key(env: dict, ctx, salt_extra) -> tuple | None:
+    """Everything a loop's probe outcome depends on besides the loop's
+    text: each env value's `_value_key`, the frame's width and height
+    (the constants of X, Y, W, H, R and WH), the render options, whether
+    the loop runs in another loop's step, the dtype, the inlining depth
+    and the inputs' kinds. Tensors, `t`, `frame` and passed params carry
+    no constant, so a frame of the same filter has the same key. None
+    bypasses the memo: while torch compiles or exports, and where a sample
+    could reach the halo check, which measures the probe's taps (at loop
+    depth 0) on every frame."""
+    if _compiler._is_compiling_flag or any(_checked(img) for img in ctx.inputs):
+        return None
+    values = []
+    for name, v in env.items():
+        k = _value_key(v)
+        if k is None:
+            return None
+        values.append((name, k))
+    return (tuple(values), ctx.width, ctx.height, ctx.opts, salt_extra is None, ctx.dtype,
+            ctx.inline_depth, tuple(map(_image_key, ctx.inputs)))
+
+
+def probe_outcome(node: A.While, key: tuple | None, probe: Callable) -> dict:
+    """The loop's probe outcome, {carried name: (length, tag)}: the one its
+    memo keeps under `key`, a hit counted in `probe.cached`, else what
+    `probe()` returns, kept. With key None `probe()` runs and nothing is
+    kept; a probe that raises keeps nothing. The outcome is shared: never
+    write into it."""
+    if key is None:
+        return probe()
+    entry = _PROBES.get((id(node), key))
+    if entry is not None:
+        count("probe.cached")
+        return entry[1]
+    got = probe()
+    if len(_PROBES) >= PROBE_ENTRIES:
+        _PROBES.clear()
+    _PROBES[id(node), key] = node, got
+    return got
+
+
+def probe_memo(node: A.While) -> dict:
+    """The loop's entries in the memo: {probe_key: outcome}."""
+    return {key: got for (_, key), (n, got) in list(_PROBES.items()) if n is node}
 
 
 @dataclass

@@ -9,13 +9,16 @@ phi on the condition mask (the language is pure apart from local
 assignment). Image application goes to runtime.sampling, whose CUDA path is
 the hand-written sampler kernel.
 
-`while` loops run in `_eval_While`: unrolled when the trip count folds to
-a constant, else through the generated kernel B3 when the loop is eligible
-(runtime/loops.py, the loop's front end, hands it to kernels/while_loop.py;
-`SymEvaluator` and `trace` below turn its step into B3's op list), else as
-the masked eager loop, which a program traced by torch.export holds as
-torch's while loop instead. Each loop run of a render counts its route in
-the counters `loop.<route>` and `loop.<route>.steps` (utils/trace.py).
+`while` loops run in `_eval_While`, after a probe that learns the carried
+names' lengths and tags, or the loop's memo of an earlier probe under the
+same key (runtime/loops.py::probe_outcome): unrolled when the trip count
+folds to a constant, else through the generated kernel B3 when the loop is
+eligible (runtime/loops.py, the loop's front end, hands it to
+kernels/while_loop.py; `SymEvaluator` and `trace` below turn its step into
+B3's op list), else as the masked eager loop, which a program traced by
+torch.export holds as torch's while loop instead. Each loop run of a
+render counts its route in the counters `loop.<route>` and
+`loop.<route>.steps` (utils/trace.py).
 Curves and gradients apply through kernel B2 (ops/color_ops.py).
 
 rand() draws from a counter hash of the global pixel index (ops/rand.py):
@@ -45,8 +48,8 @@ from ..typesys.tags import NIL
 from ..utils.constants import constant
 from ..utils.errors import MMNameError, MMRuntimeError, MMTypeError
 from ..utils.trace import count, span
-from .loops import (SCALAR_INTERNALS, Loop, dependencies, eligible, scalar_internal,
-                    while_loop_exported)
+from .loops import (SCALAR_INTERNALS, Loop, dependencies, eligible, probe_key,
+                    probe_outcome, scalar_internal, while_loop_exported)
 from .loops import while_loop as loop_kernel
 from .value import ClosureImage, TupleValue, image_value
 
@@ -453,22 +456,13 @@ class Evaluator:
     # ------------------------------------------------------------------
     # while loops
     # ------------------------------------------------------------------
-    def _eval_While(self, node: A.While) -> TupleValue:
-        """The reference's `_eval_While`: a probe finds the carried names,
-        then the loop runs on one of three routes, each run counted in
-        `loop.<route>` (_count_route): the static-trip-count unroll when
-        the condition const-folds, the generated kernel B3 for an eligible
-        loop (its plain version on the CPU), or the masked eager loop;
-        under torch.export the masked loop is torch's while loop, whose
-        steps the exported program runs with the same values."""
+    def _probe(self, node: A.While) -> dict:
+        """A loop's probe: its condition and body evaluated once on a
+        scratch env -> {carried name: (length, tag)} at the end, all that
+        is kept, the names in sorted order. The tensors are discarded, and
+        rand()'s counters go back to their state before it."""
         names = sorted(A.assigned_names(node.body) | A.assigned_names(node.cond))
-        # rand(): the unroll and the kernel fix a step's counters when they
-        # evaluate or trace it, the masked loop draws step by step; so every
-        # step restarts from one counter and its iteration number salts the
-        # draws. The probe's draws are discarded with its results.
         counter_entry, nonce_entry = self.ctx.rand_counter, self.ctx.rand_loop_nonce
-        # probe: evaluate cond + body once on a scratch env for each carried
-        # variable's final length and tag (the results are discarded)
         probe_env = dict(self.env)
         probe = Evaluator(self.ctx, self.x, self.y, probe_env)
         for n in names:
@@ -489,44 +483,61 @@ class Evaluator:
                 probe.eval(node.cond)
                 probe.eval(node.body)
         self.ctx.rand_counter, self.ctx.rand_loop_nonce = counter_entry, nonce_entry
+        return {n: (probe_env[n].length, probe_env[n].tag) for n in names}
+
+    def _eval_While(self, node: A.While) -> TupleValue:
+        """The reference's `_eval_While`: a probe finds the carried names'
+        lengths and tags (kept in the loop's memo, runtime/loops.py::
+        probe_outcome, for the frames that follow), then the loop runs on
+        one of three routes, each run counted in `loop.<route>`
+        (_count_route): the static-trip-count unroll when
+        the condition const-folds, the generated kernel B3 for an eligible
+        loop (its plain version on the CPU), or the masked eager loop;
+        under torch.export the masked loop is torch's while loop, whose
+        steps the exported program runs with the same values."""
+        # rand(): the unroll and the kernel fix a step's counters when they
+        # evaluate or trace it, the masked loop draws step by step; so every
+        # step restarts from one counter and its iteration number salts the
+        # draws. The probe's draws are discarded with its results, and a
+        # frame that finds its outcome in the loop's memo draws none.
+        probed = probe_outcome(node, probe_key(self.env, self.ctx, self.salt_extra),
+                               lambda: self._probe(node))
 
         shape = self.ctx.shape
 
-        def widen(v: TupleValue, target: TupleValue) -> TupleValue:
+        def widen(v: TupleValue, length: int, target_tag: str) -> TupleValue:
             if v.is_opaque:
                 raise MMTypeError("image values cannot be loop variables", node.span)
             arrays = v.arrays
-            if len(arrays) != target.length:
+            if len(arrays) != length:
                 if len(arrays) == 1:
-                    arrays = arrays * target.length
+                    arrays = arrays * length
                 else:
                     raise MMTypeError(
                         f"loop variable changes tuple length "
-                        f"{len(arrays)} -> {target.length}", node.span)
-            tag = v.tag if v.tag != NIL else target.tag
+                        f"{len(arrays)} -> {length}", node.span)
+            tag = v.tag if v.tag != NIL else target_tag
             cst = None
             if v.const is not None:
-                cs = (v.const * target.length
-                      if len(v.const) == 1 and target.length > 1 else v.const)
-                if len(cs) == target.length:
+                cs = v.const * length if len(v.const) == 1 and length > 1 else v.const
+                if len(cs) == length:
                     cst = tuple(float(c) for c in cs)
             return TupleValue(tag, tuple(torch.broadcast_to(x, shape) for x in arrays),
                               const=cst)
 
         init_env = dict(self.env)
         carried: list[str] = []
-        for n in names:
-            tgt = probe_env[n]
+        for n, (length, tag) in probed.items():
             if n not in init_env:
                 iv = self._internal(n)
-                if iv is not None and (iv.length == tgt.length or iv.length == 1):
+                if iv is not None and (iv.length == length or iv.length == 1):
                     # seed with the internal (a length-1 internal widens
                     # like any scalar carry); a longer internal carried at
                     # another length is write-before-read: zero seed
                     init_env[n] = iv
                 else:
                     init_env[n] = TupleValue(NIL, (self.lit(0.0),), const=(0.0,))
-            init_env[n] = widen(init_env[n], tgt)
+            init_env[n] = widen(init_env[n], length, tag)
             carried.append(n)
         lengths = {n: init_env[n].length for n in carried}
         tags = {n: init_env[n].tag for n in carried}

@@ -38,9 +38,14 @@ MAX_ENTRIES = 4096
 _cache: dict = {}
 
 
+def exact(value) -> tuple:
+    """A number's type and exact bits: -0.0 and 0.0, two NaNs of other
+    bits, or an int and a float of one value give two keys."""
+    return type(value), value if isinstance(value, int) else struct.pack("<d", float(value))
+
+
 def _key(value, dtype: torch.dtype, device) -> tuple:
-    bits = value if isinstance(value, int) else struct.pack("<d", float(value))
-    return type(value), bits, dtype, device
+    return (*exact(value), dtype, device)
 
 
 def constant(sync, value, dtype: torch.dtype, device) -> torch.Tensor:

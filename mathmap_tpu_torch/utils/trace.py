@@ -31,7 +31,8 @@ the coordinate grids and the default params included). Inside a walk,
 `mm.noise` is one `noise` builtin call (the host time of enqueueing one
 Perlin evaluation, ops/noise.py) and `mm.loop.probe` a while loop's probe,
 the one evaluation of its condition and body whose results are discarded
-(runtime/tracer.py::_eval_While): the `mm.noise` spans whose parent is
+(runtime/tracer.py::_probe; none where the loop's memo holds the outcome,
+runtime/loops.py::probe_outcome): the `mm.noise` spans whose parent is
 `mm.loop.probe` are the probes' noise calls. Beside them
 `mm.compile`, `mm.build` (a kernel library loaded, or built by nvcc),
 `mm.png.decode`, `mm.png.encode`, `mm.image.read`, `mm.image.write`,
@@ -46,7 +47,10 @@ on the device is a span `mm.sync.<cause>` (`literal`, `param`, `loop`,
 the host sat blocked. The counters: `launch.<kernel>` for each CUDA kernel
 launch, `build.nvcc` for each nvcc run, `loop.<route>` for each while
 loop run on a route (`unroll`, `kernel`, `masked`) and `loop.<route>.steps`
-for its steps (runtime/tracer.py::_count_route),
+for its steps (runtime/tracer.py::_count_route), `probe.cached` for
+each loop whose probe outcome its memo answered, with no `mm.loop.probe`
+(runtime/loops.py::probe_outcome), `literal.cached` for each constant
+read from the device's cache (utils/constants.py),
 `render.pixels` for the output pixels of each frame, tile or region
 `render_frame` renders, and `noise.points` for the points each `noise`
 call evaluates (its broadcast result's elements; over `render.pixels`,

@@ -125,13 +125,16 @@ def test_an_exported_masked_loop_equals_the_live_render_and_the_oracle(exported,
 
 def test_the_static_unroll_hands_the_exported_loop_its_steps(exported):
     """HANDOFF's live render unrolls two steps, then masks one group of
-    four numbered from 3: the artifact's loop starts from the same place."""
+    four numbered from 3: the artifact's loop starts from the same place.
+    A frame after the first reads the loop's probe from its memo."""
     f, art, _ = exported["handoff"]
+    f.render(width=W, height=H, device="cpu")
     before = snapshot()
     want = f.render(width=W, height=H, device="cpu")
     counters = since(before)["counters"]
     counters.pop("literal.cached", None)  # the constants already on the device
-    assert counters == {"loop.masked": 1, "loop.masked.steps": 6, "render.pixels": W * H}
+    assert counters == {"loop.masked": 1, "loop.masked.steps": 6, "probe.cached": 1,
+                        "render.pixels": W * H}
     assert _while_loops(art) == 1
     assert torch.equal(art.render(), want)
 

@@ -16,6 +16,8 @@ kernel B6 (Perlin noise) against the eager chain bit for bit on the CPU
 tests' point sets and layouts, and turbulence and voronoi through it; a
 warm 4K frame that uploads no constant (utils/constants.py) but
 turbulence's `t`, equal to a frame from an emptied cache bit for bit; a
+warm 4K voronoi frame whose loops' memos answer their probes (18 B6
+launches where a cold frame makes 32), equal to a cold frame bit for bit; a
 4K ripple sweep through render_sharded over every card, and over a mesh
 of one card, equal to the one-card animation bit for bit, with the bytes
 that cross cards counted.
@@ -952,3 +954,51 @@ def test_cuda_a_warm_4k_frame_uploads_no_constant(cuda, name, folder, misses):
     constants.clear()
     want = f.render(*ins, width=3840, height=2160, t=0.4, device=cuda)
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def test_cuda_a_warm_4k_voronoi_frame_runs_no_probe(cuda):
+    """A cold 4K voronoi frame launches B6 32 times, 14 of them in its loop
+    probes; the next frame finds the outer loop's probe outcome and the 3
+    inner ones in the loops' memos (`probe.cached` 4, no `mm.loop.probe`)
+    and launches B6 18 times. The warm frame equals a cold frame of a
+    freshly compiled filter at the same t bit for bit."""
+    path = os.path.join(ROOT, "filters", "Render", "voronoi.mm")
+    f = mt.compile_file(path)
+    got = []
+    for t in (0.3, 0.4):
+        before = snapshot()
+        out = f.render(width=3840, height=2160, t=t, device=cuda)
+        torch.cuda.synchronize()
+        d = since(before)
+        got.append((d["counters"]["launch.perlin3"], d["counters"].get("probe.cached", 0),
+                    d["spans"].get("mm.loop.probe", {}).get("count", 0)))
+    assert got == [(32, 0, 5), (18, 4, 0)]
+    cold = mt.compile_file(path).render(width=3840, height=2160, t=0.4, device=cuda)
+    assert torch.equal(out.view(torch.int32), cold.view(torch.int32))
+
+
+def test_cuda_a_sharded_voronoi_shares_its_probes_across_cards(cuda):
+    """Over the default mesh (every card on the rows; two or more cards)
+    the tiles of a voronoi frame share one memo of its loops' probes: the
+    first frame probes 5 times on its first tile and finds the 4 outcomes
+    a tile reads for every other tile; the next frame probes none. Both
+    equal the one-card render bit for bit."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two or more GPUs")
+    path = os.path.join(ROOT, "filters", "Render", "voronoi.mm")
+    f = mt.compile_file(path)
+    first = torch.device("cuda", 0)
+    got = []
+    for t in (0.3, 0.4):
+        before = snapshot()
+        out = f.render_sharded(width=64, height=16 * n, mesh=mt.make_mesh(), t=t)
+        for i in range(n):
+            torch.cuda.synchronize(i)
+        d = since(before)
+        got.append((d["counters"]["launch.perlin3"], d["counters"].get("probe.cached", 0),
+                    d["spans"].get("mm.loop.probe", {}).get("count", 0)))
+        assert out.device == first
+        want = mt.compile_file(path).render(width=64, height=16 * n, t=t, device=first)
+        assert torch.equal(out.view(torch.int32), want.view(torch.int32))
+    assert got == [(32 + 18 * (n - 1), 4 * (n - 1), 5), (18 * n, 4 * n, 0)]

@@ -31,7 +31,11 @@ noise layer's spans and counters.
   probe and 3 steps (8), and each of the 3 unrolled outer steps probes
   its inner loop once more (3 x 2). So 18 `mm.noise` spans have the
   parent `mm.evaluate` and 14 the parent `mm.loop.probe`, which opens 5
-  times (1 + 1 inside it + 3). `noise.points` is the calls times the
+  times (1 + 1 inside it + 3). The next frame of the same filter finds
+  the outer loop's outcome and the 3 inner ones in the loops' memos
+  (`probe.cached` 4, runtime/loops.py::probe_outcome): it opens no
+  `mm.loop.probe` (the inner probe inside the outer one goes with it) and
+  makes the scan's 18 calls alone. `noise.points` is the calls times the
   frame's 14,400 pixels, `render.pixels` 14,400; a fisheye render makes
   no `mm.noise`.
 """
@@ -123,30 +127,34 @@ def test_render_holds_to_the_reference_under_the_cells_limits(name, size, how):
     assert ok, checks
 
 
-FRAME = {"turbulence": (4, {"mm.evaluate": 4}, None),
-         "voronoi": (32, {"mm.evaluate": 18, "mm.loop.probe": 14},
-                     (5, {"mm.evaluate": 4, "mm.loop.probe": 1})),
-         "fisheye": (0, {}, None)}
+#: of a filter's first (cold) and second (warm) frame: (noise calls, their
+#: parents, the probes' count and parents or None, `probe.cached`)
+FRAME = {"turbulence": [(4, {"mm.evaluate": 4}, None, 0)] * 2,
+         "voronoi": [(32, {"mm.evaluate": 18, "mm.loop.probe": 14},
+                      (5, {"mm.evaluate": 4, "mm.loop.probe": 1}), 0),
+                     (18, {"mm.evaluate": 18}, None, 4)],
+         "fisheye": [(0, {}, None, 0)] * 2}
 
 
 @pytest.mark.parametrize("name", sorted(FRAME))
 def test_one_frames_noise_spans_and_counters(name):
-    calls, parents, probes = FRAME[name]
     if name == "fisheye":
         f, inputs = mt.compile_file("filters/Distorts/fisheye.mm"), (
             np.random.RandomState(5).rand(90, 160, 4).astype(np.float32),)
     else:
         f, inputs = mt.compile_source(_spec(name)["source"]), ()
-    before = trace.snapshot()
-    f.render(*inputs, width=160, height=90, device="cpu")
-    d = trace.since(before)
-    noise = d["spans"].get("mm.noise", {"count": 0, "parents": {}})
-    assert noise["count"] == calls
-    assert noise["parents"] == parents
-    assert d["counters"].get("noise.points", 0) == calls * 160 * 90
-    assert d["counters"]["render.pixels"] == 160 * 90
-    probe = d["spans"].get("mm.loop.probe")
-    if probes is None:
-        assert probe is None
-    else:
-        assert (probe["count"], probe["parents"]) == probes
+    for calls, parents, probes, cached in FRAME[name]:
+        before = trace.snapshot()
+        f.render(*inputs, width=160, height=90, device="cpu")
+        d = trace.since(before)
+        noise = d["spans"].get("mm.noise", {"count": 0, "parents": {}})
+        assert noise["count"] == calls
+        assert noise["parents"] == parents
+        assert d["counters"].get("noise.points", 0) == calls * 160 * 90
+        assert d["counters"]["render.pixels"] == 160 * 90
+        assert d["counters"].get("probe.cached", 0) == cached
+        probe = d["spans"].get("mm.loop.probe")
+        if probes is None:
+            assert probe is None
+        else:
+            assert (probe["count"], probe["parents"]) == probes
