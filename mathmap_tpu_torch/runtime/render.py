@@ -169,13 +169,20 @@ def render_frame(ctx: RenderContext, fdef: A.FilterDef, uservals: dict,
 
     Every frame finishes (scale by the samples' weight, clamp, interleave,
     pack) in one call of kernel B5's `finish_rgba`, on the CPU its plain
-    version. Its output pixels add to `render.pixels`."""
-    count("render.pixels", ctx.shape[0] * ctx.shape[1])
+    version. Its output pixels add to `render.pixels`, the points its walks
+    evaluate to `render.samples` and its walks of the body to
+    `render.walks`."""
+    h, w = ctx.shape
+    count("render.pixels", h * w)
     s = ctx.opts.supersample
     if s > 1 and ctx.opts.supersample_scheme == "corners":
+        count("render.samples", (h + 1) * (w + 1) + h * w)
+        count("render.walks", 2)
         total = _corners_sum(ctx, fdef, uservals)
         planes, inv = [total[..., c] for c in range(4)], 0.2
     else:
+        count("render.samples", s * s * h * w)
+        count("render.walks", s * s)
         planes = None
         for dx, dy in subpixel_offsets(s):
             comps = _eval_rgba(ctx, fdef, uservals, dx, dy)

@@ -52,7 +52,11 @@ each loop whose probe outcome its memo answered, with no `mm.loop.probe`
 (runtime/loops.py::probe_outcome), `literal.cached` for each constant
 read from the device's cache (utils/constants.py),
 `render.pixels` for the output pixels of each frame, tile or region
-`render_frame` renders, and `noise.points` for the points each `noise`
+`render_frame` renders, `render.samples` for the points its walks evaluate
+(s²·h·w under supersample s on the grid scheme, (h+1)(w+1) + h·w under
+corners, h·w with supersampling off; over `render.pixels`, the samples a
+pixel costs) and `render.walks` for its walks of the body (s², 2 or 1;
+each an `mm.evaluate`), and `noise.points` for the points each `noise`
 call evaluates (its broadcast result's elements; over `render.pixels`,
 the Perlin evaluations a pixel costs), and of them `noise.kernel_points`
 those kernel B6 evaluated (every call on the card), `shard.tiles` for

@@ -134,7 +134,7 @@ def test_the_static_unroll_hands_the_exported_loop_its_steps(exported):
     counters = since(before)["counters"]
     counters.pop("literal.cached", None)  # the constants already on the device
     assert counters == {"loop.masked": 1, "loop.masked.steps": 6, "probe.cached": 1,
-                        "render.pixels": W * H}
+                        "render.pixels": W * H, "render.samples": W * H, "render.walks": 1}
     assert _while_loops(art) == 1
     assert torch.equal(art.render(), want)
 

@@ -20,10 +20,13 @@ warm 4K voronoi frame whose loops' memos answer their probes (18 B6
 launches where a cold frame makes 32), equal to a cold frame bit for bit; a
 4K ripple sweep through render_sharded over every card, and over a mesh
 of one card, equal to the one-card animation bit for bit, with the bytes
-that cross cards counted.
+that cross cards counted; a 1080p 120-frame ripple sweep at 2x2 grid
+supersampling equal to its frames' lone renders bit for bit and to the
+benchmark's plain reference within 1e-4.
 
 They carry the `cuda` marker and skip without a GPU. This file imports only
-torch, numpy and the port, so it also runs on a GPU machine without jax:
+torch, numpy and the port (and, inside one test, the benchmark's plain
+torch reference), so it also runs on a GPU machine without jax:
 
     python -m pytest tests/test_torch_cuda.py -m cuda -q --noconftest
 """
@@ -1002,3 +1005,34 @@ def test_cuda_a_sharded_voronoi_shares_its_probes_across_cards(cuda):
         want = mt.compile_file(path).render(width=64, height=16 * n, t=t, device=first)
         assert torch.equal(out.view(torch.int32), want.view(torch.int32))
     assert got == [(32 + 18 * (n - 1), 4 * (n - 1), 5), (18 * n, 4 * n, 0)]
+
+
+def test_cuda_1080p_antialiased_sweep_equals_its_lone_renders_and_the_reference(cuda):
+    """The cell ripple_anim_1080p's call: a 120-frame 1920x1080 ripple
+    t-sweep through render_animation at supersample 2 (the 2x2 grid) over
+    the cell's textured input. Frames 0, 57 and 119 each equal the lone
+    render at the sweep's float32 t bit for bit, and lie within the cell's
+    1e-4 of the benchmark's plain reference (bench_torch/reference/
+    supersample.py, plain torch) on the card; every frame walks the body
+    four times and evaluates four samples a pixel."""
+    from bench_torch.harness import images
+    from bench_torch.reference import supersample
+
+    w, h, frames, seed = 1920, 1080, 120, 2**31 + 5
+    ripple = mt.compile_file(os.path.join(ROOT, "filters", "Distorts", "ripple.mm"))
+    img = images.textured(images.smooth_image(w, h, seed, cuda), 16, seed)
+    params = {"amplitude": 5.5, "wavelength": 45.0}
+    opts = mt.RenderOptions(supersample=2)
+    before = snapshot()
+    sweep = ripple.render_animation(img, num_frames=frames, params=params, options=opts,
+                                    device=cuda)
+    torch.cuda.synchronize()
+    counters = since(before)["counters"]
+    assert counters["render.walks"] == 4 * frames
+    assert counters["render.samples"] == 4 * counters["render.pixels"] == 4 * frames * w * h
+    ts = np.arange(frames, dtype=np.float32) / frames
+    for i in (0, 57, 119):
+        lone = ripple.render(img, t=float(ts[i]), params=params, options=opts, device=cuda)
+        assert torch.equal(sweep[i], lone), i
+        want = supersample.ripple(params, float(ts[i]), w, h, img, torch.float32, cuda)
+        assert float((sweep[i] - want).abs().max()) <= 1e-4, i
