@@ -92,7 +92,9 @@ Phases, each printing its own lines:
 13. animation path (BASELINE config 4, benchmarks/run_configs.py: "4x AA"
    is RenderOptions(supersample=2), a 2x2 grid of subsamples a pixel):
    ripple at 1920x1080 through Filter.render_animation(num_frames=120),
-   one B1 launch a subsample of every frame; frames 0, 37 and 119 equal to
+   one B1 launch a frame (its four subsamples stacked in one walk), equal
+   bit for bit to the sweep walked once per subsample (four launches a
+   frame); frames 0, 37 and 119 equal to
    render(t=..., frame=...) bit for bit, frame 37 against the CPU port,
    render_frames yielding the same frames;
 14. animated inputs: an 8-frame 1080p u8 stack on the card; origVal(xy)
@@ -1802,24 +1804,48 @@ def time_batch(mt, dev, filters, card):
 def phase_animation(mt, K, dev, filters):
     """BASELINE config 4: ripple at 1920x1080 with supersample=2 through
     Filter.render_animation(num_frames=120) on a smooth seeded u8 image on
-    the card: one B1 launch a subsample of every frame; frames 0, 37 and
-    119 equal render(t=..., frame=...) bit for bit, frame 37 matches the
-    port's CPU render (rtol=1e-4, atol=1e-5), render_frames yields the same
-    frames (time_animation times the sweep)."""
+    the card: one B1 launch a walk of the body, a walk taking as many of a
+    frame's subsamples, stacked, as runtime/render.py's WALK_POINTS allows
+    (all four here: one launch a frame); the sweep equals the same sweep
+    walked once per subsample (WALK_POINTS set to h·w: four launches a
+    frame) bit for bit; frames 0, 37 and 119 equal render(t=..., frame=...)
+    bit for bit, frame 37 matches the port's CPU render (rtol=1e-4,
+    atol=1e-5), render_frames yields the same frames (time_animation times
+    the sweep)."""
+    from mathmap_tpu_torch.runtime import render as R
+
     w, h = SIZES[0]
     _, u8 = smooth_image(w, h, seed=15)
     img = torch.from_numpy(u8).to(dev)
     f = filters["ripple"]
     opts = mt.RenderOptions(supersample=ANIMATION_SUPERSAMPLE)
     n = ANIMATION_FRAMES
-    before = launch_count(LAUNCH_B1)
-    out = f.render_animation(img, num_frames=n, options=opts, device=dev)
-    torch.cuda.synchronize()
-    launches = launch_count(LAUNCH_B1) - before
     tag = f"animation ripple {w}x{h} supersample={ANIMATION_SUPERSAMPLE}, {n} frames"
-    per_frame = ANIMATION_SUPERSAMPLE ** 2
-    if launches != n * per_frame:
-        raise AssertionError(f"{tag}: {launches} B1 launches, expected {n} x {per_frame}")
+    subsamples = ANIMATION_SUPERSAMPLE ** 2
+
+    def sweep(walk_points):
+        """The sweep with `walk_points` a walk -> (frames, B1 launches a frame)."""
+        old, R.WALK_POINTS = R.WALK_POINTS, walk_points
+        try:
+            before = launch_count(LAUNCH_B1)
+            frames = f.render_animation(img, num_frames=n, options=opts, device=dev)
+            torch.cuda.synchronize()
+        finally:
+            R.WALK_POINTS = old
+        launches = launch_count(LAUNCH_B1) - before
+        per_walk = max(1, min(subsamples, walk_points // (w * h)))
+        per_frame = -(-subsamples // per_walk)
+        if launches != n * per_frame:
+            raise AssertionError(f"{tag}: {launches} B1 launches at {walk_points} points a "
+                                 f"walk, expected {n} x {per_frame}")
+        return frames, per_frame
+
+    per_walk_out, per_walk_launches = sweep(w * h)
+    out, per_frame = sweep(R.WALK_POINTS)
+    launches = n * per_frame
+    if not torch.equal(out.view(torch.int32), per_walk_out.view(torch.int32)):
+        raise AssertionError(f"{tag}: the stacked sweep differs from the per-walk sweep")
+    del per_walk_out
     if tuple(out.shape) != (n, h, w, 4) or not bool(torch.isfinite(out).all()):
         raise AssertionError(f"{tag}: bad output {tuple(out.shape)}")
     ts = np.arange(n, dtype=np.float32) / n
@@ -1836,7 +1862,9 @@ def phase_animation(mt, K, dev, filters):
     if differ:
         raise AssertionError(f"{tag}: render_frames differs from render_animation at "
                              f"{differ} frames")
-    print(f"{tag}: {launches} B1 launches ({per_frame} subsamples x {n} frames, one each); "
+    print(f"{tag}: {launches} B1 launches ({per_frame} walk(s) of {subsamples // per_frame} "
+          f"stacked subsamples x {n} frames), equal bit for bit to the sweep walked once per "
+          f"subsample ({per_walk_launches} x {n} launches); "
           f"frames 0, 37, {n - 1} equal their lone renders bit for bit; frame 37 vs the CPU "
           f"render max abs err {err:.3e}, {n_px} pixels differ; render_frames yields the "
           f"same {n} frames")

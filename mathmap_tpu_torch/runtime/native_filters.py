@@ -16,6 +16,7 @@ kernel replaces it. A render caches each blur by its source tensor.
 from __future__ import annotations
 
 import math
+from dataclasses import replace
 
 import numpy as np
 import torch
@@ -87,10 +88,20 @@ def native_gaussian_blur(ev, img_value, stddev_value, span):
             "'gaussian_blur' is not supported under tiled/halo rendering "
             "— render unsharded or shard by frames", span)
     if not isinstance(base, InputImage):
-        # a closure image is rasterised over the output grid first
+        # a closure image is rasterised over the output grid first: in a
+        # stacked walk of subsamples (runtime/render.py), over one
+        # subsample's (h, w) grid at the pixel centres, as a per-walk frame
+        # rasterises it, so the blur matches it bit for bit
         from .render import coordinate_grids
+        from .tracer import Evaluator
 
-        x, y = coordinate_grids(ev.ctx)
+        ctx = ev.ctx
+        if ctx.stacked > 1:
+            h, w = ctx.shape
+            ctx = replace(ctx, grid_shape=(h // ctx.stacked, w), stacked=1)
+        x, y = coordinate_grids(ctx)
+        if ctx is not ev.ctx:
+            ev = Evaluator(ctx, x, y, ev.env, ev.salt_extra)
         comps = base.sample(ev, x, y)
         base = InputImage(pixels=torch.stack([ev.grid(c) for c in comps], dim=-1),
                           name="rasterized")

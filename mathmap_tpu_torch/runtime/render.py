@@ -1,12 +1,15 @@
 """Render engine (the port of the (H, W) path of
 `mathmap_tpu/runtime/render.py`).
 
-One render evaluates the filter once over the whole (H, W) grid per
-subsample (runtime.tracer), sums the s×s grid subsamples (or, under
-supersample_scheme='corners', the four corners and the centre of each
-pixel), and finishes the frame in kernel B5 (kernels/finish_rgba.py):
-scaled by the samples' weight, clipped to [0, 1] and optionally packed to
-uint8 on the device. A
+One render evaluates the filter over the whole (H, W) grid
+(runtime.tracer): once without supersampling; once over the s×s grid
+subsamples stacked on the row axis, whose row blocks it then sums (or in
+a few walks of such stacks, where a frame holds more than WALK_POINTS
+subsample points, or once per subsample where the filter draws rand() or
+renders the float64 spec); twice under supersample_scheme='corners' (the
+four corners and the centre of each pixel). It finishes the frame in
+kernel B5 (kernels/finish_rgba.py): scaled by the samples' weight,
+clipped to [0, 1] and optionally packed to uint8 on the device. A
 region render evaluates only the region's (h, w) grid at its offset, with
 the full canvas's coordinates, so it is the full render's crop bit for
 bit. PyTorch runs eagerly,
@@ -43,6 +46,34 @@ _EVALUATE = span("mm.evaluate")
 _LITERAL = span("mm.sync.literal")
 
 
+#: the most points one walk of the body evaluates in a stacked walk of
+#: subsamples (render_frame): a walk's temporaries grow with its points,
+#: so this bounds their peak memory. On an H100 a ripple frame at 4K and
+#: s = 3 (walks of 4, 4 and 1 subsamples, 33.2 M points the largest)
+#: peaked 1.59 GB above its inputs, 0.47 GB walked once per subsample
+WALK_POINTS = 2 ** 25
+
+
+def _offset_axes(ctx: RenderContext, offsets):
+    """The (w,) column and (h,) row world coordinates of ctx's grid at
+    each subpixel offset (dx, dy) in `offsets` -> ([x], [y]), in the
+    reference's order of operations (arange + (0.5 + dx) - W/2, and
+    H/2 - (arange + (0.5 + dy))); offsets that share a dx (a dy) share
+    its vector. The offsets are constants of the geometry
+    (utils/constants.py)."""
+    h, w = ctx.shape
+    dt, dev = ctx.dtype, ctx.device
+    half_w = constant(_LITERAL, ctx.width * 0.5, dt, dev)
+    half_h = constant(_LITERAL, ctx.height * 0.5, dt, dev)
+    cols = torch.arange(ctx.col_offset, ctx.col_offset + w, dtype=dt, device=dev)
+    rows = torch.arange(ctx.row_offset, ctx.row_offset + h, dtype=dt, device=dev)
+    xs = {dx: cols + constant(_LITERAL, 0.5 + dx, dt, dev) - half_w
+          for dx in dict.fromkeys(dx for dx, _ in offsets)}
+    ys = {dy: half_h - (rows + constant(_LITERAL, 0.5 + dy, dt, dev))
+          for dy in dict.fromkeys(dy for _, dy in offsets)}
+    return [xs[dx] for dx, _ in offsets], [ys[dy] for _, dy in offsets]
+
+
 def coordinate_grids(ctx: RenderContext, dx: float = 0.0, dy: float = 0.0):
     """Centered world-coordinate grids: GLOBAL pixel (row j, col i) center
     at (i + 0.5 - W/2, H/2 - 0.5 - j), y pointing up. (dx, dy) are subpixel
@@ -53,19 +84,19 @@ def coordinate_grids(ctx: RenderContext, dx: float = 0.0, dy: float = 0.0):
     whole frame's: the integer-valued aranges start at the offset, which
     equals adding it."""
     h, w = ctx.shape
-    dt, dev = ctx.dtype, ctx.device
-    # the four offsets are constants of the geometry (utils/constants.py)
-    x_off = constant(_LITERAL, 0.5 + dx, dt, dev)
-    half_w = constant(_LITERAL, ctx.width * 0.5, dt, dev)
-    half_h = constant(_LITERAL, ctx.height * 0.5, dt, dev)
-    y_off = constant(_LITERAL, 0.5 + dy, dt, dev)
-    cols = torch.arange(ctx.col_offset, ctx.col_offset + w, dtype=dt, device=dev)
-    rows = torch.arange(ctx.row_offset, ctx.row_offset + h, dtype=dt, device=dev)
-    xs = cols + x_off - half_w
-    ys = half_h - (rows + y_off)
-    x = torch.broadcast_to(xs[None, :], (h, w))
-    y = torch.broadcast_to(ys[:, None], (h, w))
-    return x, y
+    (xs,), (ys,) = _offset_axes(ctx, [(dx, dy)])
+    return torch.broadcast_to(xs[None, :], (h, w)), torch.broadcast_to(ys[:, None], (h, w))
+
+
+def stacked_grids(ctx: RenderContext, offsets):
+    """`coordinate_grids` of each subpixel offset in `offsets`, stacked on
+    the row axis -> (x, y), each (k·h, w) for k offsets: row block i holds
+    offset i's grids, the same floats. y is a broadcast view of one
+    (k·h,) vector, x one concatenation."""
+    h, w = ctx.shape
+    xs, ys = _offset_axes(ctx, offsets)
+    x = torch.cat([torch.broadcast_to(v[None, :], (h, w)) for v in xs])
+    return x, torch.broadcast_to(torch.cat(ys)[:, None], x.shape)
 
 
 def resolve_region(opts, width: int, height: int):
@@ -161,15 +192,68 @@ def _corners_sum(ctx: RenderContext, fdef: A.FilterDef, uservals: dict) -> torch
             + corner[1:, 1:] + center)
 
 
+def _eval_stacked(ctx: RenderContext, fdef: A.FilterDef, uservals: dict,
+                  offsets) -> list:
+    """One unclipped evaluation of the filter over the grids of the
+    subpixel `offsets` stacked on the row axis (`stacked_grids`) -> each
+    offset's 4 channel grids, in order: views of the walk's row blocks.
+    W/H, the tile's offsets and world coordinates keep ctx's frame."""
+    h, w = ctx.shape
+    sub = replace(ctx, grid_shape=(len(offsets) * h, w), stacked=len(offsets))
+    with _EVALUATE:
+        x, y = stacked_grids(ctx, offsets)
+        env = build_env(sub, fdef, uservals)
+        ev = Evaluator(sub, x, y, env)
+        comps = coerce_rgba(ev, ev.eval(fdef.body), fdef)
+    ctx.rand_counter = sub.rand_counter
+    ctx.rand_loop_nonce = sub.rand_loop_nonce
+    return [[c[i * h:(i + 1) * h] for c in comps] for i in range(len(offsets))]
+
+
+def uses_rand(filters: dict, fdef: A.FilterDef) -> bool:
+    """Whether `fdef` (or any filter it calls) draws rand(): such filters
+    keep one walk per subsample, since a draw is keyed on the pixel and
+    the walk's counter."""
+    seen = set()
+
+    def walk_def(fd):
+        if fd.name in seen:
+            return False
+        seen.add(fd.name)
+        for sub in A.walk(fd.body):
+            if isinstance(sub, A.Call) and isinstance(sub.func, A.Var):
+                if sub.func.name == "rand":
+                    return True
+                called = filters.get(sub.func.name)
+                if called is not None and walk_def(called):
+                    return True
+        return False
+
+    return walk_def(fdef)
+
+
+def subsamples_per_walk(ctx: RenderContext, fdef: A.FilterDef, s: int) -> int:
+    """How many of a frame's s² grid subsamples one walk of the body
+    evaluates: as many as fit WALK_POINTS, at least one; one where s is 1,
+    in the float64 spec render, or where the filter draws rand()."""
+    if s == 1 or ctx.dtype == torch.float64 or uses_rand(ctx.filters, fdef):
+        return 1
+    h, w = ctx.shape
+    return max(1, min(s * s, WALK_POINTS // max(h * w, 1)))
+
+
 def render_frame(ctx: RenderContext, fdef: A.FilterDef, uservals: dict,
                  out: torch.Tensor | None = None):
     """Render one frame, one tile of it or one region of it -> ctx.shape +
     (4,) in [0,1], float32 (float64 in the float64 spec render), or uint8
     when opts.output_dtype='uint8', written into `out` when given.
 
-    Every frame finishes (scale by the samples' weight, clamp, interleave,
-    pack) in one call of kernel B5's `finish_rgba`, on the CPU its plain
-    version. Its output pixels add to `render.pixels`, the points its walks
+    The grid scheme walks its s² subsamples in order, as many a walk as
+    `subsamples_per_walk` allows, and adds their planes in subsample
+    order, so the frame is the same whatever the walks. Every frame
+    finishes (scale by the samples' weight, clamp, interleave, pack) in
+    one call of kernel B5's `finish_rgba`, on the CPU its plain version.
+    Its output pixels add to `render.pixels`, the points its walks
     evaluate to `render.samples` and its walks of the body to
     `render.walks`."""
     h, w = ctx.shape
@@ -182,11 +266,16 @@ def render_frame(ctx: RenderContext, fdef: A.FilterDef, uservals: dict,
         planes, inv = [total[..., c] for c in range(4)], 0.2
     else:
         count("render.samples", s * s * h * w)
-        count("render.walks", s * s)
+        offsets = subpixel_offsets(s)
+        per_walk = subsamples_per_walk(ctx, fdef, s)
         planes = None
-        for dx, dy in subpixel_offsets(s):
-            comps = _eval_rgba(ctx, fdef, uservals, dx, dy)
-            planes = list(comps) if planes is None else [a + c for a, c in zip(planes, comps)]
+        for k in range(0, len(offsets), per_walk):
+            group = offsets[k:k + per_walk]
+            count("render.walks")
+            samples = ([_eval_rgba(ctx, fdef, uservals, *group[0])] if len(group) == 1
+                       else _eval_stacked(ctx, fdef, uservals, group))
+            for comps in samples:
+                planes = list(comps) if planes is None else [a + c for a, c in zip(planes, comps)]
         inv = 1.0 / (s * s)
     return B5.finish_rgba(planes, inv, ctx.opts.output_dtype == "uint8", out)
 

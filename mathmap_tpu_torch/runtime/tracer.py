@@ -131,6 +131,9 @@ class RenderContext:
     #: the tile's global (row, col) origin
     row_offset: int = 0
     col_offset: int = 0
+    #: the subsample grids stacked on the rows of this walk's grid_shape
+    #: (runtime/render.py::stacked_grids), each 1/stacked of its rows
+    stacked: int = 1
     #: rand() draws so far: the next draw takes the next counter
     rand_counter: int = 0
     #: loops begun at this level so far; offsets a loop's counters, so two

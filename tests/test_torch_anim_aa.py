@@ -15,8 +15,9 @@ edges) over the cell's textured input.
   least 100 times the cell's `worst_abs` limit: the texture makes the
   comparison see where the subsamples lie.
 - The render layer's counters: `render.samples` s²·h·w (grid),
-  (h+1)(w+1) + h·w (corners) or h·w (off) a frame, `render.walks` s², 2 or
-  1, and F times that for an F-frame animation.
+  (h+1)(w+1) + h·w (corners) or h·w (off) a frame, `render.walks` 1 (the
+  grid's subsamples stacked in one walk), s² (a grid filter that draws
+  rand()), 2 or 1, and F times that for an F-frame animation.
 """
 
 import contextlib
@@ -127,20 +128,25 @@ def test_other_sampling_misses_the_reference_by_100x_the_limit(name, fields):
     assert numbers["worst_abs"] >= 100 * _cell().settings["limits"]["worst_abs"], numbers
 
 
+#: ripple.mm with a rand() jitter of its displacement
+RAND_RIPPLE = """filter jittered (image in, float amplitude: 0-20 (5), float wavelength: 5-100 (40))
+  in(xy + xy:[amplitude * sin(r / wavelength * 6.2832) + rand(-0.5, 0.5), 0])
+end"""
 SCHEMES = [
-    (dict(supersample=2), 4 * H * W, 4),
-    (dict(supersample=3), 9 * H * W, 9),
-    (dict(supersample=2, supersample_scheme="corners"), (H + 1) * (W + 1) + H * W, 2),
-    (dict(supersample=3, supersample_scheme="corners"), (H + 1) * (W + 1) + H * W, 2),
-    (dict(supersample=1), H * W, 1),
+    (dict(supersample=2), 4 * H * W, 1, None),
+    (dict(supersample=3), 9 * H * W, 1, None),
+    (dict(supersample=2), 4 * H * W, 4, RAND_RIPPLE),
+    (dict(supersample=2, supersample_scheme="corners"), (H + 1) * (W + 1) + H * W, 2, None),
+    (dict(supersample=3, supersample_scheme="corners"), (H + 1) * (W + 1) + H * W, 2, None),
+    (dict(supersample=1), H * W, 1, None),
 ]
 
 
 @pytest.mark.parametrize("frames", [1, 3], ids=["render", "animation"])
-@pytest.mark.parametrize("fields,samples,walks", SCHEMES,
-                         ids=["grid2", "grid3", "corners2", "corners3", "off"])
-def test_the_render_layer_counts_samples_and_walks(fields, samples, walks, frames):
-    f = mt.compile_source(_spec("ripple")["source"])
+@pytest.mark.parametrize("fields,samples,walks,source", SCHEMES,
+                         ids=["grid2", "grid3", "grid2_rand", "corners2", "corners3", "off"])
+def test_the_render_layer_counts_samples_and_walks(fields, samples, walks, source, frames):
+    f = mt.compile_source(source or _spec("ripple")["source"])
     image, opts = _image(), _options(**fields)
     before = trace.snapshot()
     if frames == 1:

@@ -22,7 +22,8 @@ launches where a cold frame makes 32), equal to a cold frame bit for bit; a
 of one card, equal to the one-card animation bit for bit, with the bytes
 that cross cards counted; a 1080p 120-frame ripple sweep at 2x2 grid
 supersampling equal to its frames' lone renders bit for bit and to the
-benchmark's plain reference within 1e-4.
+benchmark's plain reference within 1e-4, and equal bit for bit to the
+same sweep walked once per subsample.
 
 They carry the `cuda` marker and skip without a GPU. This file imports only
 torch, numpy and the port (and, inside one test, the benchmark's plain
@@ -1014,7 +1015,8 @@ def test_cuda_1080p_antialiased_sweep_equals_its_lone_renders_and_the_reference(
     render at the sweep's float32 t bit for bit, and lie within the cell's
     1e-4 of the benchmark's plain reference (bench_torch/reference/
     supersample.py, plain torch) on the card; every frame walks the body
-    four times and evaluates four samples a pixel."""
+    once (its four subsamples stacked) and evaluates four samples a
+    pixel."""
     from bench_torch.harness import images
     from bench_torch.reference import supersample
 
@@ -1028,7 +1030,7 @@ def test_cuda_1080p_antialiased_sweep_equals_its_lone_renders_and_the_reference(
                                     device=cuda)
     torch.cuda.synchronize()
     counters = since(before)["counters"]
-    assert counters["render.walks"] == 4 * frames
+    assert counters["render.walks"] == frames
     assert counters["render.samples"] == 4 * counters["render.pixels"] == 4 * frames * w * h
     ts = np.arange(frames, dtype=np.float32) / frames
     for i in (0, 57, 119):
@@ -1036,3 +1038,63 @@ def test_cuda_1080p_antialiased_sweep_equals_its_lone_renders_and_the_reference(
         assert torch.equal(sweep[i], lone), i
         want = supersample.ripple(params, float(ts[i]), w, h, img, torch.float32, cuda)
         assert float((sweep[i] - want).abs().max()) <= 1e-4, i
+
+
+def test_cuda_stacked_1080p_sweep_equals_the_per_walk_sweep(cuda, monkeypatch):
+    """The cell ripple_anim_1080p's call with the four subsamples stacked
+    in one walk a frame equals the same sweep walked once per subsample
+    (runtime/render.py::WALK_POINTS set to one subsample's points) bit for
+    bit on the card, with 1 and 4 walks a frame; a 4K frame at s = 3 (walks
+    of 4, 4 and 1) equals its per-walk frame too. It prints the 4K frame's
+    peak memory above what was allocated before it, stacked and per walk:
+    a walk of four 4K subsamples (33.2 M points, just under WALK_POINTS)
+    is the largest a frame makes, and must stay within half the card."""
+    from bench_torch.harness import images
+
+    from mathmap_tpu_torch.runtime import render as R
+
+    w, h, frames, seed = 1920, 1080, 120, 2**31 + 9
+    ripple = mt.compile_file(os.path.join(ROOT, "filters", "Distorts", "ripple.mm"))
+    img = images.textured(images.smooth_image(w, h, seed, cuda), 16, seed)
+    params = {"amplitude": 4.5, "wavelength": 55.0}
+    opts = mt.RenderOptions(supersample=2)
+
+    peaks = []
+
+    def walked(points, render):
+        with monkeypatch.context() as m:
+            if points is not None:
+                m.setattr(R, "WALK_POINTS", points)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(cuda)
+            base = torch.cuda.memory_allocated(cuda)
+            before = snapshot()
+            out = render()
+            torch.cuda.synchronize()
+            peaks.append(torch.cuda.max_memory_allocated(cuda) - base)
+            return out, since(before)["counters"]["render.walks"]
+
+    def sweep():
+        return ripple.render_animation(img, num_frames=frames, params=params,
+                                       options=opts, device=cuda)
+
+    stacked, walks = walked(None, sweep)
+    per_walk, per_walks = walked(w * h, sweep)
+    assert (walks, per_walks) == (frames, 4 * frames)
+    assert torch.equal(stacked.view(torch.int32), per_walk.view(torch.int32))
+    del stacked, per_walk
+
+    img4k = images.textured(images.smooth_image(3840, 2160, seed, cuda), 16, seed)
+
+    def frame():
+        return ripple.render(img4k, t=0.3, params=params, device=cuda,
+                             options=mt.RenderOptions(supersample=3))
+
+    grouped, walks = walked(None, frame)
+    one, one_walks = walked(3840 * 2160, frame)
+    assert (walks, one_walks) == (3, 9)
+    assert torch.equal(grouped.view(torch.int32), one.view(torch.int32))
+    total = torch.cuda.get_device_properties(cuda).total_memory
+    print(f"4K supersample=3 frame peak above its inputs: {peaks[-2]} bytes in walks of "
+          f"4, 4 and 1, {peaks[-1]} bytes in 9 walks of one ({total} on the card)")
+    assert peaks[-2] < total // 2
